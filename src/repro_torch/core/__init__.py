@@ -1,0 +1,6 @@
+"""Compiler and single-device runtime: front end, passes, back end, engine."""
+from .engine import Engine, EngineResult, EngineStats  # noqa: F401
+from .options import CompileOptions  # noqa: F401
+from .program import Program, ProgramError, compile  # noqa: F401,A004
+from .session import Session, SessionError  # noqa: F401
+from .target import Target  # noqa: F401

@@ -1,0 +1,102 @@
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+into ``build/repro_torch/<name>-<hash>.so`` at the repository root, where
+the hash covers the source, the shared headers and the flags: an edited
+source builds anew, an unchanged one is loaded as it is. The library is
+loaded with :mod:`ctypes`; the wrappers set the argument types.
+
+Nothing here runs when the package is imported: the first launch of a
+kernel builds it (about seconds with ``nvcc``, no PyTorch headers), and
+:func:`build` compiles several sources at once, one ``nvcc`` each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES: Tuple[str, ...] = ("shuffle_reduce", "edge_stream")
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$NVCC``, ``nvcc`` on PATH, or the
+    toolkit's default location."""
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, dict]:
+    """Compile every named source that is not built yet, all at once.
+
+    Returns ``{name: {"seconds": s, "log": compiler output, "cached": bool}}``
+    and raises if any compile fails. ``verbose`` adds ``-Xptxas=-v`` (the
+    registers, shared memory and spills of each kernel), which does not
+    change the binary and so is not part of the hash.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out: Dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = lib_path(name)
+        if path.exists():
+            out[name] = {"seconds": 0.0, "log": "", "cached": True}
+            continue
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        out[name] = {"seconds": time.perf_counter() - t0, "log": log, "cached": False}
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
+        return lib
