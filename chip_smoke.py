@@ -15,19 +15,33 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    a float ``+`` gives the same bits on two runs, and times kernel, plain
    version and (where one exists) a single PyTorch library call with CUDA
    events.
-4. Main path: ``repro_torch.compile(src).bind(g).run(**params)`` on the
+   The LM kernels (flash attention, MoE gather) are held to theirs at the
+   reference test shapes and at the LM path's shapes: Kimi-K2's decode
+   attention over the KV cache and a prefill-size causal attention, its
+   decode dispatch and a 4096-token prefill dispatch.
+4. Graph path: ``repro_torch.compile(src).bind(g).run(**params)`` on the
    card for BFS_ECP, PAGERANK and SSSP (one cold run, then five warm
    runs whose median is the warm time), each checked
-   against an independent numpy/scipy oracle, with both kernels' launch
-   counters set to 0 before and read after. One more warm run of each
-   program under ``torch.profiler`` then shows where its time goes: the
-   device's busy and idle share and the kernels that took the most time.
-5. The last line is ``{"ok": true, "device": {...}}``.
+   against an independent numpy/scipy oracle, with both graph kernels'
+   launch counters set to 0 before and read after. One more warm run of
+   each program under ``torch.profiler`` then shows where its time goes:
+   the device's busy and idle share and the kernels that took the most
+   time. The graph sessions are freed after it.
+5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
+   depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
+   bf16), batch 4, prompt 16, generate 16 (the CLI defaults), twice,
+   with the LM kernels' launch counters set to 0 before and read after:
+   the two runs must give the same tokens and the logits must be finite.
+   Then qwen3-0.6b at its full config in float32: decode logits at every
+   prompt position must agree with the whole-sequence forward.
+6. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -37,14 +51,21 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 SSSP_INF = 1073741823  # the SSSP program's INF
 EDGE_FACTOR = 32  # edges per vertex of the paper's RMAT graphs (rmat-19-32)
 WARM_RUNS = 5  # warm runs per program; warm_s is their median (host clocks vary)
 PAGERANK_RTOL = 1e-4  # float32 engine vs float64 oracle after 20 iterations
 PAGERANK_ATOL = 1e-10
+FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}  # tests/test_kernels.py's tolerances
+KIMI, KIMI_LAYERS = "kimi-k2-1t-a32b", 2  # full width, depth cut to 1 dense + 1 MoE layer
+QWEN = "qwen3-0.6b"  # the serving CLI's default arch, full config
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16  # the serving CLI's defaults
+DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
 
 
 def log(obj) -> None:
@@ -72,17 +93,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_run(sess, params: dict, top: int = 6) -> dict:
-    """One more warm run under ``torch.profiler``: its wall time, the time
-    the device was busy (kernel intervals merged), and the kernels that
-    took the most device time. The profiler slows the host, so the idle
-    share it gives is an upper bound of the unprofiled run's."""
+def profile_run(run, top: int = 6) -> dict:
+    """One more warm ``run()`` under ``torch.profiler``: its wall time, the
+    time the device was busy (kernel intervals merged), and the kernels
+    that took the most device time. The profiler slows the host, so the
+    idle share it gives is an upper bound of the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.run(**params)
+        run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -108,11 +129,12 @@ def profile_run(sess, params: dict, top: int = 6) -> dict:
     }
 
 
-def bound(n_bytes: int, n_ops: int):
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
     """Least time the card could take: bytes over HBM rate vs operations
-    over the float32 rate; returns (ms, which one bounds)."""
+    over the peak rate of their type (float32 by default); returns (ms,
+    which one bounds)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -277,6 +299,275 @@ def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
     return rows
 
 
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Attention kernel vs plain version within the reference tests'
+    tolerance of the dtype; returns the max abs error."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (name, got.shape, want.shape)
+    assert torch.isfinite(got).all(), f"{name}: non-finite output"
+    err = float((got.float() - want.float()).abs().max())
+    tol = FA_TOL[got.dtype]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    assert ok, f"{name}: max abs error {err} outside {tol}"
+    return err
+
+
+def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
+    """The LM kernels at the reference test shapes (tests/test_kernels.py),
+    kernel vs plain: attention in float32 and bf16, the gather exactly."""
+    rng = np.random.default_rng(1)
+    n_cases = 0
+    max_err = {"flash_attention_float32": 0.0, "flash_attention_bfloat16": 0.0,
+               "moe_gather": 0.0}
+    for b, h, hkv, lq, lk, dh in [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64),
+                                  (1, 4, 1, 1, 256, 64), (1, 2, 2, 100, 100, 32)]:
+        for causal, window in [(True, 0), (False, 0), (True, 48)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                           .to(dev, dtype) for shape in
+                           [(b, h, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)])
+                err = check_close(f"flash_attention {b, h, hkv, lq, lk, dh} causal={causal} "
+                                  f"window={window} {dtype}",
+                                  fa.flash_attention(q, k, v, causal, window),
+                                  ref.flash_attention_ref(q, k, v, causal, window))
+                key = f"flash_attention_{str(dtype).split('.')[-1]}"
+                max_err[key] = max(max_err[key], err)
+                n_cases += 1
+    for e, c, d, bc in [(8, 256, 64, 128), (4, 128, 32, 128), (16, 512, 128, 128)]:
+        sizes = np.minimum(rng.multinomial(e * c // 2, np.ones(e) / e), c).astype(np.int32)
+        aligned = ((sizes + bc - 1) // bc) * bc
+        offs = np.zeros(e, np.int32)
+        offs[1:] = np.cumsum(aligned)[:-1]
+        tok = torch.from_numpy(rng.normal(size=(int(offs[-1] + aligned[-1]), d))
+                               .astype(np.float32)).to(dev)
+        offs_t, sizes_t = torch.from_numpy(offs).to(dev), torch.from_numpy(sizes).to(dev)
+        got = md.moe_gather(tok, offs_t, sizes_t, c)
+        want = ref.moe_gather_ref(tok[None], None, offs_t[None], sizes_t[None], c)[0]
+        assert torch.equal(got, want), f"moe_gather e={e} c={c} d={d}: not exact"
+        n_cases += 1
+    return {"cases": n_cases, "max_abs_err": max_err}
+
+
+def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int) -> dict:
+    """Kernel vs plain at one shape, timed beside the library call that
+    computes the same function (SDPA with GQA; at Lq = 1 over the whole
+    cache every key is visible, so it is called without a causal mask,
+    whose alignment differs). ``pairs`` is the unmasked (query, key)
+    pairs of each head: 4 * Dh FLOPs each (two products)."""
+    b, h, lq, dh = q.shape
+    err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)}",
+                      fa.flash_attention(q, k, v, causal), ref.flash_attention_ref(q, k, v, causal))
+    lib_causal = causal and lq > 1
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=lib_causal, enable_gqa=True)
+    check_close("scaled_dot_product_attention", lib, fa.flash_attention(q, k, v, causal))
+    n_bytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
+    b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * dh, BF16_OPS_PER_S)
+    return {
+        "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, causal)),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
+                            iters=plain_iters, warmup=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=lib_causal, enable_gqa=True)),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True)",
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+        "shape": {"q": list(q.shape), "kv": list(k.shape), "q_strides": list(q.stride()),
+                  "kv_strides": list(k.stride()), "dtype": str(q.dtype), "causal": causal},
+    }
+
+
+def _dispatch_row(md, ref, moe_mod, cfg, n_tokens: int, gen, plain_iters: int) -> dict:
+    """The MoE layer's dispatch of ``n_tokens`` tokens (its own groups,
+    capacity and routing plan for random top-k experts), kernel vs plain
+    (exact), beside ``index_select`` over a zero-padded token table with a
+    precomputed slot -> row map (the library call for the same gather)."""
+    dev = gen.device
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    g = moe_mod._dispatch_groups(n_tokens)
+    tg = n_tokens // g
+    cap = int(max(1, math.ceil(cfg.moe_capacity_factor * tg * k / e)))
+    x = torch.randn(g, tg, d, generator=gen, device=dev).bfloat16()
+    top_e = torch.rand(g, tg, e, generator=gen, device=dev).topk(k, dim=-1).indices
+    _, order, offsets, sizes = moe_mod.route(top_e, e, cap)
+    rows = (order // k).to(torch.int32)
+    offsets, sizes = offsets.to(torch.int32), sizes.to(torch.int32)
+    got = md.moe_gather(x, offsets, sizes, cap, rows)
+    assert torch.equal(got, ref.moe_gather_ref(x, rows, offsets, sizes, cap)), \
+        f"moe_gather {n_tokens} tokens: not exact"
+    # the library form: one index_select over [x; 0] with a slot -> row map
+    c = torch.arange(cap, device=dev)
+    slot = (offsets.long()[..., None] + c).clamp(max=tg * k - 1)
+    row = rows.long().gather(1, slot.reshape(g, -1)).reshape(slot.shape)
+    live = c < sizes.long()[..., None]
+    flat = torch.where(live, row + tg * torch.arange(g, device=dev)[:, None, None], g * tg)
+    flat = flat.reshape(-1)
+    table = torch.cat([x.reshape(g * tg, d), torch.zeros(1, d, dtype=x.dtype, device=dev)])
+    assert torch.equal(torch.index_select(table, 0, flat).reshape(got.shape), got)
+    live_rows = int(sizes.sum())
+    read_rows = int(torch.unique(flat[flat < g * tg]).numel())  # token rows the run needs
+    n_bytes = got.numel() * 2 + read_rows * d * 2 + 4 * (2 * g * e + live_rows)
+    b_ms, b_by = bound(n_bytes, 0)
+    return {
+        "kernel_ms": time_ms(lambda: md.moe_gather(x, offsets, sizes, cap, rows)),
+        "plain_ms": time_ms(lambda: ref.moe_gather_ref(x, rows, offsets, sizes, cap),
+                            iters=plain_iters, warmup=1),
+        "library_ms": time_ms(lambda: torch.index_select(table, 0, flat)),
+        "library_call": "torch.index_select (slot -> row map precomputed)",
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+        "shape": {"tokens": n_tokens, "groups": g, "experts": e, "capacity": cap, "d": d,
+                  "out": list(got.shape), "live_rows": live_rows, "token_rows_read": read_rows,
+                  "dtype": "bfloat16"},
+    }
+
+
+def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
+    """Each LM kernel at the Kimi-K2 path's shapes: the last decode step's
+    attention (one query per head over the 32-slot cache, read in its
+    [B, buf, Hkv, Dh] layout), a prefill-size causal attention, the decode
+    step's dispatch and a 4096-token prefill dispatch."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    buf = LM_PROMPT + LM_GEN
+    q = torch.randn(LM_BATCH, 1, h, dh, generator=gen, device=dev).bfloat16()
+    ck, cv = (torch.randn(LM_BATCH, buf, hkv, dh, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    rows = {"flash_attention": _attention_row(
+        fa, ref, q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), True, buf, 20)}
+    s = 2048
+    q, k, v = (torch.randn(1, n, s, dh, generator=gen, device=dev).bfloat16()
+               for n in (h, hkv, hkv))
+    rows["flash_attention_prefill"] = _attention_row(fa, ref, q, k, v, True, s * (s + 1) // 2, 3)
+    rows["moe_gather"] = _dispatch_row(md, ref, moe_mod, cfg, LM_BATCH, gen, 20)
+    rows["moe_gather_prefill"] = _dispatch_row(md, ref, moe_mod, cfg, 4096, gen, 3)
+    return rows
+
+
+def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
+    """Kimi-K2 at full width, depth cut to 2 layers, bf16: ``generate``
+    twice (batch 4, prompt 16, generate 16) plus one ``forward`` over the
+    prompts and one ``decode_step``, with the LM kernels' counters set to 0
+    just before and read just after."""
+    fa, md, get_config, Model, serve = repro_torch_mods
+    cfg = get_config(KIMI).scaled(n_layers=KIMI_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+
+    fa.LAUNCHES = 0
+    md.LAUNCHES = 0
+    step_s: list = []
+    t0 = time.perf_counter()
+    first = serve.generate(model, prompts, LM_GEN, step_s=step_s).cpu()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = serve.generate(model, prompts, LM_GEN).cpu()
+    second_s = time.perf_counter() - t0
+    logits, aux = model.forward(prompts)
+    step_logits, _ = model.decode_step(model.init_cache(LM_BATCH, 1), prompts[:, :1])
+    decode_aux = dict(model.last_aux)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.LAUNCHES, "moe_gather": md.LAUNCHES}
+
+    assert torch.equal(first, second), "Kimi-K2: two generate runs gave different tokens"
+    assert first.shape == (LM_BATCH, LM_GEN)
+    assert bool(((first >= 0) & (first < cfg.vocab_size)).all())
+    assert logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(step_logits).all(), \
+        "Kimi-K2: non-finite logits"
+    assert launches["flash_attention"] > 0, "flash_attention never launched on the LM path"
+    assert launches["moe_gather"] > 0, "moe_gather never launched on the LM path"
+    embed_bytes = model.embed.numel() * model.embed.element_size()
+    # bytes one decode step must read: every weight but the embedding table
+    # (of which it gathers LM_BATCH rows); the dense MoE einsum reads every expert
+    step_bytes = model.param_bytes() - embed_bytes + LM_BATCH * cfg.d_model * 2
+    median_ms = statistics.median(step_s) * 1e3
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "phase": "lm", "model": KIMI, "dtype": "bfloat16",
+        "config": {key: getattr(cfg, key) for key in (
+            "d_model", "n_layers", "first_dense_layers", "n_heads", "n_kv_heads", "head_dim",
+            "d_ff", "n_experts", "n_shared_experts", "top_k", "moe_d_ff", "vocab_size")},
+        "reduced": {"n_layers": [get_config(KIMI).n_layers, KIMI_LAYERS]},
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen_len": LM_GEN,
+        "param_bytes": model.param_bytes(), "init_s": init_s,
+        "decode_steps": len(step_s), "median_step_ms": median_ms,
+        "step_ms_min_max": [min(step_s) * 1e3, max(step_s) * 1e3],
+        "first_run_s": first_s, "second_run_s": second_s,
+        "tokens_per_s": LM_BATCH * (LM_PROMPT + LM_GEN) / second_s,
+        "step_weight_bytes": step_bytes, "step_bound_ms": bound_ms,
+        "step_bound_share": bound_ms / median_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "forward_drop_fraction": float(aux["drop_fraction"]),
+        "forward_load_balance_loss": float(aux["load_balance_loss"]),
+        "decode_drop_fraction": float(decode_aux["drop_fraction"]),
+        "tokens_identical": True, "tokens": first[:2].tolist(), "launches": launches,
+        "profile_decode_step": _profile_step(model, prompts),
+    }
+    del model, logits, step_logits
+    return row
+
+
+def _profile_step(model, prompts) -> dict:
+    """One warm decode step (at the last position of a full cache) under
+    the profiler: where a step's time goes, on the device and the host."""
+    cache = model.init_cache(prompts.shape[0], LM_PROMPT)
+    for t in range(LM_PROMPT - 1):
+        _, cache = model.decode_step(cache, prompts[:, t:t + 1])
+    return profile_run(lambda: model.decode_step(cache, prompts[:, -1:]), top=8)
+
+
+def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
+    """qwen3-0.6b at its full config in float32: ``generate`` timed as on
+    Kimi-K2, then decode logits at every position against the
+    whole-sequence forward (the kernel at Lq = 1 and at Lq = S), within
+    ``2e-3 * max(1, |logits|)``."""
+    fa, md, get_config, Model, serve = repro_torch_mods
+    cfg = get_config(QWEN)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed + 1)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    fa.LAUNCHES = 0
+    step_s: list = []
+    serve.generate(model, prompts, LM_GEN, step_s=step_s)
+    t0 = time.perf_counter()
+    serve.generate(model, prompts, LM_GEN).cpu()
+    run_s = time.perf_counter() - t0
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, LM_PROMPT))).to(dev)
+    full, _ = model.forward(toks)
+    cache = model.init_cache(2, LM_PROMPT)
+    worst = 0.0
+    for t in range(LM_PROMPT):
+        step, cache = model.decode_step(cache, toks[:, t:t + 1])
+        err = float((step[:, 0] - full[:, t]).abs().max())
+        scale = max(1.0, float(full[:, t].abs().max()))
+        assert err < DECODE_RTOL * scale, f"{QWEN} t={t}: decode vs forward {err} (scale {scale})"
+        worst = max(worst, err / scale)
+    assert torch.isfinite(full).all()
+    median_ms = statistics.median(step_s) * 1e3
+    bound_ms = model.param_bytes() / HBM_BYTES_PER_S * 1e3  # tied head: the table is read
+    row = {
+        "phase": "lm", "model": QWEN, "dtype": "float32", "reduced": {},
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen_len": LM_GEN,
+        "param_bytes": model.param_bytes(), "decode_steps": len(step_s),
+        "median_step_ms": median_ms, "step_ms_min_max": [min(step_s) * 1e3, max(step_s) * 1e3],
+        "tokens_per_s": LM_BATCH * (LM_PROMPT + LM_GEN) / run_s,
+        "step_bound_ms": bound_ms, "step_bound_share": bound_ms / median_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "decode_vs_forward": {"positions": LM_PROMPT, "max_err_over_scale": worst,
+                              "rtol": DECODE_RTOL},
+        "flash_attention_launches": fa.LAUNCHES,
+    }
+    assert fa.LAUNCHES > 0
+    row["profile_decode_step"] = _profile_step(model, prompts)
+    del model, full
+    return row
+
+
 # ---------------------------------------------------------------------------
 # oracles (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
@@ -351,9 +642,15 @@ def main() -> int:
     import repro_torch
     from repro_torch.algorithms import sources
     from repro_torch.graph import generators
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import edge_stream as es
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import shuffle_reduce as sr
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models import moe as moe_mod
 
     dev = "cuda"
     smi = subprocess.run(
@@ -396,6 +693,13 @@ def main() -> int:
     rows = main_shape_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev)
     for name, row in rows.items():
         log({"phase": "kernels", "kernel": name, **row})
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})
+    lm_rows = lm_main_shape_kernels(fa, md, ref, moe_mod, get_config(KIMI), dev)
+    for name, row in lm_rows.items():
+        log({"phase": "kernels", "kernel": name, **row})
+    rows.update(lm_rows)
     torch.cuda.synchronize()
 
     # -- 4. the main path ---------------------------------------------------
@@ -468,14 +772,31 @@ def main() -> int:
 
     # -- where a warm run's time goes (outside the counted main path) -------
     for name in results:
-        log({"phase": "profile", "program": name, **profile_run(sessions[name], params[name])})
+        log({"phase": "profile", "program": name,
+             **profile_run(lambda n=name: sessions[n].run(**params[n]))})
+    del sessions, eng, results
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # -- 5. summary ----------------------------------------------------------
+    # -- 5. the LM path -------------------------------------------------------
+    mods = (fa, md, get_config, Model, serve)
+    kimi = lm_phase(mods, dev, args.seed)
+    log(kimi)
+    launches.update(kimi["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(qwen_phase(mods, dev, args.seed))
+
+    # -- 6. summary ----------------------------------------------------------
     meta = {
         "shuffle_reduce": ("src/repro_torch/csrc/shuffle_reduce.cu",
                            "src/repro/kernels/shuffle_reduce.py:146"),
         "edge_stream": ("src/repro_torch/csrc/edge_stream.cu",
                         "src/repro/kernels/edge_stream.py:143"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:103"),
+        "moe_gather": ("src/repro_torch/csrc/moe_gather.cu",
+                       "src/repro/kernels/moe_dispatch.py:72"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -31,8 +31,8 @@ def resolve_device(device: Optional[str]) -> str:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise SessionError(
-                "no CUDA device is available; bind(..., device='cpu') runs the "
-                "plain PyTorch versions of the kernels on the CPU"
+                "no CUDA device is available; device='cpu' runs the plain "
+                "PyTorch versions of the kernels on the CPU"
             )
         return str(dev)
     if dev.type != "cpu":

@@ -1,2 +1,2 @@
 """Hand-written CUDA kernels and their plain PyTorch versions."""
-from . import edge_stream, ref, shuffle_reduce  # noqa: F401
+from . import edge_stream, flash_attention, moe_dispatch, ref, shuffle_reduce  # noqa: F401

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function here defines what its kernel computes. The wrappers in
-:mod:`.shuffle_reduce` and :mod:`.edge_stream` run these for tensors that
-lie on the CPU; the tests and ``chip_smoke.py`` hold each kernel against
+:mod:`.shuffle_reduce`, :mod:`.edge_stream`, :mod:`.flash_attention` and
+:mod:`.moe_dispatch` run these for tensors that lie on the CPU; the tests and ``chip_smoke.py`` hold each kernel against
 its plain version. They repeat the kernel's arithmetic and are no
 yardstick of speed.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -121,3 +124,70 @@ def edge_stream_gather_ref(
     upd = _apply(apply_op, sv, w)
     upd = torch.where(vact[src_s], upd, torch.full_like(upd, identity(reduce_op, upd.dtype)))
     return segment_reduce_ref(upd, offsets, reduce_op)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, H, Lq, Dh]
+    k: torch.Tensor,  # [B, Hkv, Lk, Dh]
+    v: torch.Tensor,  # [B, Hkv, Lk, Dh]
+    causal: bool = True,
+    window: int = 0,  # 0 = full; > 0 = sliding window
+) -> torch.Tensor:
+    """Softmax attention in float32, output in q's dtype.
+
+    Scale ``1/sqrt(Dh)``; query ``i`` sits at position ``Lk - Lq + i``
+    (decode alignment); causal keeps keys ``<=`` the query position, a
+    window keeps keys ``>`` position ``- window``; kv head ``h // (H / Hkv)``
+    serves query head ``h`` (GQA). A row whose keys are all masked comes
+    out 0: the softmax denominator is clamped at ``1e-30``, as the kernel
+    clamps it, where a plain softmax would give NaN.
+    """
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"flash_attention: {h} query heads over {hkv} kv heads")
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom
+    return out.to(q.dtype)
+
+
+def moe_gather_ref(
+    tokens: torch.Tensor,  # [G, T, D] token table of each group
+    rows: Optional[torch.Tensor],  # [G, R] token row of each stream slot, or None
+    offsets: torch.Tensor,  # [G, E] first stream slot of each expert
+    sizes: torch.Tensor,  # [G, E] live slots of each expert (<= capacity)
+    capacity: int,
+) -> torch.Tensor:
+    """Capacity-binned expert gather: ``[G, E, C, D]`` with
+    ``out[g, e, c] = tokens[g, rows[g, offsets[g, e] + c]]`` for
+    ``c < sizes[g, e]`` and zeros elsewhere (``rows=None``: the stream is
+    the token table itself, ``rows[g, s] = s``). Stream slots are clamped
+    into ``[0, R)`` and token rows into ``[0, T)``, as the kernel clamps
+    them."""
+    g, t, d = tokens.shape
+    e = offsets.shape[1]
+    n_stream = t if rows is None else rows.shape[1]
+    c = torch.arange(capacity, device=tokens.device)
+    slot = (offsets.long()[..., None] + c).clamp(0, max(n_stream - 1, 0))  # [G, E, C]
+    row = slot if rows is None else rows.long().gather(1, slot.reshape(g, -1)).reshape(slot.shape)
+    row = row.clamp(0, max(t - 1, 0))
+    out = tokens[torch.arange(g, device=tokens.device)[:, None], row.reshape(g, -1)]
+    live = (c < sizes.long()[..., None]).reshape(g, e * capacity, 1)
+    return torch.where(live, out, torch.zeros((), dtype=tokens.dtype,
+                                              device=tokens.device)).reshape(g, e, capacity, d)

@@ -109,6 +109,33 @@ def test_import_pulls_in_neither_jax_nor_reference():
     assert out.stdout.startswith("clean")
 
 
+def test_lm_stack_imports_neither_jax_nor_reference():
+    """The config registry imports its arch modules by name: the port's
+    copy must load ``repro_torch.configs.*``, never ``repro.configs.*``."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import repro_torch.models, repro_torch.configs, repro_torch.launch.serve\n"
+        "from repro_torch.configs import ARCH_IDS, get_config, smoke_config\n"
+        "cfgs = [get_config(a) for a in ARCH_IDS] + [smoke_config(a) for a in ARCH_IDS]\n"
+        "assert {type(c).__module__ for c in cfgs} == {'repro_torch.configs.base'}\n"
+        "m = repro_torch.models.Model(smoke_config('kimi-k2-1t-a32b'), torch.float32, 'cpu')\n"
+        "m.init(torch.Generator().manual_seed(0))\n"
+        "repro_torch.launch.serve.generate(m, torch.zeros(1, 2, dtype=torch.long), 2)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "arch = sorted(m for m in sys.modules if m.startswith('repro_torch.configs.'))\n"
+        "print('clean', len(arch))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("clean")
+    assert int(out.stdout.split()[1]) >= 12  # base, registry and the ten arch modules
+
+
 def test_sources_name_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

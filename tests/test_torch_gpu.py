@@ -7,19 +7,28 @@ port, so it runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held to its plain PyTorch version on the same inputs
-(integer-valued, so every summation order is exact), and each program to
-the same program on the CPU.
+(integer-valued for the reductions, so every summation order is exact;
+the gather exactly; attention within 2e-3 in float32 and 3e-2 in
+bfloat16, the reference tests' tolerances), each program to the same
+program on the CPU, and the LM path's decode to its own forward.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
 from repro_torch.algorithms import sources
+from repro_torch.configs import smoke_config
 from repro_torch.graph import generators
 from repro_torch.kernels import edge_stream as es
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_dispatch as md
 from repro_torch.kernels import ref
 from repro_torch.kernels import shuffle_reduce as sr
+from repro_torch.launch import serve
+from repro_torch.models import Model
 
 SR_SHAPES = [(64, 16), (1000, 300), (4096, 512), (513, 1024), (7, 5)]
 ES_SHAPES = [(128, 32), (3000, 400), (5000, 123)]
@@ -34,6 +43,9 @@ ALGORITHMS = {
     "kcore": ("KCORE", {"k": 3}),
 }
 FLOAT_SUMS = {"pagerank", "ppr", "cgaw"}
+FA_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64), (1, 4, 1, 1, 256, 64),
+             (1, 2, 2, 100, 100, 32), (2, 16, 2, 9, 300, 128), (1, 4, 4, 20, 10, 256)]
+FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -109,3 +121,115 @@ def test_cuda_port_matches_cpu_port(cuda, algo):
             np.testing.assert_array_equal(got.properties[prop], a)
     assert got.host_env == want.host_env
     assert got.stats.kernel_launches == want.stats.kernel_launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for b, h, hkv, lq, lk, dh in FA_SHAPES:
+        q = torch.randn(b, h, lq, dh, generator=gen, device=cuda).to(dtype)
+        k = torch.randn(b, hkv, lk, dh, generator=gen, device=cuda).to(dtype)
+        v = torch.randn(b, hkv, lk, dh, generator=gen, device=cuda).to(dtype)
+        before = fa.LAUNCHES
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        assert fa.LAUNCHES == before + 1
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
+                                   atol=FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_reads_the_cache_in_place(cuda):
+    """Decode over a [B, buf, Hkv, Dh] cache prefix (a strided view), and
+    rows with no key (zeros, not NaN)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache = torch.randn(4, 32, 8, 128, generator=gen, device=cuda).bfloat16()
+    q = torch.randn(4, 1, 64, 128, generator=gen, device=cuda).bfloat16()
+    kv = cache[:, :17].transpose(1, 2)
+    got = fa.flash_attention(q.transpose(1, 2), kv, kv)
+    want = ref.flash_attention_ref(q.transpose(1, 2), kv, kv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    q = torch.randn(1, 2, 6, 32, generator=gen, device=cuda)
+    k = torch.randn(1, 1, 3, 32, generator=gen, device=cuda)
+    out = fa.flash_attention(q, k, k, causal=True)
+    assert torch.equal(out[:, :, :3], torch.zeros_like(out[:, :, :3]))
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_gather_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for g, t, r, e, c, d in [(1, 640, 0, 8, 256, 64), (4, 1, 8, 384, 1, 7168),
+                             (3, 50, 40, 16, 5, 130), (2, 5, 9, 3, 4, 3)]:
+        x = torch.randn(g, t, d, generator=gen, device=cuda).to(dtype)
+        rows = (torch.randint(0, t, (g, r), generator=gen, device=cuda, dtype=torch.int32)
+                if r else None)
+        n = r or t
+        sizes = torch.randint(0, c + 1, (g, e), generator=gen, device=cuda, dtype=torch.int32)
+        offs = torch.randint(-2, n + 2, (g, e), generator=gen, device=cuda, dtype=torch.int32)
+        before = md.LAUNCHES
+        got = md.moe_gather(x, offs, sizes, c, rows=rows)
+        assert md.LAUNCHES == before + 1
+        assert torch.equal(got, ref.moe_gather_ref(x, rows, offs, sizes, c))
+
+
+def _smoke_model(arch: str, dtype, device, seed: int = 0) -> Model:
+    model = Model(smoke_config(arch), dtype=dtype, device=device)
+    return model.init(torch.Generator(device=device).manual_seed(seed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "kimi-k2-1t-a32b"])
+def test_cuda_decode_matches_forward(cuda, arch):
+    """Decode through the KV cache (the kernel at Lq = 1) agrees with the
+    whole-sequence forward (Lq = S) at every position, float32, within
+    tests/test_models.py's 2e-3 * scale."""
+    cfg = dataclasses.replace(smoke_config(arch), moe_capacity_factor=16.0)  # no drops
+    model = Model(cfg, dtype=torch.float32, device=cuda)
+    model.init(torch.Generator(device=cuda).manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    before = (fa.LAUNCHES, md.LAUNCHES)
+    full, _ = model.forward(toks)
+    cache = model.init_cache(2, 16)
+    for t in range(16):
+        lg, cache = model.decode_step(cache, toks[:, t:t + 1])
+        err = float((lg[:, 0] - full[:, t]).abs().max())
+        assert err < 2e-3 * max(float(full[:, t].abs().max()), 1.0), (arch, t, err)
+    assert fa.LAUNCHES > before[0]
+    assert (md.LAUNCHES > before[1]) == cfg.moe
+
+
+@pytest.mark.gpu
+def test_cuda_lm_matches_cpu(cuda):
+    """The same weights on the card (kernels) and on the CPU (plain
+    versions) give the same logits, float32."""
+    cpu = _smoke_model("kimi-k2-1t-a32b", torch.float32, "cpu")
+    gpu = Model(cpu.cfg, dtype=torch.float32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cpu.cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(3))
+    want, want_aux = cpu.forward(toks)
+    got, aux = gpu.forward(toks.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    # the same assignments are dropped; the mean is taken in another order
+    assert float(aux["drop_fraction"]) == pytest.approx(float(want_aux["drop_fraction"]),
+                                                        abs=1e-6)
+    assert float(aux["drop_fraction"]) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_generate_is_deterministic(cuda):
+    """Two bf16 runs give the same tokens (the MoE combine has no atomics)."""
+    model = _smoke_model("kimi-k2-1t-a32b", torch.bfloat16, cuda)
+    prompts = torch.randint(0, model.cfg.vocab_size, (4, 8), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(5))
+    a = serve.generate(model, prompts, 8)
+    b = serve.generate(model, prompts, 8)
+    assert torch.equal(a, b)
+    assert serve.main(["--arch", "qwen3-0.6b", "--smoke", "--batch", "2", "--prompt-len", "4",
+                       "--gen-len", "4"]) == 0

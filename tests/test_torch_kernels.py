@@ -2,12 +2,16 @@
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold those to the reference's ``ops.shuffle_reduce`` /
-``ops.edge_stream`` (Pallas, interpret mode) at the shapes of
-``tests/test_kernels.py``. Exact for min, max and int32; float32 ``+``
-with ``rtol=1e-6, atol=1e-6`` (the two sum in different orders). The CUDA
+``ops.edge_stream`` / ``ops.flash_attention`` / ``ops.moe_gather``
+(Pallas, interpret mode) at the shapes of ``tests/test_kernels.py``.
+Exact for min, max, int32 and the gather; float32 ``+`` with
+``rtol=1e-6, atol=1e-6`` (the two sum in different orders); attention
+within the reference tests' own ``2e-3`` (float32, where the port is
+also held to ``1e-5``) and ``3e-2`` (bfloat16). The CUDA
 kernels themselves are held to these plain versions in
 ``tests/test_torch_gpu.py``.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,11 +19,16 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import edge_stream as es
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_dispatch as md
 from repro_torch.kernels import ref
 from repro_torch.kernels import shuffle_reduce as sr
 
 SR_SHAPES = [(64, 16), (1000, 300), (4096, 512), (513, 1024), (7, 5)]
 ES_SHAPES = [(128, 32), (3000, 400), (5000, 123)]
+FA_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64), (1, 4, 1, 1, 256, 64),
+             (1, 2, 2, 100, 100, 32)]
+MOE_SHAPES = [(8, 256, 64, 128), (4, 128, 32, 128), (16, 512, 128, 128)]
 
 
 def _assert_matches(got: torch.Tensor, want, op: str):
@@ -163,3 +172,138 @@ def test_cpu_tensors_never_launch():
     es.edge_stream(torch.ones(4), torch.ones(4), torch.zeros(4, dtype=torch.int32),
                    torch.ones(4, dtype=torch.bool), 2, "add", "+")
     assert (sr.LAUNCHES, es.LAUNCHES) == before
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,hkv,lq,lk,dh", FA_SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_flash_attention_matches_pallas(b, h, hkv, lq, lk, dh, causal, window):
+    rng = np.random.default_rng(b * 1000 + lq + lk + dh)
+    q = rng.normal(size=(b, h, lq, dh)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, lk, dh)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, lk, dh)).astype(np.float32)
+    want = np.asarray(ref_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                              block_q=64, block_k=64, interpret=True))
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                             causal=causal, window=window).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_bf16_matches_pallas():
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.normal(size=(1, 2, 128, 64)).astype(np.float32) for _ in range(3))
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(ref_ops.flash_attention(*bf, causal=True, interpret=True), np.float32)
+    got = fa.flash_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_reads_the_cache_layout_in_place():
+    """[B, L, H, Dh] activations and a [B, buf, Hkv, Dh] cache prefix,
+    viewed as [B, H, L, Dh] by a transpose, give what the contiguous
+    tensors give; the output keeps q's layout."""
+    rng = np.random.default_rng(22)
+    q = torch.from_numpy(rng.normal(size=(2, 1, 8, 32)).astype(np.float32))
+    cache = torch.from_numpy(rng.normal(size=(2, 12, 2, 32)).astype(np.float32))
+    kv = cache[:, :5].transpose(1, 2)
+    got = fa.flash_attention(q.transpose(1, 2), kv, kv)
+    want = fa.flash_attention(q.transpose(1, 2).contiguous(), kv.contiguous(), kv.contiguous())
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+def test_flash_attention_fully_masked_rows_are_zero():
+    """Causal with more queries than keys: the first rows see no key and
+    come out 0 through the 1e-30 clamp, not NaN."""
+    rng = np.random.default_rng(23)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 6, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 1, 3, 32)).astype(np.float32))
+    out = fa.flash_attention(q, k, k, causal=True)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[:, :, :3], torch.zeros_like(out[:, :, :3]))
+    assert (out[:, :, 3:].abs().sum(-1) > 0).all()
+
+
+def test_flash_attention_rejects_bad_shapes():
+    q = torch.zeros(1, 3, 4, 32)
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention(q, torch.zeros(1, 2, 4, 32), torch.zeros(1, 2, 4, 32))
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, q, q, window=-1)
+    with pytest.raises(ValueError, match="k, v"):
+        fa.flash_attention(q, q, q[..., :16])
+
+
+# --------------------------------------------------------------------------
+# moe dispatch
+# --------------------------------------------------------------------------
+
+
+def _moe_case(e, c, d, bc, seed):
+    """The reference test's case: block-aligned groups of random sizes."""
+    rng = np.random.default_rng(seed)
+    sizes = np.minimum(rng.multinomial(e * c // 2, np.ones(e) / e), c).astype(np.int32)
+    aligned = ((sizes + bc - 1) // bc) * bc
+    offs = np.zeros(e, np.int32)
+    offs[1:] = np.cumsum(aligned)[:-1]
+    tbuf = int(offs[-1] + aligned[-1])
+    tok = rng.normal(size=(tbuf, d)).astype(np.float32)
+    return tok, offs, sizes
+
+
+@pytest.mark.parametrize("e,c,d,bc", MOE_SHAPES)
+def test_moe_gather_matches_pallas(e, c, d, bc):
+    tok, offs, sizes = _moe_case(e, c, d, bc, seed=e + c + d)
+    want = np.asarray(ref_ops.moe_gather(tok, offs, sizes, c, interpret=True))
+    got = md.moe_gather(torch.from_numpy(tok), torch.from_numpy(offs),
+                        torch.from_numpy(sizes), c)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("e,c,d,bc", MOE_SHAPES)
+def test_moe_gather_fused_rows_matches_gather_then_call(e, c, d, bc):
+    """The MoE layer's form: groups of tokens read through a row map
+    (unaligned offsets) equal gathering the rows first."""
+    rng = np.random.default_rng(e * c)
+    g, t, r = 3, 50, 4 * e
+    x = torch.from_numpy(rng.normal(size=(g, t, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.integers(0, t, (g, r)).astype(np.int32))
+    sizes = torch.from_numpy(rng.integers(0, c + 1, (g, e)).astype(np.int32))
+    offs = torch.from_numpy(rng.integers(0, r, (g, e)).astype(np.int32))
+    got = md.moe_gather(x, offs, sizes, c, rows=rows)
+    for gi in range(g):
+        want = md.moe_gather(x[gi][rows[gi].long()], offs[gi], sizes[gi], c)
+        assert torch.equal(got[gi], want)
+    # the Pallas kernel needs block-aligned offsets; its oracle takes any
+    want = np.asarray(jax_ref.moe_gather_ref(x[1][rows[1].long()].numpy(), offs[1].numpy(),
+                                             sizes[1].numpy(), c))
+    np.testing.assert_array_equal(got[1].numpy(), want)
+
+
+def test_moe_gather_clamps_offsets_and_rows():
+    x = torch.arange(6 * 4, dtype=torch.float32).reshape(1, 6, 4)
+    rows = torch.tensor([[5, 0, 9, -2]], dtype=torch.int32)
+    offs = torch.tensor([[-3, 2, 7]], dtype=torch.int32)
+    sizes = torch.tensor([[2, 2, 1]], dtype=torch.int32)
+    got = md.moe_gather(x, offs, sizes, 2, rows=rows)
+    # slots clamp into [0, 4): expert 0 reads slots 0, 0; expert 1 slots 2, 3;
+    # expert 2 slot 3; rows clamp into [0, 6): 9 -> 5, -2 -> 0
+    want_rows = [[5, 5], [5, 0], [0, None]]
+    for e, rr in enumerate(want_rows):
+        for c, row in enumerate(rr):
+            want = torch.zeros(4) if row is None else x[0, row]
+            assert torch.equal(got[0, e, c], want), (e, c)
+
+
+def test_new_kernels_never_launch_on_the_cpu():
+    before = (fa.LAUNCHES, md.LAUNCHES)
+    fa.flash_attention(torch.ones(1, 1, 2, 32), torch.ones(1, 1, 2, 32), torch.ones(1, 1, 2, 32))
+    md.moe_gather(torch.ones(4, 8), torch.zeros(2, dtype=torch.int32),
+                  torch.ones(2, dtype=torch.int32), 2)
+    assert (fa.LAUNCHES, md.LAUNCHES) == before
