@@ -18,7 +18,11 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    The LM kernels (flash attention, MoE gather) are held to theirs at the
    reference test shapes and at the LM path's shapes: Kimi-K2's decode
    attention over the KV cache and a prefill-size causal attention, its
-   decode dispatch and a 4096-token prefill dispatch.
+   decode dispatch and a 4096-token prefill dispatch. Attention runs both
+   routes the wrapper takes by dtype: float32 through the CUDA-core kernel,
+   bfloat16 through the tensor-core (sm90) kernel. The decode-shaped rows
+   also get their device time, read from profiler kernel events, beside
+   the host-paced loop's time.
 4. Graph path: ``repro_torch.compile(src).bind(g).run(**params)`` on the
    card for BFS_ECP, PAGERANK and SSSP (one cold run, then five warm
    runs whose median is the warm time), each checked
@@ -34,6 +38,10 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    the two runs must give the same tokens and the logits must be finite.
    Then qwen3-0.6b at its full config in float32: decode logits at every
    prompt position must agree with the whole-sequence forward.
+   Then qwen3-0.6b at its full config in bf16: one ``Model.forward`` over
+   batch 4 x 2048 prompt tokens (wall time, device busy time and the
+   tensor-core attention's share of it, launches, peak memory), after the
+   kernel is held to its plain version at exactly that attention shape.
 6. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -65,6 +73,8 @@ FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}  # tests/test_kernels.py's 
 KIMI, KIMI_LAYERS = "kimi-k2-1t-a32b", 2  # full width, depth cut to 1 dense + 1 MoE layer
 QWEN = "qwen3-0.6b"  # the serving CLI's default arch, full config
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16  # the serving CLI's defaults
+PREFILL_LEN = 2048  # qwen3-0.6b bf16 forward: batch LM_BATCH x PREFILL_LEN prompt tokens
+PREFILL_RUNS = 3  # timed forwards after one warm-up; the median is kept
 DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
 
 
@@ -93,7 +103,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_run(run, top: int = 6) -> dict:
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Mean device time of one ``fn()`` over ``iters`` calls: the summed
+    durations of the kernels it launched, from ``torch.profiler`` kernel
+    events, so the host's time between launches is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) >= iters, f"profiler saw {len(kernels)} kernels for {iters} calls"
+    names = sorted({e.name[:80] for e in kernels})
+    return {"ms": sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3,
+            "kernels_per_call": len(kernels) / iters, "kernels": names}
+
+
+def profile_run(run, top: int = 6, focus: str = None) -> dict:
     """One more warm ``run()`` under ``torch.profiler``: its wall time, the
     time the device was busy (kernel intervals merged), and the kernels
     that took the most device time. The profiler slows the host, so the
@@ -120,13 +150,18 @@ def profile_run(run, top: int = 6) -> dict:
     # Python interpreter and the profiler itself)
     ops = [(e.key, e.self_cpu_time_total) for e in prof.key_averages()]
     top_ops = sorted(ops, key=lambda kv: -kv[1])[:top]
-    return {
+    out = {
         "wall_s": wall_s, "device_kernels": len(kernels), "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if kernels else None,
         "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top_k},
         "host_ops_s": sum(us for _, us in ops) / 1e6,
         "top_host_ops_ms": {name[:80]: us / 1e3 for name, us in top_ops},
     }
+    if focus is not None:
+        us = sum(t for name, t in by_name.items() if focus in name)
+        out.update({"focus": focus, "focus_ms": us / 1e3,
+                    "focus_share_of_busy": us / busy_us if busy_us else None})
+    return out
 
 
 def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
@@ -136,6 +171,26 @@ def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_kernels(log_text: str) -> list:
+    """Each entry function of a ``ptxas -v`` log: its head dim (the
+    template argument), registers and spill bytes."""
+    rows: list = []
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            dh = re.search(r"ILi(\d+)E", m.group(1))
+            rows.append({"dh": int(dh.group(1)) if dh else None})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and rows:
+            rows[-1]["spill_store_bytes"] = int(m.group(1))
+            rows[-1]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -313,11 +368,14 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
     """The LM kernels at the reference test shapes (tests/test_kernels.py),
-    kernel vs plain: attention in float32 and bf16, the gather exactly."""
+    kernel vs plain: attention in float32 (the CUDA-core kernel) and bf16
+    (the tensor-core kernel), the gather exactly. Each attention case reads
+    the route its launch took from the two launch counters."""
     rng = np.random.default_rng(1)
     n_cases = 0
     max_err = {"flash_attention_float32": 0.0, "flash_attention_bfloat16": 0.0,
                "moe_gather": 0.0}
+    routes = {"cuda_core": 0, "sm90": 0}
     for b, h, hkv, lq, lk, dh in [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64),
                                   (1, 4, 1, 1, 256, 64), (1, 2, 2, 100, 100, 32)]:
         for causal, window in [(True, 0), (False, 0), (True, 48)]:
@@ -325,10 +383,16 @@ def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
                 q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                            .to(dev, dtype) for shape in
                            [(b, h, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)])
-                err = check_close(f"flash_attention {b, h, hkv, lq, lk, dh} causal={causal} "
-                                  f"window={window} {dtype}",
-                                  fa.flash_attention(q, k, v, causal, window),
-                                  ref.flash_attention_ref(q, k, v, causal, window))
+                name = (f"flash_attention {b, h, hkv, lq, lk, dh} causal={causal} "
+                        f"window={window} {dtype}")
+                before = (fa.LAUNCHES, fa.SM90_LAUNCHES)
+                got = fa.flash_attention(q, k, v, causal, window)
+                took = "sm90" if fa.SM90_LAUNCHES > before[1] else "cuda_core"
+                assert fa.LAUNCHES == before[0] + 1, f"{name}: no launch"
+                assert took == fa._route(q) == ("sm90" if dtype == torch.bfloat16
+                                                else "cuda_core"), f"{name}: took {took}"
+                routes[took] += 1
+                err = check_close(name, got, ref.flash_attention_ref(q, k, v, causal, window))
                 key = f"flash_attention_{str(dtype).split('.')[-1]}"
                 max_err[key] = max(max_err[key], err)
                 n_cases += 1
@@ -344,41 +408,66 @@ def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
         want = ref.moe_gather_ref(tok[None], None, offs_t[None], sizes_t[None], c)[0]
         assert torch.equal(got, want), f"moe_gather e={e} c={c} d={d}: not exact"
         n_cases += 1
-    return {"cases": n_cases, "max_abs_err": max_err}
+    return {"cases": n_cases, "max_abs_err": max_err, "attention_routes": routes}
 
 
-def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int) -> dict:
+def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
+                   device_side: bool = False) -> dict:
     """Kernel vs plain at one shape, timed beside the library call that
     computes the same function (SDPA with GQA; at Lq = 1 over the whole
     cache every key is visible, so it is called without a causal mask,
     whose alignment differs). ``pairs`` is the unmasked (query, key)
-    pairs of each head: 4 * Dh FLOPs each (two products)."""
+    pairs of each head: 4 * Dh FLOPs each (two products), bounded at the
+    peak rate of the dtype (bf16 tensor cores, float32 CUDA cores).
+    ``device_side`` adds the device time of kernel and library call from
+    profiler events (the host-paced loop times the wrapper's Python at
+    decode size)."""
     b, h, lq, dh = q.shape
-    err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)}",
-                      fa.flash_attention(q, k, v, causal), ref.flash_attention_ref(q, k, v, causal))
+    route = fa._route(q)
+    before = fa.SM90_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal)
+    assert (fa.SM90_LAUNCHES > before) == (route == "sm90"), route
+    err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)} {q.dtype}",
+                      got, ref.flash_attention_ref(q, k, v, causal))
     lib_causal = causal and lq > 1
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=lib_causal, enable_gqa=True)
-    check_close("scaled_dot_product_attention", lib, fa.flash_attention(q, k, v, causal))
+    lib_diff = float((lib.float() - got.float()).abs().max())
+    if q.dtype == torch.bfloat16:
+        check_close("scaled_dot_product_attention", lib, got)
     n_bytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
-    b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * dh, BF16_OPS_PER_S)
-    return {
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * dh, rate)
+    row = {
+        "route": route,
         "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, causal)),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
                             iters=plain_iters, warmup=1),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=lib_causal, enable_gqa=True)),
         "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True)",
+        "library_max_abs_diff": lib_diff,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
         "shape": {"q": list(q.shape), "kv": list(k.shape), "q_strides": list(q.stride()),
                   "kv_strides": list(k.stride()), "dtype": str(q.dtype), "causal": causal},
     }
+    row["bound_share"] = b_ms / row["kernel_ms"]
+    row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+    if device_side:
+        kd = device_ms(lambda: fa.flash_attention(q, k, v, causal))
+        ld = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=lib_causal, enable_gqa=True))
+        row.update({"kernel_device_ms": kd["ms"], "kernel_device_kernels": kd["kernels"],
+                    "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"]})
+    return row
 
 
-def _dispatch_row(md, ref, moe_mod, cfg, n_tokens: int, gen, plain_iters: int) -> dict:
+def _dispatch_row(md, ref, moe_mod, cfg, n_tokens: int, gen, plain_iters: int,
+                  device_side: bool = False) -> dict:
     """The MoE layer's dispatch of ``n_tokens`` tokens (its own groups,
     capacity and routing plan for random top-k experts), kernel vs plain
     (exact), beside ``index_select`` over a zero-padded token table with a
-    precomputed slot -> row map (the library call for the same gather)."""
+    precomputed slot -> row map (the library call for the same gather).
+    ``device_side`` adds both calls' device times from profiler events."""
     dev = gen.device
     e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
     g = moe_mod._dispatch_groups(n_tokens)
@@ -405,7 +494,7 @@ def _dispatch_row(md, ref, moe_mod, cfg, n_tokens: int, gen, plain_iters: int) -
     read_rows = int(torch.unique(flat[flat < g * tg]).numel())  # token rows the run needs
     n_bytes = got.numel() * 2 + read_rows * d * 2 + 4 * (2 * g * e + live_rows)
     b_ms, b_by = bound(n_bytes, 0)
-    return {
+    row = {
         "kernel_ms": time_ms(lambda: md.moe_gather(x, offsets, sizes, cap, rows)),
         "plain_ms": time_ms(lambda: ref.moe_gather_ref(x, rows, offsets, sizes, cap),
                             iters=plain_iters, warmup=1),
@@ -416,26 +505,39 @@ def _dispatch_row(md, ref, moe_mod, cfg, n_tokens: int, gen, plain_iters: int) -
                   "out": list(got.shape), "live_rows": live_rows, "token_rows_read": read_rows,
                   "dtype": "bfloat16"},
     }
+    if device_side:
+        kd = device_ms(lambda: md.moe_gather(x, offsets, sizes, cap, rows))
+        ld = device_ms(lambda: torch.index_select(table, 0, flat))
+        row.update({"kernel_device_ms": kd["ms"], "kernel_device_kernels": kd["kernels"],
+                    "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"]})
+    return row
 
 
 def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
     """Each LM kernel at the Kimi-K2 path's shapes: the last decode step's
     attention (one query per head over the 32-slot cache, read in its
-    [B, buf, Hkv, Dh] layout), a prefill-size causal attention, the decode
-    step's dispatch and a 4096-token prefill dispatch."""
+    [B, buf, Hkv, Dh] layout) and a prefill-size causal attention, each in
+    bf16 (the tensor-core kernel) and in float32 (the CUDA-core kernel);
+    the decode step's dispatch and a 4096-token prefill dispatch."""
     gen = torch.Generator(device=dev).manual_seed(1)
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     buf = LM_PROMPT + LM_GEN
-    q = torch.randn(LM_BATCH, 1, h, dh, generator=gen, device=dev).bfloat16()
-    ck, cv = (torch.randn(LM_BATCH, buf, hkv, dh, generator=gen, device=dev).bfloat16()
-              for _ in range(2))
-    rows = {"flash_attention": _attention_row(
-        fa, ref, q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), True, buf, 20)}
-    s = 2048
-    q, k, v = (torch.randn(1, n, s, dh, generator=gen, device=dev).bfloat16()
-               for n in (h, hkv, hkv))
-    rows["flash_attention_prefill"] = _attention_row(fa, ref, q, k, v, True, s * (s + 1) // 2, 3)
-    rows["moe_gather"] = _dispatch_row(md, ref, moe_mod, cfg, LM_BATCH, gen, 20)
+    rows = {}
+    for dtype, name in ((torch.bfloat16, "flash_attention_sm90"),
+                        (torch.float32, "flash_attention")):
+        q = torch.randn(LM_BATCH, 1, h, dh, generator=gen, device=dev).to(dtype)
+        ck, cv = (torch.randn(LM_BATCH, buf, hkv, dh, generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        rows[f"{name}_decode"] = _attention_row(
+            fa, ref, q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), True, buf, 20,
+            device_side=True)
+        s = 2048
+        q, k, v = (torch.randn(1, n, s, dh, generator=gen, device=dev).to(dtype)
+                   for n in (h, hkv, hkv))
+        rows[name] = _attention_row(fa, ref, q, k, v, True, s * (s + 1) // 2, 3)
+        del q, k, v, ck, cv
+    rows["moe_gather"] = _dispatch_row(md, ref, moe_mod, cfg, LM_BATCH, gen, 20,
+                                       device_side=True)
     rows["moe_gather_prefill"] = _dispatch_row(md, ref, moe_mod, cfg, 4096, gen, 3)
     return rows
 
@@ -457,6 +559,7 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
 
     fa.LAUNCHES = 0
+    fa.SM90_LAUNCHES = 0
     md.LAUNCHES = 0
     step_s: list = []
     t0 = time.perf_counter()
@@ -469,7 +572,8 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     step_logits, _ = model.decode_step(model.init_cache(LM_BATCH, 1), prompts[:, :1])
     decode_aux = dict(model.last_aux)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa.LAUNCHES, "moe_gather": md.LAUNCHES}
+    launches = {"flash_attention_sm90": fa.SM90_LAUNCHES,
+                "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES, "moe_gather": md.LAUNCHES}
 
     assert torch.equal(first, second), "Kimi-K2: two generate runs gave different tokens"
     assert first.shape == (LM_BATCH, LM_GEN)
@@ -477,7 +581,9 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     assert logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_size)
     assert torch.isfinite(logits).all() and torch.isfinite(step_logits).all(), \
         "Kimi-K2: non-finite logits"
-    assert launches["flash_attention"] > 0, "flash_attention never launched on the LM path"
+    assert launches["flash_attention_sm90"] > 0, \
+        "the tensor-core flash kernel never launched on the bf16 LM path"
+    assert launches["flash_attention"] == 0, "a bf16 attention took the CUDA-core kernel"
     assert launches["moe_gather"] > 0, "moe_gather never launched on the LM path"
     embed_bytes = model.embed.numel() * model.embed.element_size()
     # bytes one decode step must read: every weight but the embedding table
@@ -532,6 +638,7 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     rng = np.random.default_rng(seed + 1)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
     fa.LAUNCHES = 0
+    fa.SM90_LAUNCHES = 0
     step_s: list = []
     serve.generate(model, prompts, LM_GEN, step_s=step_s)
     t0 = time.perf_counter()
@@ -548,6 +655,10 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         assert err < DECODE_RTOL * scale, f"{QWEN} t={t}: decode vs forward {err} (scale {scale})"
         worst = max(worst, err / scale)
     assert torch.isfinite(full).all()
+    launches = {"flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES,
+                "flash_attention_sm90": fa.SM90_LAUNCHES}
+    assert launches["flash_attention"] > 0, "the CUDA-core flash kernel never launched (f32)"
+    assert launches["flash_attention_sm90"] == 0, "a float32 attention took the sm90 kernel"
     median_ms = statistics.median(step_s) * 1e3
     bound_ms = model.param_bytes() / HBM_BYTES_PER_S * 1e3  # tied head: the table is read
     row = {
@@ -560,11 +671,77 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "decode_vs_forward": {"positions": LM_PROMPT, "max_err_over_scale": worst,
                               "rtol": DECODE_RTOL},
-        "flash_attention_launches": fa.LAUNCHES,
+        "launches": launches,
     }
-    assert fa.LAUNCHES > 0
     row["profile_decode_step"] = _profile_step(model, prompts)
     del model, full
+    return row
+
+
+def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
+    """qwen3-0.6b at its full config in bf16 (as ``launch/serve.py`` runs
+    it): ``Model.forward`` over LM_BATCH x PREFILL_LEN prompt tokens from
+    the seed. First the tensor-core kernel is held to its plain version at
+    exactly that forward's attention shape and layout; then one warm-up
+    forward with the counters set to 0 just before and read just after
+    (one sm90 launch per layer), PREFILL_RUNS timed forwards (host clock
+    ending in a synchronise; the median is kept) and one profiled forward
+    (device busy time and the flash kernel's share of it)."""
+    fa, md, get_config, Model, serve = repro_torch_mods
+    cfg = get_config(QWEN)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    # the forward's layout: [B, L, H, Dh] activations viewed as [B, H, L, Dh]
+    q, k, v = (torch.randn(LM_BATCH, PREFILL_LEN, n, dh, generator=gen, device=dev)
+               .bfloat16().transpose(1, 2) for n in (h, hkv, hkv))
+    before = fa.SM90_LAUNCHES
+    got = fa.flash_attention(q, k, v, True)
+    assert fa.SM90_LAUNCHES == before + 1
+    shape_err = check_close(f"flash_attention_sm90 {tuple(q.shape)} over {tuple(k.shape)}",
+                            got, ref.flash_attention_ref(q, k, v, True))
+    shape = {"q": list(q.shape), "kv": list(k.shape), "causal": True, "dtype": "bfloat16"}
+    del q, k, v, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    tokens = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab_size, (LM_BATCH, PREFILL_LEN))).to(dev)
+    fa.LAUNCHES = 0
+    fa.SM90_LAUNCHES = 0
+    logits, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_sm90": fa.SM90_LAUNCHES,
+                "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES}
+    assert launches == {"flash_attention_sm90": cfg.n_layers, "flash_attention": 0}, launches
+    assert logits.shape == (LM_BATCH, PREFILL_LEN, cfg.vocab_size)
+    assert torch.isfinite(logits).all(), f"{QWEN} bf16 forward: non-finite logits"
+    del logits
+    runs_s = []
+    for _ in range(PREFILL_RUNS):
+        t0 = time.perf_counter()
+        model.forward(tokens)
+        torch.cuda.synchronize()
+        runs_s.append(time.perf_counter() - t0)
+    prof = profile_run(lambda: model.forward(tokens), top=8, focus="flash_attention_sm90")
+    pairs = PREFILL_LEN * (PREFILL_LEN + 1) // 2
+    attn_flop = cfg.n_layers * 4 * LM_BATCH * h * pairs * dh
+    row = {
+        "phase": "lm_prefill", "model": QWEN, "dtype": "bfloat16", "reduced": {},
+        "batch": LM_BATCH, "prompt_len": PREFILL_LEN,
+        "kernel_check": {"shape": shape, "max_abs_err": shape_err,
+                         "tol": FA_TOL[torch.bfloat16]},
+        "forward_ms_median": statistics.median(runs_s) * 1e3,
+        "forward_ms_runs": [t * 1e3 for t in runs_s],
+        "attention_flop": attn_flop,
+        "attention_bound_ms": attn_flop / BF16_OPS_PER_S * 1e3,
+        "launches_per_forward": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "profile_forward": prof,
+    }
+    del model
     return row
 
 
@@ -674,6 +851,14 @@ def main() -> int:
              "ptxas": {"kernels": len(regs), "max_registers": max(regs, default=None),
                        "spill_bytes": sum(spills)}})
     log({"phase": "build", "total_seconds": round(build_s, 3)})
+    sm90_lib = _build.load("flash_attention_sm90")
+    sm90 = ptxas_kernels(built["flash_attention_sm90"]["log"])
+    for row in sm90:
+        row["dynamic_smem_bytes"] = sm90_lib.repro_flash_attention_sm90_smem_bytes(row["dh"])
+    log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "kernels": sm90, "ptxas_warnings": [line.strip() for line in
+                                             built["flash_attention_sm90"]["log"].splitlines()
+                                             if "warning" in line]})
 
     # -- graph and the SSSP bind (whose bindings give the main-path shape) --
     t0 = time.perf_counter()
@@ -782,10 +967,16 @@ def main() -> int:
     mods = (fa, md, get_config, Model, serve)
     kimi = lm_phase(mods, dev, args.seed)
     log(kimi)
-    launches.update(kimi["launches"])
+    launches["flash_attention_sm90"] = kimi["launches"]["flash_attention_sm90"]
+    launches["moe_gather"] = kimi["launches"]["moe_gather"]
     gc.collect()
     torch.cuda.empty_cache()
-    log(qwen_phase(mods, dev, args.seed))
+    qwen = qwen_phase(mods, dev, args.seed)
+    log(qwen)
+    launches["flash_attention"] = qwen["launches"]["flash_attention"]  # the f32 path
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(qwen_prefill_phase(mods, ref, dev, args.seed))
 
     # -- 6. summary ----------------------------------------------------------
     meta = {
@@ -795,6 +986,8 @@ def main() -> int:
                         "src/repro/kernels/edge_stream.py:143"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:103"),
+        "flash_attention_sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                                 "src/repro/kernels/flash_attention.py:103"),
         "moe_gather": ("src/repro_torch/csrc/moe_gather.cu",
                        "src/repro/kernels/moe_dispatch.py:72"),
     }

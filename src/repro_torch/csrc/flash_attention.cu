@@ -1,10 +1,13 @@
-// Blocked online-softmax attention (FlashAttention) for Hopper, float32 or
-// bfloat16 in, float32 arithmetic, output in the input's type.
+// Blocked online-softmax attention (FlashAttention) for Hopper in float32:
+// float32 in, float32 products on the CUDA cores, float32 out. Every
+// float32 attention of the port runs here; bfloat16 runs the tensor-core
+// kernel csrc/flash_attention_sm90.cu. It has no bfloat16 instantiation:
+// the wrapper routes by dtype and sends bfloat16 to the tensor-core kernel.
 //
 // Replaces the Pallas TPU kernel kernels/flash_attention.py
-// (flash_attention_call), which ran a (B*H, q blocks, k blocks) grid with the
-// running max, sum and output block in VMEM scratch, and repeated the KV
-// heads in memory for GQA before the call.
+// (flash_attention_call), which ran a (B*H, q blocks, k blocks) grid with
+// the running max, sum and output block in VMEM scratch, and repeated the
+// KV heads in memory for GQA before the call.
 //
 // What it computes, as the TPU kernel does: scale 1/sqrt(Dh); query i sits
 // at position Lk - Lq + i (decode alignment); keys k < Lk, causal k <= the
@@ -13,10 +16,10 @@
 // whose keys are all masked comes out 0, not NaN.
 //
 // Bound on this card: at decode (Lq = 1) bytes, the KV cache read once; at
-// prefill operations, 4 * Lq * Lk * Dh per head (halved when causal). This
-// first kernel runs its products on the CUDA cores in float32 (67 TFLOP/s),
-// not on the tensor cores (989 TFLOP/s bf16): a wgmma/TMA kernel is later
-// work.
+// prefill operations, 4 * Lq * Lk * Dh per head (halved when causal), at
+// 67 TFLOP/s for float32 outside the tensor cores. It keeps the plain
+// version's float32 arithmetic (qwen3-0.6b's float32 decode-vs-forward
+// check relies on it), so it does not use the tensor cores.
 //
 // Design: one block per (b, kv head, tile of 64 query rows). The rows of a
 // tile enumerate (query head of the kv head's group, query position), so
@@ -25,21 +28,18 @@
 // Each query row is owned by Dh/32 threads, each holding 32 of its dims
 // (q and the accumulator in registers); a score is their partial dots
 // summed with __shfl_xor_sync. K and V tiles (32 keys, 16 at Dh = 256) are
-// staged in shared memory as float32, so bf16 is converted once, before
-// any product. Each tile's scores are taken first, then the running max,
-// sum and accumulator are rescaled once per tile. Strides are passed for
-// q, k, v and out (the last dim contiguous), so the [B, L, H, Dh]
-// activations and the [B, buf, Hkv, Dh] KV cache are read in place.
+// staged in shared memory as float4s. Each tile's scores are taken first,
+// then the running max, sum and accumulator are rescaled once per tile.
+// Strides are passed for q, k, v and out (the last dim contiguous), so the
+// [B, L, H, Dh] activations and the [B, buf, Hkv, Dh] KV cache are read in
+// place.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
 namespace repro_fa {
-
-enum Dtype : int { kF32 = 0, kBF16 = 1 };
 
 constexpr int kRows = 64;    // query rows per block
 constexpr int kDimsPer = 32;  // head dims per thread
@@ -49,36 +49,10 @@ struct Strides {
   int64_t b, h, l;  // element strides of the batch, head and position dims
 };
 
-// Four consecutive elements as float4: 16-byte loads for float32, 8-byte
-// loads for bf16 (the wrapper checks the alignment).
-template <typename T> struct Vec4;
-template <> struct Vec4<float> {
-  static __device__ __forceinline__ float4 load(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-template <> struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 lo, hi;
-    *reinterpret_cast<uint32_t*>(&lo) = raw.x;
-    *reinterpret_cast<uint32_t*>(&hi) = raw.y;
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
+// four consecutive floats in one 16-byte load (the wrapper checks the alignment)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -87,10 +61,10 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kRows * (DH / kDimsPer))
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int n_heads,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int n_heads,
                        int n_kv_heads, int lq, int lk, Strides sq, Strides sk, Strides sv,
                        Strides so, int causal, int window, float scale) {
   constexpr int kTpr = DH / kDimsPer;         // threads per query row
@@ -134,16 +108,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_begin = s_lo, k_end = s_hi;
 
   float4 qr[kChunks], acc[kChunks];
-  const T* q_row = q + b * sq.b + h * sq.h + static_cast<int64_t>(i) * sq.l;
+  const float* q_row = q + b * sq.b + h * sq.h + static_cast<int64_t>(i) * sq.l;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    qr[c] = active ? Vec4<T>::load(q_row + 4 * (lane + kTpr * c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[c] = active ? load4(q_row + 4 * (lane + kTpr * c)) : make_float4(0.f, 0.f, 0.f, 0.f);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = -INFINITY, l = 0.f;
 
-  const T* k_head = k + b * sk.b + kvh * sk.h;
-  const T* v_head = v + b * sv.b + kvh * sv.h;
+  const float* k_head = k + b * sk.b + kvh * sk.h;
+  const float* v_head = v + b * sv.b + kvh * sv.h;
   for (int k0 = k_begin; k0 < k_end; k0 += kKeys) {
     const int n = min(kKeys, k_end - k0);
     __syncthreads();  // every thread is done with the previous tile
@@ -151,8 +125,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx / kVecs, c = idx % kVecs;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (j < n) {
-        kv = Vec4<T>::load(k_head + static_cast<int64_t>(k0 + j) * sk.l + 4 * c);
-        vv = Vec4<T>::load(v_head + static_cast<int64_t>(k0 + j) * sv.l + 4 * c);
+        kv = load4(k_head + static_cast<int64_t>(k0 + j) * sk.l + 4 * c);
+        vv = load4(v_head + static_cast<int64_t>(k0 + j) * sv.l + 4 * c);
       }
       ks[j][c] = kv;
       vs[j][c] = vv;
@@ -201,33 +175,28 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!active) return;
   const float denom = fmaxf(l, 1e-30f);
-  T* o_row = out + b * so.b + h * so.h + static_cast<int64_t>(i) * so.l;
+  float* o_row = out + b * so.b + h * so.h + static_cast<int64_t>(i) * so.l;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const float4 a = acc[c];
-    Vec4<T>::store(o_row + 4 * (lane + kTpr * c),
-                   make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom));
+    *reinterpret_cast<float4*>(o_row + 4 * (lane + kTpr * c)) =
+        make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
   }
 }
 
-template <typename T>
-static cudaError_t launch(int dh, const void* q, const void* k, const void* v, void* out,
+static cudaError_t launch(int dh, const float* q, const float* k, const float* v, float* out,
                           int batch, int n_heads, int n_kv_heads, int lq, int lk,
                           const Strides* st, int causal, int window, float scale,
                           cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(n_heads / n_kv_heads) * lq;
   const int64_t blocks = static_cast<int64_t>(batch) * n_kv_heads * ((rows + kRows - 1) / kRows);
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
   const dim3 grid(static_cast<unsigned>(blocks));
   switch (dh) {
 #define REPRO_FA_CASE(D)                                                                   \
   case D:                                                                                  \
-    flash_attention_kernel<T, D><<<grid, kRows * (D / kDimsPer), 0, stream>>>(             \
-        qt, kt, vt, ot, n_heads, n_kv_heads, lq, lk, st[0], st[1], st[2], st[3], causal,  \
+    flash_attention_kernel<D><<<grid, kRows * (D / kDimsPer), 0, stream>>>(                \
+        q, k, v, out, n_heads, n_kv_heads, lq, lk, st[0], st[1], st[2], st[3], causal,     \
         window, scale);                                                                    \
     break;
     REPRO_FA_CASE(32)
@@ -243,30 +212,22 @@ static cudaError_t launch(int dh, const void* q, const void* k, const void* v, v
 
 }  // namespace repro_fa
 
-// q [B, H, Lq, Dh], k/v [B, Hkv, Lk, Dh], out [B, H, Lq, Dh] given by their
-// data pointers and strides[12] = (batch, head, position) element strides
-// of q, k, v, out in that order, the last dim contiguous and every row
-// aligned for a 4-element vector load. Dh is 32, 64, 128 or 256; H is a
-// multiple of Hkv; dtype 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch (0 on success).
+// q [B, H, Lq, Dh], k/v [B, Hkv, Lk, Dh], out [B, H, Lq, Dh], all float32,
+// given by their data pointers and strides[12] = (batch, head, position)
+// element strides of q, k, v, out in that order, the last dim contiguous
+// and every row aligned for a 16-byte load. Dh is 32, 64, 128 or 256; H is
+// a multiple of Hkv. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                                     int dh, const int64_t* strides, int dtype, int causal,
-                                     int window, float scale, void* stream) {
+                                     int dh, const int64_t* strides, int causal, int window,
+                                     float scale, void* stream) {
   using namespace repro_fa;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || lk < 0) return cudaErrorInvalidValue;
   Strides st[4];
   for (int t = 0; t < 4; ++t) st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch<float>(dh, q, k, v, out, batch, n_heads, n_kv_heads, lq, lk, st, causal,
-                           window, scale, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(dh, q, k, v, out, batch, n_heads, n_kv_heads, lq, lk, st,
-                                   causal, window, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch(dh, static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(out), batch, n_heads,
+                n_kv_heads, lq, lk, st, causal, window, scale, static_cast<cudaStream_t>(stream));
 }

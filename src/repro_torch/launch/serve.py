@@ -1,4 +1,4 @@
-"""Serving driver, LM path: batched prefill + decode with a KV cache.
+"""Serving driver, LM path: step-wise prefill + decode with a KV cache.
 
 The port of the reference's ``launch/serve.py`` for language models. On a
 CUDA device every attention runs through the hand-written flash kernel and

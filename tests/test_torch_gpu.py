@@ -11,6 +11,10 @@ Each kernel is held to its plain PyTorch version on the same inputs
 the gather exactly; attention within 2e-3 in float32 and 3e-2 in
 bfloat16, the reference tests' tolerances), each program to the same
 program on the CPU, and the LM path's decode to its own forward.
+Attention takes its route by dtype: float32 the CUDA-core kernel,
+bfloat16 the tensor-core (sm90) kernel, which multiplies bf16 operands
+(P rounded to bf16) and so is held to the plain float32 arithmetic within
+bf16's 3e-2.
 """
 import dataclasses
 
@@ -46,6 +50,8 @@ FLOAT_SUMS = {"pagerank", "ppr", "cgaw"}
 FA_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64), (1, 4, 1, 1, 256, 64),
              (1, 2, 2, 100, 100, 32), (2, 16, 2, 9, 300, 128), (1, 4, 4, 20, 10, 256)]
 FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+SM90_LQ = (1, 63, 65, 100)  # ragged around the kernel's 64-row tiles
+SM90_LK = (0, 1, 127, 300)  # ... and its 64-key stages
 
 
 @pytest.fixture
@@ -132,13 +138,72 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, window):
         q = torch.randn(b, h, lq, dh, generator=gen, device=cuda).to(dtype)
         k = torch.randn(b, hkv, lk, dh, generator=gen, device=cuda).to(dtype)
         v = torch.randn(b, hkv, lk, dh, generator=gen, device=cuda).to(dtype)
-        before = fa.LAUNCHES
+        before = (fa.LAUNCHES, fa.SM90_LAUNCHES)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        assert fa.LAUNCHES == before + 1
+        # bf16 takes the tensor-core kernel, float32 the CUDA-core one
+        sm90 = int(dtype == torch.bfloat16)
+        assert (fa.LAUNCHES, fa.SM90_LAUNCHES) == (before[0] + 1, before[1] + sm90)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         assert got.dtype == dtype and torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
                                    atol=FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_cuda_sm90_matches_plain_on_ragged_lengths(cuda, dh, group, causal, window):
+    """Every head dim and GQA group over query and key lengths around the
+    tile sizes, Lq > Lk included; Lk = 0 gives zeros (the plain version
+    cannot reduce over no key)."""
+    gen = torch.Generator(device=cuda).manual_seed(dh + group)
+    hkv = 2
+    for lq in SM90_LQ:
+        for lk in SM90_LK:
+            q = torch.randn(1, hkv * group, lq, dh, generator=gen, device=cuda).bfloat16()
+            k, v = (torch.randn(1, hkv, lk, dh, generator=gen, device=cuda).bfloat16()
+                    for _ in range(2))
+            before = (fa.LAUNCHES, fa.SM90_LAUNCHES)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            assert (fa.LAUNCHES, fa.SM90_LAUNCHES) == (before[0] + 1, before[1] + 1)
+            want = (ref.flash_attention_ref(q, k, v, causal=causal, window=window) if lk
+                    else torch.zeros_like(q))
+            torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2,
+                                       msg=lambda m: f"lq={lq} lk={lk}: {m}")
+
+
+@pytest.mark.gpu
+def test_cuda_sm90_reads_strided_layouts_and_zeroes_empty_rows(cuda):
+    """[B, L, H, Dh] activations and a [B, buf, Hkv, Dh] cache prefix read
+    in place, the output in q's layout; with more queries than keys under
+    causal, the rows that see no key are exactly 0."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(2, 70, 6, 64, generator=gen, device=cuda).bfloat16()
+    cache = torch.randn(2, 40, 3, 64, generator=gen, device=cuda).bfloat16()
+    q, kv = x.transpose(1, 2), cache[:, :33].transpose(1, 2)
+    before = fa.SM90_LAUNCHES
+    got = fa.flash_attention(q, kv, kv, causal=True, window=48)
+    assert fa.SM90_LAUNCHES == before + 1
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, kv, kv, window=48).float(),
+                               rtol=3e-2, atol=3e-2)
+    q = torch.randn(1, 4, 70, 64, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(1, 2, 6, 64, generator=gen, device=cuda).bfloat16()
+    out = fa.flash_attention(q, k, k, causal=True)
+    assert torch.equal(out[:, :, :64], torch.zeros_like(out[:, :, :64]))
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, k).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_cuda_sm90_gives_the_same_bits_twice(cuda, dh):
+    """No atomics and no split over keys: a second call repeats the first."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, 8, 300, dh, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 2, 300, dh, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    assert torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
 
 
 @pytest.mark.gpu

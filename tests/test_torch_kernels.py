@@ -11,6 +11,9 @@ also held to ``1e-5``) and ``3e-2`` (bfloat16). The CUDA
 kernels themselves are held to these plain versions in
 ``tests/test_torch_gpu.py``.
 """
+import re
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels import edge_stream as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_dispatch as md
@@ -240,6 +244,63 @@ def test_flash_attention_rejects_bad_shapes():
         fa.flash_attention(q, q, q[..., :16])
 
 
+def _stand_in(device_type: str, dtype: torch.dtype):
+    """What the route reads of q, and nothing else: no card is needed."""
+    return types.SimpleNamespace(device=types.SimpleNamespace(type=device_type), dtype=dtype)
+
+
+@pytest.mark.parametrize("device_type,dtype,route", [
+    ("cuda", torch.bfloat16, "sm90"), ("cuda", torch.float32, "cuda_core"),
+    ("cpu", torch.bfloat16, "plain"), ("cpu", torch.float32, "plain")])
+def test_flash_attention_route_follows_dtype_and_device(device_type, dtype, route):
+    assert fa._route(_stand_in(device_type, dtype)) == route
+
+
+def test_flash_attention_route_rejects_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._route(_stand_in("cuda", torch.float16))
+    with pytest.raises(ValueError, match="device type"):
+        fa._route(_stand_in("mps", torch.float32))
+
+
+@pytest.mark.parametrize("route", ["sm90", "cuda_core"])
+def test_flash_attention_routes_have_built_sources(route):
+    source, entry = fa.KERNELS[route]
+    assert source in _build.SOURCES
+    assert f'extern "C" int {entry}(' in (_build.CSRC / f"{source}.cu").read_text()
+
+
+def test_flash_attention_sm90_source_keeps_its_contract():
+    """Both products on the tensor cores (shared-memory and register A
+    operands), K/V by TMA into two stages, every head dim the wrapper
+    takes, and no atomics."""
+    text = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in text
+    assert "p, 1, 1, 0, 0;" in text and "p, 1, 1, 1;" in text  # ss, and rs with V MN-major
+    assert "cp.async.bulk.tensor.4d" in text and "kStages = 2" in text
+    assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", text)
+    for dh in fa.HEAD_DIMS:
+        assert f"case {dh}:" in text
+    assert "__nv_bfloat16" not in (_build.CSRC / "flash_attention.cu").read_text()
+
+
+def test_flash_attention_alignment_is_counted_in_bytes():
+    """The kernels copy 16 bytes at a time: a row stride of 36 elements is
+    aligned in float32 (144 bytes) but not in bfloat16 (72 bytes); the
+    [B, buf, Hkv, Dh] cache prefix is read in place; a broadcast (zero)
+    stride, which no tensor map takes, is copied."""
+    base = torch.zeros(2, 3, 4, 36)
+    f32 = base[..., :32]
+    assert fa._aligned(f32) is f32
+    bf = base.bfloat16()[..., :32]
+    fixed = fa._aligned(bf)
+    assert fixed is not bf and fixed.is_contiguous() and torch.equal(fixed, bf)
+    cache = torch.zeros(2, 12, 8, 128, dtype=torch.bfloat16)[:, :5].transpose(1, 2)
+    assert fa._aligned(cache) is cache
+    expanded = torch.zeros(1, 2, 4, 32).expand(3, 2, 4, 32)  # a zero stride: copied
+    assert fa._aligned(expanded) is not expanded
+
+
 # --------------------------------------------------------------------------
 # moe dispatch
 # --------------------------------------------------------------------------
@@ -302,8 +363,10 @@ def test_moe_gather_clamps_offsets_and_rows():
 
 
 def test_new_kernels_never_launch_on_the_cpu():
-    before = (fa.LAUNCHES, md.LAUNCHES)
-    fa.flash_attention(torch.ones(1, 1, 2, 32), torch.ones(1, 1, 2, 32), torch.ones(1, 1, 2, 32))
+    before = (fa.LAUNCHES, fa.SM90_LAUNCHES, md.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones(1, 1, 2, 32, dtype=dtype)
+        fa.flash_attention(x, x, x)
     md.moe_gather(torch.ones(4, 8), torch.zeros(2, dtype=torch.int32),
                   torch.ones(2, dtype=torch.int32), 2)
-    assert (fa.LAUNCHES, md.LAUNCHES) == before
+    assert (fa.LAUNCHES, fa.SM90_LAUNCHES, md.LAUNCHES) == before
