@@ -70,6 +70,13 @@ WARM_RUNS = 5  # warm runs per program; warm_s is their median (host clocks vary
 PAGERANK_RTOL = 1e-4  # float32 engine vs float64 oracle after 20 iterations
 PAGERANK_ATOL = 1e-10
 FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}  # tests/test_kernels.py's tolerances
+# bf16 attention at the path's shapes, beside FA_TOL: max over rows of
+# max |kernel - plain| / rms(plain row), the plain version in float32 on the
+# same bf16 inputs. It sits between the sound kernel's reading and those of
+# the controls (P rounded to fp8, a key tile dropped or doubled), which every
+# run computes and requires to fail it (PERF.md has the readings).
+ROW_REL_TOL = 5e-2
+CONTROL_KEYS = (1024, 1088)  # the key tile a control drops or doubles
 KIMI, KIMI_LAYERS = "kimi-k2-1t-a32b", 2  # full width, depth cut to 1 dense + 1 MoE layer
 QWEN = "qwen3-0.6b"  # the serving CLI's default arch, full config
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16  # the serving CLI's defaults
@@ -366,6 +373,62 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max over rows of max |got - want| / rms(want row): an error that
+    scales with each row's output, so a fault confined to long rows (whose
+    outputs are small) is not hidden by an absolute tolerance."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
+    return float(((g - w).abs().amax(dim=-1) / rms).max())
+
+
+def attention_control(q, k, v, causal: bool, p_dtype=torch.bfloat16,
+                      tile_weight: float = 1.0) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain PyTorch, with a fault
+    to show what the row-relative check catches: float32 scores, max and
+    sum, P rounded to ``p_dtype`` before P.V (the kernel rounds it to bf16),
+    and the keys of CONTROL_KEYS counted ``tile_weight`` times (0: a key
+    tile skipped, 2: one taken twice); output in q's dtype."""
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    k, v = (t.float().repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / math.sqrt(dh)
+    k_pos = torch.arange(lk, device=q.device)
+    if causal:
+        q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        logits.masked_fill_(k_pos[None, :] > q_pos, float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    del logits
+    lo, hi = CONTROL_KEYS
+    p[..., lo:hi] *= tile_weight
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(p_dtype).float(), v) / denom
+    return out.to(q.dtype)
+
+
+def check_row_rel(name: str, got: torch.Tensor, q, k, v, causal: bool, ref) -> dict:
+    """The bf16 kernel's output against the plain version in float32 on
+    the same inputs, by :func:`row_rel_err`, within ROW_REL_TOL; and three
+    controls, each of which must fall outside it, so that the check is
+    shown able to fail at this shape in this run."""
+    assert q.shape[2] > CONTROL_KEYS[1] and k.shape[2] > CONTROL_KEYS[1], name
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal)
+    err = row_rel_err(got, want)
+    controls = {
+        "p_fp8_e4m3": row_rel_err(attention_control(q, k, v, causal, torch.float8_e4m3fn), want),
+        "key_tile_dropped": row_rel_err(attention_control(q, k, v, causal, tile_weight=0.0),
+                                        want),
+        "key_tile_doubled": row_rel_err(attention_control(q, k, v, causal, tile_weight=2.0),
+                                        want),
+    }
+    del want
+    caught = {c: r > ROW_REL_TOL for c, r in controls.items()}
+    assert all(caught.values()), f"{name}: a control passes the row-relative check: {controls}"
+    assert err <= ROW_REL_TOL, f"{name}: row-relative error {err} outside {ROW_REL_TOL}"
+    return {"row_rel_err": err, "row_rel_tol": ROW_REL_TOL, "controls": controls,
+            "control_keys": list(CONTROL_KEYS)}
+
+
 def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
     """The LM kernels at the reference test shapes (tests/test_kernels.py),
     kernel vs plain: attention in float32 (the CUDA-core kernel) and bf16
@@ -429,6 +492,9 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
     assert (fa.SM90_LAUNCHES > before) == (route == "sm90"), route
     err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)} {q.dtype}",
                       got, ref.flash_attention_ref(q, k, v, causal))
+    rel = None
+    if q.dtype == torch.bfloat16 and lq > CONTROL_KEYS[1]:
+        rel = check_row_rel(f"flash_attention_sm90 {tuple(q.shape)}", got, q, k, v, causal, ref)
     lib_causal = causal and lq > 1
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=lib_causal, enable_gqa=True)
     lib_diff = float((lib.float() - got.float()).abs().max())
@@ -450,6 +516,8 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
         "shape": {"q": list(q.shape), "kv": list(k.shape), "q_strides": list(q.stride()),
                   "kv_strides": list(k.stride()), "dtype": str(q.dtype), "causal": causal},
     }
+    if rel is not None:
+        row["row_rel_check"] = rel
     row["bound_share"] = b_ms / row["kernel_ms"]
     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
     if device_side:
@@ -697,8 +765,9 @@ def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
     before = fa.SM90_LAUNCHES
     got = fa.flash_attention(q, k, v, True)
     assert fa.SM90_LAUNCHES == before + 1
-    shape_err = check_close(f"flash_attention_sm90 {tuple(q.shape)} over {tuple(k.shape)}",
-                            got, ref.flash_attention_ref(q, k, v, True))
+    name = f"flash_attention_sm90 {tuple(q.shape)} over {tuple(k.shape)}"
+    shape_err = check_close(name, got, ref.flash_attention_ref(q, k, v, True))
+    rel = check_row_rel(name, got, q, k, v, True, ref)
     shape = {"q": list(q.shape), "kv": list(k.shape), "causal": True, "dtype": "bfloat16"}
     del q, k, v, got
     gc.collect()
@@ -732,7 +801,7 @@ def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
         "phase": "lm_prefill", "model": QWEN, "dtype": "bfloat16", "reduced": {},
         "batch": LM_BATCH, "prompt_len": PREFILL_LEN,
         "kernel_check": {"shape": shape, "max_abs_err": shape_err,
-                         "tol": FA_TOL[torch.bfloat16]},
+                         "tol": FA_TOL[torch.bfloat16], **rel},
         "forward_ms_median": statistics.median(runs_s) * 1e3,
         "forward_ms_runs": [t * 1e3 for t in runs_s],
         "attention_flop": attn_flop,
@@ -1001,6 +1070,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "ok": True,
         })
+        if "row_rel_check" in row:
+            kernels[-1]["row_rel_err"] = row["row_rel_check"]["row_rel_err"]
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

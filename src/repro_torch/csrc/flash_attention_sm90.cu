@@ -62,6 +62,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -81,24 +82,32 @@ struct Strides {
 // ---------------------------------------------------------------------------
 // wgmma wrappers: every accumulator register is named in the asm, so the
 // arrays are indexed with constants only. ss: A and B from shared memory,
-// both K-major. rs: A from registers (bf16 pairs), B from shared memory
-// MN-major (imm-trans-b = 1).
+// both K-major. rs<kTransB>: A from registers (bf16 pairs), B from shared
+// memory K-major (kTransB = 0: K in S = Q.K^T) or MN-major (kTransB = 1:
+// V in O += P.V).
 // ---------------------------------------------------------------------------
+
+#define FA90_D8(i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FA90_D32(i) FA90_D8(i), FA90_D8(i + 8), FA90_D8(i + 16), FA90_D8(i + 24)
+// the A fragment, B's descriptor, the transpose immediate and scale-d (1: accumulate)
+#define FA90_RS_IN "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kTransB), "r"(1)
 
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<32> {
-  // d[16] += A (registers) * B (shared, MN-major), m64n32k16
+  // d[16] += A (registers) * B (shared), m64n32k16
+  template <int kTransB>
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7,"
         " %8, %9, %10, %11, %12, %13, %14, %15},"
-        " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        " {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+        : FA90_D8(0), FA90_D8(8)
+        : FA90_RS_IN);
   }
 };
 
@@ -113,51 +122,31 @@ template <> struct Wgmma<64> {
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31},"
         " %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : FA90_D32(0)
         : "l"(da), "l"(db), "r"(1));
   }
-  // d[32] += A (registers) * B (shared, MN-major), m64n64k16
+  // d[32] += A (registers) * B (shared), m64n64k16
+  template <int kTransB>
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7,"
         " %8, %9, %10, %11, %12, %13, %14, %15,"
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-  // d[32] += A (registers) * B (shared, K-major), m64n64k16
-  static __device__ __forceinline__ void rs_k(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+        : FA90_D32(0)
+        : FA90_RS_IN);
   }
 };
 
 template <> struct Wgmma<128> {
-  // d[64] += A (registers) * B (shared, MN-major), m64n128k16
+  // d[64] += A (registers) * B (shared), m64n128k16
+  template <int kTransB>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7,"
         " %8, %9, %10, %11, %12, %13, %14, %15,"
@@ -167,24 +156,18 @@ template <> struct Wgmma<128> {
         " %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55,"
         " %56, %57, %58, %59, %60, %61, %62, %63},"
-        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        " {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+        : FA90_D32(0), FA90_D32(32)
+        : FA90_RS_IN);
   }
 };
 
 template <> struct Wgmma<256> {
-  // d[128] += A (registers) * B (shared, MN-major), m64n256k16
+  // d[128] += A (registers) * B (shared), m64n256k16
+  template <int kTransB>
   static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %134, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7,"
         " %8, %9, %10, %11, %12, %13, %14, %15,"
@@ -202,26 +185,15 @@ template <> struct Wgmma<256> {
         " %104, %105, %106, %107, %108, %109, %110, %111,"
         " %112, %113, %114, %115, %116, %117, %118, %119,"
         " %120, %121, %122, %123, %124, %125, %126, %127},"
-        " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        " {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
+        : FA90_D32(0), FA90_D32(32), FA90_D32(64), FA90_D32(96)
+        : FA90_RS_IN);
   }
 };
+
+#undef FA90_RS_IN
+#undef FA90_D32
+#undef FA90_D8
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -460,7 +432,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       if constexpr (T::kQInRegs)
-        Wgmma<kKeys>::rs_k(s, qa[kk], T::k_major(k_smem(stage), kk));
+        Wgmma<kKeys>::rs<0>(s, qa[kk], T::k_major(k_smem(stage), kk));
       else
         Wgmma<kKeys>::ss(s, T::k_major(q_smem, kk), T::k_major(k_smem(stage), kk));
     }
@@ -508,7 +480,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) Wgmma<DH>::rs(o, a[kk], T::mn_major(v_smem(stage), kk));
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      Wgmma<DH>::template rs<1>(o, a[kk], T::mn_major(v_smem(stage), kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -585,9 +558,18 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
                   encode_kv<DH>(&v_map, v, batch, n_kv_heads, lk, st[2])))
     return cudaErrorInvalidValue;
   const int smem = Tile<DH>::kSmemBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the dynamic shared-memory limit is raised once per head dim and device
+  static std::atomic<uint64_t> raised{0};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
+  const uint64_t bit = uint64_t{1} << (device & 63);
+  if ((raised.load(std::memory_order_acquire) & bit) == 0) {
+    e = cudaFuncSetAttribute(flash_attention_sm90_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    raised.fetch_or(bit, std::memory_order_release);
+  }
   flash_attention_sm90_kernel<DH><<<blocks, kThreads, smem, stream>>>(
       k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
       n_kv_heads, group, lq, lk, row_tiles, bh_count, st[0], st[3], causal, window, scale_log2);
