@@ -14,7 +14,12 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    path's own shape (the R19 graph's dst-sorted edge stream), checks that
    a float ``+`` gives the same bits on two runs, and times kernel, plain
    version and (where one exists) a single PyTorch library call with CUDA
-   events.
+   events. ``edge_stream`` runs with the work list the bind built (its
+   longest bin, chunks, work items and build time are printed), gets its
+   device time (both of its kernels) from profiler events, and is also
+   held to its plain version on a skewed stream (one bin of 2^20 edges,
+   bins around the chunk length, empty bins) under every dtype, apply and
+   op.
    The LM kernels (flash attention, MoE gather) are held to theirs at the
    reference test shapes and at the LM path's shapes: Kimi-K2's decode
    attention over the KV cache and a prefill-size causal attention, its
@@ -22,7 +27,7 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    routes the wrapper takes by dtype: float32 through the CUDA-core kernel,
    bfloat16 through the tensor-core (sm90) kernel. The decode-shaped rows
    also get their device time, read from profiler kernel events, beside
-   the host-paced loop's time.
+   the host-paced loop's time; so do both MoE gather rows.
 4. Graph path: ``repro_torch.compile(src).bind(g).run(**params)`` on the
    card for BFS_ECP, PAGERANK and SSSP (one cold run, then five warm
    runs whose median is the warm time), each checked
@@ -30,7 +35,9 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    launch counters set to 0 before and read after. One more warm run of
    each program under ``torch.profiler`` then shows where its time goes:
    the device's busy and idle share and the kernels that took the most
-   time. The graph sessions are freed after it.
+   time, and one more the device time of each ``shuffle_reduce`` launch by
+   its shape (bins, updates), which shows what the one-bin counters cost.
+   The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
    bf16), batch 4, prompt 16, generate 16 (the CLI defaults), twice,
@@ -82,6 +89,7 @@ QWEN = "qwen3-0.6b"  # the serving CLI's default arch, full config
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16  # the serving CLI's defaults
 PREFILL_LEN = 2048  # qwen3-0.6b bf16 forward: batch LM_BATCH x PREFILL_LEN prompt tokens
 PREFILL_RUNS = 3  # timed forwards after one warm-up; the median is kept
+SKEW_HUB = 2**20  # edges of the one long bin in edge_stream's skewed case
 DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
 
 
@@ -110,21 +118,44 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_TRIES = 3  # profiled windows a measurement may take before it fails
+
+
+def profiled(run, seen_all=bool, tries: int = PROFILE_TRIES):
+    """``run()`` (which launches kernels) under ``torch.profiler``, ended by
+    a synchronise: returns the profile, its CUDA kernel events and the
+    window's host time. The profiler now and then reports no device event
+    for a window that launched kernels; a window whose events fail
+    ``seen_all`` (by default: none at all) is run again, up to ``tries``
+    times in all, and then the run fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if seen_all(kernels):
+            return prof, kernels, wall_s
+    raise AssertionError(f"the profiler missed kernels in {tries} windows "
+                         f"({len(kernels)} events in the last)")
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Mean device time of one ``fn()`` over ``iters`` calls: the summed
     durations of the kernels it launched, from ``torch.profiler`` kernel
     events, so the host's time between launches is left out."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) >= iters, f"profiler saw {len(kernels)} kernels for {iters} calls"
+
+    _, kernels, _ = profiled(calls, seen_all=lambda k: len(k) >= iters)
     names = sorted({e.name[:80] for e in kernels})
     return {"ms": sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3,
             "kernels_per_call": len(kernels) / iters, "kernels": names}
@@ -135,15 +166,7 @@ def profile_run(run, top: int = 6, focus: str = None) -> dict:
     time the device was busy (kernel intervals merged), and the kernels
     that took the most device time. The profiler slows the host, so the
     idle share it gives is an upper bound of the unprofiled run's."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    prof, kernels, wall_s = profiled(run)
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         if stop > end:
@@ -159,7 +182,7 @@ def profile_run(run, top: int = 6, focus: str = None) -> dict:
     top_ops = sorted(ops, key=lambda kv: -kv[1])[:top]
     out = {
         "wall_s": wall_s, "device_kernels": len(kernels), "device_busy_s": busy_us / 1e6,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if kernels else None,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top_k},
         "host_ops_s": sum(us for _, us in ops) / 1e6,
         "top_host_ops_ms": {name[:80]: us / 1e3 for name, us in top_ops},
@@ -169,6 +192,42 @@ def profile_run(run, top: int = 6, focus: str = None) -> dict:
         out.update({"focus": focus, "focus_ms": us / 1e3,
                     "focus_share_of_busy": us / busy_us if busy_us else None})
     return out
+
+
+def shuffle_reduce_launches(sr, run) -> list:
+    """One more warm ``run()`` with the shape of each ``shuffle_reduce``
+    launch recorded (the module's function wrapped for this run only) and
+    matched, in launch order, with its device time from profiler kernel
+    events. Returns one entry per shape (bins, updates, dtype, op): its
+    launches and their mean and total device time, largest total first."""
+    shapes = []
+    inner = sr.shuffle_reduce_sorted
+
+    def recording(vals, offsets, n_out, op):
+        if n_out > 0:  # the wrapper launches nothing for no bins
+            shapes.append((n_out, vals.shape[0], str(vals.dtype).split(".")[-1], op))
+        return inner(vals, offsets, n_out, op)
+
+    def recorded_run():
+        shapes.clear()  # a window the profiler saw nothing of runs again
+        run()
+
+    def ours(kernels):
+        return [e for e in kernels if "shuffle_reduce_kernel" in e.name]
+
+    sr.shuffle_reduce_sorted = recording
+    try:
+        _, kernels, _ = profiled(recorded_run, seen_all=lambda k: len(ours(k)) == len(shapes))
+    finally:
+        sr.shuffle_reduce_sorted = inner
+    events = sorted(ours(kernels), key=lambda e: e.time_range.start)
+    groups: dict = {}
+    for shape, e in zip(shapes, events):
+        groups.setdefault(shape, []).append(e.time_range.elapsed_us() / 1e3)
+    out = [{"bins": k[0], "updates": k[1], "dtype": k[2], "op": k[3], "launches": len(v),
+            "device_ms_mean": sum(v) / len(v), "device_ms_total": sum(v)}
+           for k, v in groups.items()]
+    return sorted(out, key=lambda r: -r["device_ms_total"])
 
 
 def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
@@ -279,6 +338,80 @@ def kernel_tests(sr, es, ref, dev: str) -> dict:
     return {"cases": n_cases, "max_abs_err": max_err}
 
 
+def split_facts(sr, split, offsets: torch.Tensor, n_e: int) -> dict:
+    """What the bind's work list for edge_stream holds, and what building
+    it costs: the median host time (ending in a synchronise) of three more
+    builds from the same offsets, which must give the same list. The
+    kernel's work items are the chunks, then the bins in quads of four
+    (csrc/edge_stream.cu)."""
+    build_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = sr.split_bins(offsets, n_e)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        assert all(torch.equal(a, b) for a, b in zip(again, split)), "work list differs"
+    n_chunks, n_out = split.chunks.shape[0], offsets.shape[0] - 1
+    n_b = offsets.clamp(0, n_e).diff().clamp(min=0)
+    quad_max = torch.cat([n_b, n_b.new_zeros(-n_out % 4)]).view(-1, 4).amax(dim=1)
+    return {"split_len": sr.SPLIT_LEN, "longest_bin": int(n_b.max()),
+            "split_bins": split.bins.shape[0], "chunks": n_chunks,
+            "work_items": n_chunks + quad_max.shape[0],
+            "short_quads": int((quad_max <= 32).sum()),  # walked 8 lanes a bin
+            "build_ms": statistics.median(build_s) * 1e3}
+
+
+def skewed_edge_stream(sr, es, ref, dev: str) -> dict:
+    """edge_stream on a stream built to cross the work list's edges: one bin
+    of SKEW_HUB edges, bins of L-1, L, L+1, 2L and 2L+1 edges (L =
+    SPLIT_LEN), empty bins and a uniform rest of 0-16 edges a bin, in int32
+    and float32 under every apply and op, kernel vs plain: exact for int32,
+    min and max; float32 + within f32_sum_tolerance and the same bits on
+    two calls."""
+    big = sr.SPLIT_LEN
+    rng = np.random.default_rng(2)
+    n_v = 4096
+    counts = np.concatenate([[0, SKEW_HUB, 0, big - 1, big, big + 1, 0, 2 * big, 2 * big + 1, 0],
+                             rng.integers(0, 17, 60_000)])
+    n_out, n_e = counts.shape[0], int(counts.sum())
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
+    src_s = torch.from_numpy(rng.integers(0, n_v, n_e).astype(np.int32)).to(dev)
+    eid_s = torch.from_numpy(rng.permutation(n_e).astype(np.int32)).to(dev)
+    vact = torch.from_numpy(rng.random(n_v) < 0.6).to(dev)
+    split = sr.split_bins(offsets, n_e)
+    ids = ref.bin_ids(offsets)
+    n_cases, max_err = 0, 0.0
+    for dtype in (torch.int32, torch.float32):
+        if dtype == torch.int32:  # small enough that no sum wraps
+            vval, w = (torch.from_numpy(rng.integers(-30, 30, n).astype(np.int32)).to(dev)
+                       for n in (n_v, n_e))
+        else:
+            vval, w = (torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+                       for n in (n_v, n_e))
+        for apply_op in ("add", "mul", "src"):
+            eid, ww = (None, None) if apply_op == "src" else (eid_s, w)
+            for op in ("+", "min", "max"):
+                name = f"edge_stream skewed {str(dtype).split('.')[-1]} {apply_op} {op}"
+                got = es.edge_stream_gather(vval, vact, src_s, eid, ww, offsets, apply_op, op,
+                                            split)
+                want = ref.edge_stream_gather_ref(vval, vact, src_s, eid, ww, offsets, apply_op,
+                                                  op)
+                tol = None
+                if dtype == torch.float32 and op == "+":
+                    again = es.edge_stream_gather(vval, vact, src_s, eid, ww, offsets, apply_op,
+                                                  op, split)
+                    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+                        f"{name}: float + differs between two calls"
+                    upd = ref._apply(apply_op, vval[src_s], None if ww is None else ww[eid])
+                    tol = f32_sum_tolerance(torch.where(vact[src_s], upd, 0.0), ids, n_out)
+                max_err = max(max_err, check_equal(name, got, want, op, tol))
+                n_cases += 1
+    return {"cases": n_cases, "max_abs_err": max_err, "edges": n_e, "bins": n_out,
+            "longest_bin": int(counts.max()), "split_bins": split.bins.shape[0],
+            "chunks": split.chunks.shape[0], "split_len": sr.SPLIT_LEN}
+
+
 def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
     """Each kernel at the main path's shape: the bound graph's dst-sorted
     edge stream (|E| updates into |V| bins)."""
@@ -320,28 +453,40 @@ def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
     # -- edge_stream: the SSSP relax (int32, add weight, min) and the
     #    PageRank contribution (float32, src, +) on the bound graph -------
     n_v = gb["n_vertices"]
+    split = gb["es_split"]  # the work list the bind built, as the engine's launches use it
     vact = torch.rand(n_v, generator=gen, device=dev) < 0.5
     sp = torch.randint(0, 2**20, (n_v,), generator=gen, device=dev, dtype=torch.int32)
     w = weights
-    got = es.edge_stream_gather(sp, vact, gb["es_src"], gb["es_eid"], w, offsets, "add", "min")
+    got = es.edge_stream_gather(sp, vact, gb["es_src"], gb["es_eid"], w, offsets, "add", "min",
+                                split)
     want = ref.edge_stream_gather_ref(sp, vact, gb["es_src"], gb["es_eid"], w, offsets,
                                       "add", "min")
     err_i = check_equal("edge_stream main-shape i32 add min", got, want, "min")
     n_active = int(vact[gb["es_src"]].sum())
     b_ms, b_by = bound(4 * n_e + 8 * n_active + 5 * n_v + 8 * n_out + 4, 2 * n_active)
+    dev_i = device_ms(lambda: es.edge_stream_gather(
+        sp, vact, gb["es_src"], gb["es_eid"], w, offsets, "add", "min", split))
+    # the same stream with apply 'src': what the weight gather by edge id costs
+    dev_s = device_ms(lambda: es.edge_stream_gather(
+        sp, vact, gb["es_src"], None, None, offsets, "src", "min", split))
     rows["edge_stream"] = {
         "kernel_ms": time_ms(lambda: es.edge_stream_gather(
-            sp, vact, gb["es_src"], gb["es_eid"], w, offsets, "add", "min")),
+            sp, vact, gb["es_src"], gb["es_eid"], w, offsets, "add", "min", split)),
+        "kernel_device_ms": dev_i["ms"], "kernel_device_kernels": dev_i["kernels"],
+        "src_apply_device_ms": dev_s["ms"],
         "plain_ms": time_ms(lambda: ref.edge_stream_gather_ref(
             sp, vact, gb["es_src"], gb["es_eid"], w, offsets, "add", "min"), iters=5),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err_i,
         "shape": {"edges": n_e, "bins": n_out, "dtype": "int32", "apply": "add",
                   "op": "min", "active_edges": n_active},
+        "work_list": split_facts(sr, split, offsets, n_e),
     }
     rank = torch.rand(n_v, generator=gen, device=dev)
-    got = es.edge_stream_gather(rank, vact, gb["es_src"], None, None, offsets, "src", "+")
-    again = es.edge_stream_gather(rank, vact, gb["es_src"], None, None, offsets, "src", "+")
+    got = es.edge_stream_gather(rank, vact, gb["es_src"], None, None, offsets, "src", "+",
+                                split)
+    again = es.edge_stream_gather(rank, vact, gb["es_src"], None, None, offsets, "src", "+",
+                                  split)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
         "edge_stream: float + differs between two runs"
     want = ref.edge_stream_gather_ref(rank, vact, gb["es_src"], None, None, offsets, "src", "+")
@@ -349,9 +494,12 @@ def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
     err_f = check_equal("edge_stream main-shape f32 src +", got, want, "+",
                         f32_sum_tolerance(upd, ids, n_out))
     b_ms, b_by = bound(4 * n_e + 5 * n_v + 8 * n_out + 4, n_e)
+    dev_f = device_ms(lambda: es.edge_stream_gather(
+        rank, vact, gb["es_src"], None, None, offsets, "src", "+", split))
     rows["edge_stream_f32"] = {
         "kernel_ms": time_ms(lambda: es.edge_stream_gather(
-            rank, vact, gb["es_src"], None, None, offsets, "src", "+")),
+            rank, vact, gb["es_src"], None, None, offsets, "src", "+", split)),
+        "kernel_device_ms": dev_f["ms"], "kernel_device_kernels": dev_f["kernels"],
         "plain_ms": time_ms(lambda: ref.edge_stream_gather_ref(
             rank, vact, gb["es_src"], None, None, offsets, "src", "+"), iters=5),
         "library_ms": None,
@@ -606,7 +754,8 @@ def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
         del q, k, v, ck, cv
     rows["moe_gather"] = _dispatch_row(md, ref, moe_mod, cfg, LM_BATCH, gen, 20,
                                        device_side=True)
-    rows["moe_gather_prefill"] = _dispatch_row(md, ref, moe_mod, cfg, 4096, gen, 3)
+    rows["moe_gather_prefill"] = _dispatch_row(md, ref, moe_mod, cfg, 4096, gen, 3,
+                                               device_side=True)
     return rows
 
 
@@ -947,6 +1096,7 @@ def main() -> int:
     rows = main_shape_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev)
     for name, row in rows.items():
         log({"phase": "kernels", "kernel": name, **row})
+    log({"phase": "kernels", "skewed_edge_stream": skewed_edge_stream(sr, es, ref, dev)})
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})
@@ -1028,6 +1178,8 @@ def main() -> int:
     for name in results:
         log({"phase": "profile", "program": name,
              **profile_run(lambda n=name: sessions[n].run(**params[n]))})
+        log({"phase": "profile", "program": name, "shuffle_reduce_launches":
+             shuffle_reduce_launches(sr, lambda n=name: sessions[n].run(**params[n]))})
     del sessions, eng, results
     gc.collect()
     torch.cuda.empty_cache()

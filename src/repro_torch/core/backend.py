@@ -665,7 +665,7 @@ def _exec_edge_stream(module, kernel, plan: EdgeStreamPlan, options, gb, state, 
     reduced = es_kernel.edge_stream_gather(
         vval.contiguous(), vact.contiguous(), gb["es_src"],
         gb["es_eid"] if weights is not None else None, weights,
-        gb["dst_offsets"], plan.apply_op, plan.op,
+        gb["dst_offsets"], plan.apply_op, plan.op, gb["es_split"],
     )
     return {plan.prop: combine(plan.op, cur, reduced)}
 
@@ -757,6 +757,7 @@ def _graph_bindings(
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
+    dst_offsets_d = dev(dst_offsets)
     return {
         "device": device,
         "n_vertices": g.n_vertices,
@@ -768,9 +769,11 @@ def _graph_bindings(
         # the shuffle routing of the full stream: bin offsets of the
         # dst-sorted edges, and the sorted edges' source and edge ids
         # (what the fused edge_stream kernel gathers through)
-        "dst_offsets": dev(dst_offsets),
+        "dst_offsets": dst_offsets_d,
         "es_src": dev(src_o[dst_sort]),
         "es_eid": dev(order[dst_sort]),
+        # edge_stream's work list: the bins longer than SPLIT_LEN in chunks
+        "es_split": sr_kernel.split_bins(dst_offsets_d, g.n_edges),
         "vids": torch.arange(g.n_vertices, dtype=torch.int32, device=device),
         "csr_row_pos": dev(row_ids),
         "csr_indices": dev(csr_idx),

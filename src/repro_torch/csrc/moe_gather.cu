@@ -19,9 +19,18 @@
 // Bound on this card: bytes. Each output row is written once and each live
 // slot reads one token row; there is no arithmetic.
 //
-// Design: one block per output row (g, e, c), copying the row with 16-byte
-// vectors along D (4-byte or 2-byte words when the row size or alignment
-// does not allow 16). The copy is of bytes, so it is exact for any dtype.
+// Design: one block per output row (g, e, c), consecutive blocks on
+// consecutive rows. The block loads sizes[ge] and offsets[ge] together
+// (neither waits for the other); a live slot then loads its token row
+// (one broadcast load per warp) and copies it, each thread issuing all of
+// its loads of a pass, kUnroll vectors of 16 bytes (4, 2 or 1 bytes when
+// the row size or alignment does not allow 16), before the first of its
+// stores; a slot past sizes[ge] is written with vector stores of zeros
+// and no load. The copy is of bytes, so it is exact for any dtype.
+//
+// At Kimi-K2's prefill dispatch ([32, 384, 4, 7168] bf16) one block for
+// a group's four rows, sharing the index loads, was measured slower than a
+// block per row (PERF.md), so blocks do not share them.
 
 #include <cuda_runtime.h>
 
@@ -30,6 +39,7 @@
 namespace repro_moe {
 
 constexpr int kThreads = 128;
+constexpr int kUnroll = 8;  // vectors a thread loads before it stores
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
@@ -40,15 +50,27 @@ moe_gather_kernel(const V* __restrict__ x, const int32_t* __restrict__ rows,
   const int64_t slot = blockIdx.x;
   const int64_t c = slot % capacity;
   const int64_t ge = slot / capacity;  // g * n_experts + e
-  const int64_t g = ge / n_experts;
+  const int64_t size = sizes[ge];
+  const int64_t off = offsets[ge];
   V* dst = out + slot * vecs;
-  if (c < sizes[ge] && n_stream > 0 && n_tokens > 0) {
-    int64_t s = static_cast<int64_t>(offsets[ge]) + c;
+  if (c < size && n_stream > 0 && n_tokens > 0) {
+    const int64_t g = ge / n_experts;
+    int64_t s = off + c;
     s = s < 0 ? 0 : (s >= n_stream ? n_stream - 1 : s);
     int64_t row = rows != nullptr ? static_cast<int64_t>(rows[g * n_stream + s]) : s;
     row = row < 0 ? 0 : (row >= n_tokens ? n_tokens - 1 : row);
     const V* src = x + (g * n_tokens + row) * vecs;
-    for (int64_t i = threadIdx.x; i < vecs; i += kThreads) dst[i] = src[i];
+    for (int64_t base = threadIdx.x; base < vecs; base += kThreads * kUnroll) {
+      V r[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (base + u * kThreads < vecs) r[u] = src[base + u * kThreads];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (base + u * kThreads < vecs) dst[base + u * kThreads] = r[u];
+      }
+    }
   } else {
     const V zero{};
     for (int64_t i = threadIdx.x; i < vecs; i += kThreads) dst[i] = zero;

@@ -54,14 +54,15 @@ template <typename T> struct Reduce<T, kMax> {
   static __device__ __forceinline__ T apply(T a, T b) { return b > a ? b : a; }
 };
 
-// Fixed-shape tree over the 32 lanes; lane 0 ends with the warp's result.
-// The shape never depends on the data, so a float sum gives the same bits
-// on every run.
-template <typename T, int OP>
+// Fixed-shape tree over each group of WIDTH lanes (the whole warp by
+// default); the group's first lane ends with its result. Every lane of the
+// warp takes part. The shape never depends on the data, so a float sum
+// gives the same bits on every run.
+template <typename T, int OP, int WIDTH = 32>
 __device__ __forceinline__ T warp_reduce(T v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v = Reduce<T, OP>::apply(v, __shfl_down_sync(0xffffffffu, v, o));
+  for (int o = WIDTH / 2; o > 0; o >>= 1) {
+    v = Reduce<T, OP>::apply(v, __shfl_down_sync(0xffffffffu, v, o, WIDTH));
   }
   return v;
 }

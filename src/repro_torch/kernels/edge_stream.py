@@ -7,16 +7,19 @@ edge-sized streams (source ids, edge ids, weights) are read once; the
 vertex-sized operands it gathers fit in L2 at the paper's graph sizes.
 Unlike the TPU kernel, which took a pre-gathered source operand, this one
 fuses the source gather: the engine hands in the vertex-side operand and
-mask once per launch, and the dst-sorted edge lists once per bind.
+mask once per launch, and the dst-sorted edge lists and their work list
+(:func:`.shuffle_reduce.split_bins`: bins longer than ``SPLIT_LEN`` cut
+into chunks of their own) once per bind.
 
 Two entry points:
 
 * :func:`edge_stream_gather` — the kernel itself, in its fused-gather
   form (what the engine's full-stream edge launches call).
 * :func:`edge_stream` — the reference's shape ``(src_vals, weights, dst,
-  active)`` per edge: a stable sort by ``dst`` is the routing step, and
-  the same kernel runs with an identity gather (vertex operand = the
-  per-edge stream, indexed by the sort permutation).
+  active)`` per edge: a stable sort by ``dst`` is the routing step (and
+  the work list is built anew on every call), and the same kernel runs
+  with an identity gather (vertex operand = the per-edge stream, indexed
+  by the sort permutation).
 
 A CPU tensor takes the plain version in :mod:`.ref`; a CUDA tensor
 launches the kernel or raises.
@@ -29,16 +32,21 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .shuffle_reduce import DTYPE_CODES, OP_CODES, bin_offsets
+from .shuffle_reduce import (DTYPE_CODES, OP_CODES, SPLIT_LEN, BinSplit, bin_offsets,
+                             split_bins)
 
-#: launches of the CUDA kernel since the last reset (set it to 0 to reset)
+#: calls that launched the CUDA kernels since the last reset (set it to 0 to
+#: reset): one per call, also when a split bin adds the combining kernel
 LAUNCHES = 0
 
 APPLY_CODES = {"add": 0, "mul": 1, "src": 2}
 
-# vval, vact, src_s, eid_s, n_edges, w, offsets, out, n_out, dtype, apply, op, stream
+# vval, vact, src_s, eid_s, n_edges, w, offsets, out, n_out, chunks, n_chunks,
+# chunk_len, split_bins, split_first, n_split, partial, dtype, apply, op, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -59,10 +67,15 @@ def edge_stream_gather(
     offsets: torch.Tensor,
     apply_op: str,
     reduce_op: str,
+    split: Optional[BinSplit] = None,
 ) -> torch.Tensor:
     """Per dst-sorted edge ``e``: ``s = src_s[e]``, ``upd = vact[s] ?
     apply(vval[s], weights[eid_s[e]]) : identity``; bin ``b`` reduces
-    edges ``offsets[b]:offsets[b+1]``. Returns ``[len(offsets) - 1]``."""
+    edges ``offsets[b]:offsets[b+1]``. Returns ``[len(offsets) - 1]``.
+
+    ``split`` is the work list :func:`.shuffle_reduce.split_bins` built from
+    these ``offsets`` (the engine builds it once per bind); without it a
+    CUDA call builds it here. The plain version on the CPU needs none."""
     global LAUNCHES
     if apply_op not in APPLY_CODES:
         raise ValueError(f"edge_stream: unsupported apply {apply_op!r}")
@@ -88,7 +101,14 @@ def edge_stream_gather(
         raise TypeError("edge_stream: vact must be a bool mask shaped like vval")
     if any(t.dtype != torch.int32 for t in (src_s, offsets, *([eid_s] if weighted else []))):
         raise TypeError("edge_stream: src_s, eid_s and offsets must be int32")
+    if split is None:
+        split = split_bins(offsets, src_s.shape[0])
+    lists = (split.chunks, split.bins, split.first)
+    if any(t.device != vval.device or t.dtype != torch.int32 for t in lists):
+        raise TypeError("edge_stream: the work list must be int32 on the operands' device")
     vval, vact, src_s, offsets = (t.contiguous() for t in (vval, vact, src_s, offsets))
+    chunks, bins, first = (t.contiguous() for t in lists)
+    n_chunks = chunks.shape[0]
     eid_p = w_p = None
     if weighted:
         eid_s, weights = eid_s.contiguous(), weights.contiguous()
@@ -96,10 +116,12 @@ def edge_stream_gather(
     out = torch.empty(n_out, dtype=vval.dtype, device=vval.device)
     if n_out == 0:
         return out
+    partial = torch.empty(n_chunks, dtype=vval.dtype, device=vval.device)
     rc = _lib()(vval.data_ptr(), vact.data_ptr(), src_s.data_ptr(), eid_p, src_s.shape[0],
-                w_p, offsets.data_ptr(), out.data_ptr(), n_out, DTYPE_CODES[vval.dtype],
-                APPLY_CODES[apply_op], OP_CODES[reduce_op],
-                torch.cuda.current_stream(vval.device).cuda_stream)
+                w_p, offsets.data_ptr(), out.data_ptr(), n_out, chunks.data_ptr(), n_chunks,
+                SPLIT_LEN, bins.data_ptr(), first.data_ptr(), bins.shape[0],
+                partial.data_ptr(), DTYPE_CODES[vval.dtype], APPLY_CODES[apply_op],
+                OP_CODES[reduce_op], torch.cuda.current_stream(vval.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"edge_stream kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -4,8 +4,10 @@ Replaces the reference package's Pallas TPU kernel
 ``kernels/moe_dispatch.py::moe_gather_call`` (and its wrapper
 ``kernels/ops.py::moe_gather``). What bounds it on an H100 is bytes: one
 write of every output row and one read of every live token row. The
-design (one block per output row, 16-byte copies along D, offsets and rows
-clamped into their arrays) is described in the CUDA source.
+design (one block per output row, the index loads issued together, every
+load of a pass issued before its stores, 16-byte copies along D, zero rows
+stored without loads, offsets and rows clamped into their arrays) is
+described in the CUDA source.
 
 :func:`moe_gather` takes the reference's form (``tokens_sorted [T, D]``,
 ``[E]`` offsets and sizes) and the MoE layer's grouped, fused form

@@ -23,6 +23,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +54,47 @@ def bin_offsets(sorted_idx: torch.Tensor, n_out: int) -> torch.Tensor:
     stream, for ``b`` in ``[0, n_out]`` (int32)."""
     bins = torch.arange(n_out + 1, dtype=sorted_idx.dtype, device=sorted_idx.device)
     return torch.searchsorted(sorted_idx, bins, out_int32=True)
+
+
+#: the most updates of one bin that one warp walks: 32 steps of 32 lanes
+SPLIT_LEN = 1024
+
+
+class BinSplit(NamedTuple):
+    """The work list of a bin-sorted stream: every bin longer than
+    :data:`SPLIT_LEN` cut into ``ceil(n_b / SPLIT_LEN)`` chunks.
+
+    Chunk ``k`` covers updates ``[lo + c * SPLIT_LEN, min(hi, lo + (c + 1)
+    * SPLIT_LEN))`` of its bin ``[lo, hi)`` and leaves its partial result in
+    slot ``k`` of a scratch buffer; split bin ``j`` owns slots
+    ``first[j]:first[j+1]``, its chunks in order, which a second pass folds
+    into ``out[bins[j]]``. A kernel walks the chunks as work items of their
+    own and skips the split bins where it walks the bins.
+    """
+
+    chunks: torch.Tensor  # int32 [n_chunks, 2]: (bin, chunk number c)
+    bins: torch.Tensor  # int32 [n_split]: the split bins, ascending
+    first: torch.Tensor  # int32 [n_split + 1]: first chunk slot of each split bin
+
+
+def split_bins(offsets: torch.Tensor, n_stream: int) -> BinSplit:
+    """The :class:`BinSplit` of ``offsets[n_out + 1]`` over a stream of
+    ``n_stream`` updates, with the offsets clamped into ``[0, n_stream]`` as
+    the kernels clamp them. Built on the offsets' device; it reads two
+    sizes back to the host, so it belongs where the offsets are built (once
+    per bind)."""
+    off = offsets.clamp(0, n_stream)
+    n = (off[1:] - off[:-1]).clamp(min=0)
+    bins = torch.nonzero(n > SPLIT_LEN).flatten()
+    k = (n[bins] + SPLIT_LEN - 1) // SPLIT_LEN
+    first = torch.zeros(bins.shape[0] + 1, dtype=torch.int32, device=offsets.device)
+    torch.cumsum(k, 0, out=first[1:])
+    n_chunks = int(first[-1])
+    chunk_bin = torch.repeat_interleave(bins, k, output_size=n_chunks)
+    base = torch.repeat_interleave(first[:-1], k, output_size=n_chunks)
+    c = torch.arange(n_chunks, dtype=torch.int32, device=offsets.device) - base
+    return BinSplit(torch.stack([chunk_bin.to(torch.int32), c], dim=1), bins.to(torch.int32),
+                    first)
 
 
 def shuffle_reduce_sorted(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,

@@ -17,6 +17,7 @@ bfloat16 the tensor-core (sm90) kernel, which multiplies bf16 operands
 bf16's 3e-2.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ import torch
 
 import repro_torch
 from repro_torch.algorithms import sources
-from repro_torch.configs import smoke_config
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.graph import generators
 from repro_torch.kernels import edge_stream as es
 from repro_torch.kernels import flash_attention as fa
@@ -33,9 +34,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import shuffle_reduce as sr
 from repro_torch.launch import serve
 from repro_torch.models import Model
+from repro_torch.models import moe as moe_mod
 
 SR_SHAPES = [(64, 16), (1000, 300), (4096, 512), (513, 1024), (7, 5)]
 ES_SHAPES = [(128, 32), (3000, 400), (5000, 123)]
+L = sr.SPLIT_LEN  # edge_stream's chunk length
+HUB = 100_003  # edges of the skewed stream's one long bin
+LM_BATCH = 4  # the serving CLI's batch: Kimi-K2's decode step dispatches 4 tokens
 ALGORITHMS = {
     "bfs": ("BFS_ECP", {"root": 3}),
     "bfs_hybrid": ("BFS_HYBRID", {"root": 3}),
@@ -93,6 +98,16 @@ def test_cuda_offsets_past_the_stream_are_clamped(cuda, op):
     got = es.edge_stream_gather(vval, vact, src_s, None, None, bad, "src", op)
     assert torch.equal(got, ref.edge_stream_gather_ref(vval, vact, src_s, None, None, good,
                                                        "src", op))
+    # a split bin whose end runs past the stream: [L - 5, 4L + 90) clamps to
+    # [L - 5, 3L + 40), three chunks; the bins after it clamp to empty
+    n = 3 * L + 40
+    src_s = torch.arange(n, dtype=torch.int32, device=cuda) % 9
+    bad = torch.tensor([-3, L - 5, 4 * L + 90, 5 * L, 5 * L], dtype=torch.int32, device=cuda)
+    split = sr.split_bins(bad, n)
+    assert split.bins.tolist() == [1] and split.chunks.shape[0] == 3
+    got = es.edge_stream_gather(vval, vact, src_s, None, None, bad, "src", op, split)
+    assert torch.equal(got, ref.edge_stream_gather_ref(vval, vact, src_s, None, None,
+                                                       bad.clamp(0, n), "src", op))
 
 
 @pytest.mark.gpu
@@ -109,6 +124,69 @@ def test_cuda_edge_stream_matches_plain(cuda, apply_op, reduce_op):
         got = es.edge_stream(sv, w, dst, act, v, apply_op, reduce_op)
         assert es.LAUNCHES == before + 1
         assert torch.equal(got, ref.edge_stream_ref(sv, w, dst, act, v, apply_op, reduce_op))
+
+
+def _skewed_stream(cuda, dtype, seed: int):
+    """A dst-sorted stream with one bin of HUB edges, bins of L-1, L, L+1,
+    2L and 2L+1 edges, empty bins and a uniform rest of 0-16 edges a bin;
+    float values are integers, so every summation order is exact."""
+    rng = np.random.default_rng(seed)
+    counts = np.concatenate([[0, HUB, L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 0],
+                             rng.integers(0, 17, 5000)])
+    n_v, n_e = 3000, int(counts.sum())
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    src_s = torch.from_numpy(rng.integers(0, n_v, n_e).astype(np.int32))
+    eid_s = torch.from_numpy(rng.permutation(n_e).astype(np.int32))
+    vact = torch.from_numpy(rng.random(n_v) < 0.6)
+    vval = torch.from_numpy(rng.integers(-20, 20, n_v).astype(np.int32)).to(dtype)
+    w = torch.from_numpy(rng.integers(-20, 20, n_e).astype(np.int32)).to(dtype)
+    return [t.to(cuda) for t in (vval, vact, src_s, eid_s, w, offsets)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("apply_op", ["add", "mul", "src"])
+@pytest.mark.parametrize("reduce_op", ["+", "min", "max"])
+def test_cuda_edge_stream_splits_long_bins(cuda, dtype, apply_op, reduce_op):
+    """A hub bin over 100,000 edges and bins around the chunk length L go
+    through the work list (chunks, then the combining pass) and give the
+    plain version's answer exactly; one launch is counted per call."""
+    vval, vact, src_s, eid_s, w, offsets = _skewed_stream(cuda, dtype, seed=9)
+    eid, ww = (None, None) if apply_op == "src" else (eid_s, w)
+    split = sr.split_bins(offsets, src_s.shape[0])
+    assert split.bins.shape[0] == 4  # HUB, L+1, 2L, 2L+1
+    assert split.chunks.shape[0] == -(-HUB // L) + 2 + 2 + 3
+    before = es.LAUNCHES
+    got = es.edge_stream_gather(vval, vact, src_s, eid, ww, offsets, apply_op, reduce_op, split)
+    assert es.LAUNCHES == before + 1
+    assert torch.equal(got, ref.edge_stream_gather_ref(vval, vact, src_s, eid, ww, offsets,
+                                                       apply_op, reduce_op))
+    # without a list the wrapper builds the same one
+    assert torch.equal(es.edge_stream_gather(vval, vact, src_s, eid, ww, offsets, apply_op,
+                                             reduce_op), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("apply_op", ["add", "mul", "src"])
+def test_cuda_edge_stream_float_sum_repeats_its_bits(cuda, apply_op):
+    """Non-integer floats over the skewed stream: the chunks' partials are
+    folded in a fixed order, so two calls give the same bits."""
+    _, vact, src_s, eid_s, _, offsets = _skewed_stream(cuda, torch.float32, seed=10)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    vval = torch.randn(vact.shape[0], generator=gen, device=cuda)
+    w = torch.randn(src_s.shape[0], generator=gen, device=cuda)
+    eid, ww = (None, None) if apply_op == "src" else (eid_s, w)
+    a = es.edge_stream_gather(vval, vact, src_s, eid, ww, offsets, apply_op, "+")
+    b = es.edge_stream_gather(vval, vact, src_s, eid, ww, offsets, apply_op, "+")
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = ref.edge_stream_gather_ref(vval, vact, src_s, eid, ww, offsets, apply_op, "+")
+    # two summation orders of n_b terms differ by at most 2 (n_b + 5) 2^-24 sum|v|
+    upd = ref._apply(apply_op, vval[src_s], None if ww is None else ww[eid])
+    ids = ref.bin_ids(offsets).long()
+    n_b = torch.bincount(ids, minlength=a.shape[0]).double()
+    abs_sum = torch.zeros(a.shape[0], dtype=torch.float64, device=cuda).index_add_(
+        0, ids, torch.where(vact[src_s], upd, 0.0).abs().double())
+    assert bool(((a.double() - want.double()).abs() <= 2 * (n_b + 5) * 2.0**-24 * abs_sum).all())
 
 
 @pytest.mark.gpu
@@ -261,6 +339,52 @@ def test_cuda_moe_gather_matches_plain(cuda, dtype):
         got = md.moe_gather(x, offs, sizes, c, rows=rows)
         assert md.LAUNCHES == before + 1
         assert torch.equal(got, ref.moe_gather_ref(x, rows, offs, sizes, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tokens", [LM_BATCH, 4096])
+def test_cuda_moe_gather_at_the_kimi_shapes(cuda, n_tokens):
+    """Kimi-K2's dispatch at full width in bf16, through the MoE layer's own
+    groups, capacity and routing of random top-k experts: the decode step
+    ([4, 384, 1, 7168], 4 tokens) and a 4096-token prefill ([32, 384, 4,
+    7168]), byte-exact."""
+    cfg = get_config("kimi-k2-1t-a32b")
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    gen = torch.Generator(device=cuda).manual_seed(n_tokens)
+    g = moe_mod._dispatch_groups(n_tokens)
+    tg = n_tokens // g
+    cap = int(max(1, math.ceil(cfg.moe_capacity_factor * tg * k / e)))
+    x = torch.randn(g, tg, d, generator=gen, device=cuda).bfloat16()
+    top_e = torch.rand(g, tg, e, generator=gen, device=cuda).topk(k, dim=-1).indices
+    _, order, offsets, sizes = moe_mod.route(top_e, e, cap)
+    rows = (order // k).to(torch.int32)
+    offsets, sizes = offsets.to(torch.int32), sizes.to(torch.int32)
+    got = md.moe_gather(x, offsets, sizes, cap, rows)
+    assert got.shape == (g, e, cap, d)
+    assert torch.equal(got, ref.moe_gather_ref(x, rows, offsets, sizes, cap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,shift", [
+    (torch.float32, 37, 0), (torch.bfloat16, 37, 0), (torch.uint8, 37, 0),
+    (torch.float32, 64, 1), (torch.bfloat16, 64, 1), (torch.uint8, 64, 1)])
+def test_cuda_moe_gather_copies_every_alignment(cuda, dtype, d, shift):
+    """Rows whose size or base address allows only 4-, 2- or 1-byte words
+    (the token table starts ``shift`` elements into its buffer), with sizes
+    of 0, at and above capacity (and negative), stay byte-exact."""
+    gen = torch.Generator(device=cuda).manual_seed(d + shift)
+    g, t, r, e, c = 3, 40, 50, 24, 4
+    buf = torch.randint(0, 250, (g * t * d + shift,), generator=gen, device=cuda).to(dtype)
+    x = buf[shift:].view(g, t, d)
+    rows = torch.randint(0, t, (g, r), generator=gen, device=cuda, dtype=torch.int32)
+    choice = torch.tensor([0, c, c + 5, -2, 1, 3], dtype=torch.int32, device=cuda)
+    sizes = choice[torch.randint(0, 6, (g, e), generator=gen, device=cuda)]
+    offs = torch.randint(-2, r + 2, (g, e), generator=gen, device=cuda, dtype=torch.int32)
+    before = md.LAUNCHES
+    got = md.moe_gather(x, offs, sizes, c, rows=rows)
+    assert md.LAUNCHES == before + 1
+    assert torch.equal(got, ref.moe_gather_ref(x, rows, offs, sizes, c))
+    assert torch.equal(got[sizes <= 0], torch.zeros_like(got[sizes <= 0]))
 
 
 def _smoke_model(arch: str, dtype, device, seed: int = 0) -> Model:
