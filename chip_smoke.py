@@ -19,7 +19,14 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    device time (both of its kernels) from profiler events, and is also
    held to its plain version on a skewed stream (one bin of 2^20 edges,
    bins around the chunk length, empty bins) under every dtype, apply and
-   op.
+   op. ``shuffle_reduce`` runs at the main shape with the bind's work list
+   (as the engine's full-stream commits do) and with the list built per
+   launch on the device (both lists' facts are printed), and is held to
+   its plain version on the skewed stream (through both lists) and on the
+   one-bin counter stream (a broadcast index, its list sized on the host)
+   under every dtype and op; the per-launch and stride-0 routes then run
+   once under ``torch.cuda.set_sync_debug_mode("error")``, so a read back
+   to the host fails the run.
    The LM kernels (flash attention, MoE gather) are held to theirs at the
    reference test shapes and at the LM path's shapes: Kimi-K2's decode
    attention over the KV cache and a prefill-size causal attention, its
@@ -35,8 +42,9 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    launch counters set to 0 before and read after. One more warm run of
    each program under ``torch.profiler`` then shows where its time goes:
    the device's busy and idle share and the kernels that took the most
-   time, and one more the device time of each ``shuffle_reduce`` launch by
-   its shape (bins, updates), which shows what the one-bin counters cost.
+   time, and one more the device time of each ``shuffle_reduce`` call by
+   its shape (bins, updates): every kernel of ``csrc/shuffle_reduce.cu``
+   the call ran (the list, the main kernel, the fold), summed.
    The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
@@ -89,7 +97,8 @@ QWEN = "qwen3-0.6b"  # the serving CLI's default arch, full config
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16  # the serving CLI's defaults
 PREFILL_LEN = 2048  # qwen3-0.6b bf16 forward: batch LM_BATCH x PREFILL_LEN prompt tokens
 PREFILL_RUNS = 3  # timed forwards after one warm-up; the median is kept
-SKEW_HUB = 2**20  # edges of the one long bin in edge_stream's skewed case
+SKEW_HUB = 2**20  # edges (updates) of the one long bin in the skewed cases
+COUNTER_UPDATES = 2**19  # the one-bin counter: R19's |V| updates into |V| bins
 DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
 
 
@@ -144,10 +153,11 @@ def profiled(run, seen_all=bool, tries: int = PROFILE_TRIES):
                          f"({len(kernels)} events in the last)")
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
+def device_ms(fn, iters: int = 20, warmup: int = 3, focus: str = None) -> dict:
     """Mean device time of one ``fn()`` over ``iters`` calls: the summed
     durations of the kernels it launched, from ``torch.profiler`` kernel
-    events, so the host's time between launches is left out."""
+    events, so the host's time between launches is left out; ``focus_ms``
+    sums only the kernels whose name holds ``focus``."""
     for _ in range(warmup):
         fn()
 
@@ -157,8 +167,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
 
     _, kernels, _ = profiled(calls, seen_all=lambda k: len(k) >= iters)
     names = sorted({e.name[:80] for e in kernels})
-    return {"ms": sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3,
-            "kernels_per_call": len(kernels) / iters, "kernels": names}
+    out = {"ms": sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3,
+           "kernels_per_call": len(kernels) / iters, "kernels": names}
+    if focus is not None:
+        out["focus_ms"] = sum(e.time_range.elapsed_us() for e in kernels
+                              if focus in e.name) / iters / 1e3
+    return out
 
 
 def profile_run(run, top: int = 6, focus: str = None) -> dict:
@@ -195,37 +209,55 @@ def profile_run(run, top: int = 6, focus: str = None) -> dict:
 
 
 def shuffle_reduce_launches(sr, run) -> list:
-    """One more warm ``run()`` with the shape of each ``shuffle_reduce``
-    launch recorded (the module's function wrapped for this run only) and
-    matched, in launch order, with its device time from profiler kernel
-    events. Returns one entry per shape (bins, updates, dtype, op): its
-    launches and their mean and total device time, largest total first."""
+    """One more warm ``run()`` with the shape and route of each
+    ``shuffle_reduce`` call recorded (the module's function wrapped for this
+    run only) and matched, in call order, with its device time from
+    profiler kernel events: every kernel of ``csrc/shuffle_reduce.cu`` the
+    call ran, summed (a per-launch list's kernel comes before the main
+    kernel, the fold after it; the routing step's PyTorch ops are not in
+    it). Returns one entry per shape (bins, updates, dtype, op, route): its
+    calls, their mean and total device time, largest total first, and the
+    bound of one call."""
     shapes = []
     inner = sr.shuffle_reduce_sorted
 
-    def recording(vals, offsets, n_out, op):
+    def recording(vals, offsets, n_out, op, split=None):
         if n_out > 0:  # the wrapper launches nothing for no bins
-            shapes.append((n_out, vals.shape[0], str(vals.dtype).split(".")[-1], op))
-        return inner(vals, offsets, n_out, op)
+            route = ("given list" if split is not None else
+                     "per-launch list" if sr.split_windows(vals.shape[0]) else "no list")
+            shapes.append((n_out, vals.shape[0], str(vals.dtype).split(".")[-1], op, route))
+        return inner(vals, offsets, n_out, op, split)
 
     def recorded_run():
         shapes.clear()  # a window the profiler saw nothing of runs again
         run()
 
-    def ours(kernels):
+    def mains(kernels):
         return [e for e in kernels if "shuffle_reduce_kernel" in e.name]
 
     sr.shuffle_reduce_sorted = recording
     try:
-        _, kernels, _ = profiled(recorded_run, seen_all=lambda k: len(ours(k)) == len(shapes))
+        _, kernels, _ = profiled(recorded_run, seen_all=lambda k: len(mains(k)) == len(shapes))
     finally:
         sr.shuffle_reduce_sorted = inner
-    events = sorted(ours(kernels), key=lambda e: e.time_range.start)
+    calls, pending = [], 0.0
+    for e in sorted((e for e in kernels if "shuffle_reduce_" in e.name),
+                    key=lambda e: e.time_range.start):
+        us = e.time_range.elapsed_us()
+        if "shuffle_reduce_list_kernel" in e.name:
+            pending += us
+        elif "shuffle_reduce_kernel" in e.name:
+            calls.append(pending + us)
+            pending = 0.0
+        else:  # the fold, after its call's main kernel
+            calls[-1] += us
     groups: dict = {}
-    for shape, e in zip(shapes, events):
-        groups.setdefault(shape, []).append(e.time_range.elapsed_us() / 1e3)
-    out = [{"bins": k[0], "updates": k[1], "dtype": k[2], "op": k[3], "launches": len(v),
-            "device_ms_mean": sum(v) / len(v), "device_ms_total": sum(v)}
+    for shape, us in zip(shapes, calls):
+        groups.setdefault(shape, []).append(us / 1e3)
+    # bound: each update read once, each offset read once, each bin written once
+    out = [{"bins": k[0], "updates": k[1], "dtype": k[2], "op": k[3], "route": k[4],
+            "launches": len(v), "device_ms_mean": sum(v) / len(v), "device_ms_total": sum(v),
+            "bound_ms": bound(4 * k[1] + 4 * (k[0] + 1) + 4 * k[0], k[1])[0]}
            for k, v in groups.items()]
     return sorted(out, key=lambda r: -r["device_ms_total"])
 
@@ -362,6 +394,101 @@ def split_facts(sr, split, offsets: torch.Tensor, n_e: int) -> dict:
             "build_ms": statistics.median(build_s) * 1e3}
 
 
+def list_facts(sr, bind_split, launch_split) -> dict:
+    """What the two work lists of one stream hold: the bind's (split bins,
+    chunks) and the per-launch one's capacity (chunk and bin slots, fixed by
+    the stream's length) against the slots it uses, which must be the
+    bind's list in slot order."""
+    used = launch_split.chunks[:, 0] >= 0
+    assert torch.equal(launch_split.chunks[used], bind_split.chunks), "per-launch list differs"
+    assert torch.equal(launch_split.bins[launch_split.bins >= 0], bind_split.bins)
+    return {"split_len": sr.SPLIT_LEN, "split_bins": bind_split.bins.shape[0],
+            "chunks": bind_split.chunks.shape[0],
+            "per_launch_chunk_slots": launch_split.chunks.shape[0],
+            "per_launch_chunk_slots_used": int(used.sum()),
+            "per_launch_bin_slots": launch_split.bins.shape[0]}
+
+
+def skewed_shuffle_reduce(sr, ref, dev: str) -> dict:
+    """shuffle_reduce on streams built to cross its work list, kernel vs
+    plain under every dtype and op: exact for int32, min and max, float32 +
+    within f32_sum_tolerance and the same bits on two calls.
+
+    * The skewed stream: one bin of SKEW_HUB updates, bins of L-1, L, L+1,
+      2L and 2L+1 updates (L = SPLIT_LEN), bins around the one-lane length
+      (64, 65), empty bins and a uniform rest of 0-90 updates a bin, through
+      the bind's list (``split_bins``) and the per-launch one.
+    * The one-bin counter: COUNTER_UPDATES updates into as many bins through
+      a broadcast index (``activeVertex[0] = activeVertex[0] + 1``), whose
+      list is sized on the host.
+
+    Then the routes that build or size their list per call (per-launch,
+    stride-0, and the unsorted wrapper with its sort) run once under
+    ``torch.cuda.set_sync_debug_mode("error")``: a read back to the host
+    raises, and the run fails."""
+    big = sr.SPLIT_LEN
+    rng = np.random.default_rng(3)
+    counts = np.concatenate([[0, SKEW_HUB, 0, big - 1, big, big + 1, 0, 2 * big, 2 * big + 1,
+                              64, 65, 0], rng.integers(0, 91, 60_000)])
+    n_out, n = counts.shape[0], int(counts.sum())
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
+    ids = ref.bin_ids(offsets)
+    bind_split = sr.split_bins(offsets, n)
+    n_c = COUNTER_UPDATES
+    one = torch.tensor(5, dtype=torch.int32, device=dev).expand(n_c)
+    c_offsets = sr.route(one, n_c)[1]
+    c_ids = ref.bin_ids(c_offsets)
+    n_cases, max_err = 0, 0.0
+    for dtype in (torch.int32, torch.float32):
+        if dtype == torch.int32:  # small enough that no sum wraps
+            vals, cvals = (torch.from_numpy(rng.integers(-30, 30, m).astype(np.int32)).to(dev)
+                           for m in (n, n_c))
+        else:
+            vals, cvals = (torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(dev)
+                           for m in (n, n_c))
+        for op in ("+", "min", "max"):
+            calls = {  # route: (wrapper, its arguments, the sorted stream it reduces)
+                "bind list": (sr.shuffle_reduce_sorted, (vals, offsets, n_out, op, bind_split),
+                              vals, offsets, ids),
+                "per-launch list": (sr.shuffle_reduce_sorted, (vals, offsets, n_out, op),
+                                    vals, offsets, ids),
+                "counter": (sr.shuffle_reduce, (cvals, one, n_c, op), cvals, c_offsets, c_ids),
+            }
+            for route, (fn, call_args, v, off, bid) in calls.items():
+                name = f"shuffle_reduce skewed {str(dtype).split('.')[-1]} {op} ({route})"
+                got = fn(*call_args)
+                tol = None
+                if dtype == torch.float32 and op == "+":
+                    assert torch.equal(got.view(torch.int32), fn(*call_args).view(torch.int32)), \
+                        f"{name}: float + differs between two calls"
+                    tol = f32_sum_tolerance(v, bid, off.shape[0] - 1)
+                err = check_equal(name, got, ref.segment_reduce_ref(v, off, op), op, tol)
+                max_err = max(max_err, err)
+                n_cases += 1
+    # the routes whose list is built or sized per call read nothing back
+    idx = torch.from_numpy(rng.integers(0, n_out, n).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sr.shuffle_reduce_sorted(vals, offsets, n_out, "min")
+        sr.shuffle_reduce(cvals, one, n_c, "+")
+        sr.shuffle_reduce(vals, idx, n_out, "max")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counter_split = sr.one_bin_split(one, n_c)
+    dev_c = device_ms(lambda: sr.shuffle_reduce(cvals, one, n_c, "+"), focus="shuffle_reduce_")
+    dev_s = device_ms(lambda: sr.shuffle_reduce_sorted(vals, offsets, n_out, "+", bind_split))
+    return {"cases": n_cases, "max_abs_err": max_err, "updates": n, "bins": n_out,
+            "longest_bin": int(counts.max()), "sync_free_routes": 3,
+            "work_list": list_facts(sr, bind_split, sr.launch_split(offsets, n)),
+            "skewed_f32_sum_device_ms": dev_s["ms"],
+            "counter": {"updates": n_c, "bins": n_c, "chunks": counter_split.chunks.shape[0],
+                        "device_ms": dev_c["focus_ms"], "kernels": [k for k in dev_c["kernels"]
+                                                                    if "shuffle_reduce_" in k],
+                        "routing_ops_device_ms": dev_c["ms"] - dev_c["focus_ms"]}}
+
+
 def skewed_edge_stream(sr, es, ref, dev: str) -> dict:
     """edge_stream on a stream built to cross the work list's edges: one bin
     of SKEW_HUB edges, bins of L-1, L, L+1, 2L and 2L+1 edges (L =
@@ -422,26 +549,40 @@ def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
     ids = ref.bin_ids(offsets)
     rows = {}
 
-    # -- shuffle_reduce: float32 + (the PageRank-style commit) --------------
+    # -- shuffle_reduce: float32 + (the PageRank-style commit), with the
+    #    bind's work list as the engine's full-stream commits pass it, and
+    #    with the list built per launch on the device ---------------------
+    bind_split = gb["es_split"]
     vals = torch.randn(n_e, generator=gen, device=dev)
-    got = sr.shuffle_reduce_sorted(vals, offsets, n_out, "+")
-    again = sr.shuffle_reduce_sorted(vals, offsets, n_out, "+")
+    got = sr.shuffle_reduce_sorted(vals, offsets, n_out, "+", bind_split)
+    again = sr.shuffle_reduce_sorted(vals, offsets, n_out, "+", bind_split)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
         "shuffle_reduce: float + differs between two runs"
+    per_launch = sr.shuffle_reduce_sorted(vals, offsets, n_out, "+")
+    assert torch.equal(got.view(torch.int32), per_launch.view(torch.int32)), \
+        "shuffle_reduce: the per-launch list gives other bits than the bind's"
     want = ref.segment_reduce_ref(vals, offsets, "+")
     err = check_equal("shuffle_reduce main-shape f32 +", got, want, "+",
                       f32_sum_tolerance(vals, ids, n_out))
     ivals = torch.randint(-2**20, 2**20, (n_e,), generator=gen, device=dev, dtype=torch.int32)
-    for op in ("+", "min", "max"):
-        check_equal(f"shuffle_reduce main-shape i32 {op}",
-                    sr.shuffle_reduce_sorted(ivals, offsets, n_out, op),
-                    ref.segment_reduce_ref(ivals, offsets, op), op)
+    for v, op in [(ivals, "+"), (ivals, "min"), (ivals, "max"), (vals, "min"), (vals, "max")]:
+        for name, split in (("bind", bind_split), ("per-launch", None)):
+            check_equal(f"shuffle_reduce main-shape {str(v.dtype)[6:]} {op} ({name} list)",
+                        sr.shuffle_reduce_sorted(v, offsets, n_out, op, split),
+                        ref.segment_reduce_ref(v, offsets, op), op)
     # the library calls that compute the same sum (the port calls neither)
     lib_out = torch.zeros(n_out, device=dev)
     ids_l = ids.long()
     b_ms, b_by = bound(4 * n_e + 4 * (n_out + 1) + 4 * n_out, n_e)
+    dev_bind = device_ms(lambda: sr.shuffle_reduce_sorted(vals, offsets, n_out, "+", bind_split))
+    dev_launch = device_ms(lambda: sr.shuffle_reduce_sorted(vals, offsets, n_out, "+"))
     rows["shuffle_reduce"] = {
-        "kernel_ms": time_ms(lambda: sr.shuffle_reduce_sorted(vals, offsets, n_out, "+")),
+        "kernel_ms": time_ms(lambda: sr.shuffle_reduce_sorted(vals, offsets, n_out, "+",
+                                                              bind_split)),
+        "kernel_device_ms": dev_bind["ms"], "kernel_device_kernels": dev_bind["kernels"],
+        "per_launch_list_device_ms": dev_launch["ms"],
+        "per_launch_list_kernels": dev_launch["kernels"],
+        "work_list": list_facts(sr, bind_split, sr.launch_split(offsets, n_e)),
         "plain_ms": time_ms(lambda: ref.segment_reduce_ref(vals, offsets, "+"), iters=5),
         "library_ms": time_ms(lambda: lib_out.scatter_reduce_(0, ids_l, vals, "sum")),
         "library_call": "torch.Tensor.scatter_reduce_",
@@ -1097,6 +1238,7 @@ def main() -> int:
     for name, row in rows.items():
         log({"phase": "kernels", "kernel": name, **row})
     log({"phase": "kernels", "skewed_edge_stream": skewed_edge_stream(sr, es, ref, dev)})
+    log({"phase": "kernels", "skewed_shuffle_reduce": skewed_shuffle_reduce(sr, ref, dev)})
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})

@@ -115,16 +115,17 @@ def apply_scatter(
     *,
     sort_perm: Optional[torch.Tensor] = None,
     offsets: Optional[torch.Tensor] = None,
+    split: Optional[sr_kernel.BinSplit] = None,
     options,
 ) -> torch.Tensor:
     """Commit one scattered write group — the Shuffle/RAW/Reduce stage.
 
     Under ``options.shuffle`` every reduction and every last-write-wins
     store goes through the ``shuffle_reduce`` kernel: along the full
-    dst-sorted stream with the bind-time routing ``(sort_perm, offsets)``,
-    otherwise through its sorting wrapper. The ``shuffle=False`` baseline
-    and the ``*`` op stay plain PyTorch scatters, as they are XLA scatters
-    and not Pallas in the reference.
+    dst-sorted stream with the bind-time routing ``(sort_perm, offsets)``
+    and work list ``split``, otherwise through its sorting wrapper. The
+    ``shuffle=False`` baseline and the ``*`` op stay plain PyTorch
+    scatters, as they are XLA scatters and not Pallas in the reference.
     """
     n = prop_arr.shape[0]
     vals = vals.to(prop_arr.dtype)
@@ -136,7 +137,8 @@ def apply_scatter(
             # identity (0, INT_MAX for min, INT_MIN for max) maps back by > 0
             return reduce(v.to(torch.int32), red_op) > 0
         if sorted_route:
-            return sr_kernel.shuffle_reduce_sorted(_index(v, sort_perm), offsets, n, red_op)
+            return sr_kernel.shuffle_reduce_sorted(_index(v, sort_perm), offsets, n, red_op,
+                                                   split)
         return sr_kernel.shuffle_reduce(v, idx, n, red_op)
 
     if op is None:
@@ -461,7 +463,8 @@ class KernelExec:
             wmask = lane.valid if wmask is None else torch.logical_and(wmask, lane.valid)
         route = None
         if dst_sorted and self.graph_bind.get("dst_sort_perm") is not None:
-            route = (self.graph_bind["dst_sort_perm"], self.graph_bind["dst_offsets"])
+            gb = self.graph_bind
+            route = (gb["dst_sort_perm"], gb["dst_offsets"], gb["es_split"])
         self.scatter_updates.append((prop, op, idx, val, wmask, route))
 
     # -- commit ---------------------------------------------------------------
@@ -470,9 +473,9 @@ class KernelExec:
         out.update(self.seq_writes)
         for prop, op, idx, val, wmask, route in self.scatter_updates:
             cur = out.get(prop, self.state[prop])
-            sort_perm, offsets = route if route is not None else (None, None)
+            sort_perm, offsets, split = route if route is not None else (None, None, None)
             out[prop] = apply_scatter(
-                cur, idx, val, wmask, op, sort_perm=sort_perm, offsets=offsets,
+                cur, idx, val, wmask, op, sort_perm=sort_perm, offsets=offsets, split=split,
                 options=self.options,
             )
         # materialize broadcast views: kernels and later launches read
@@ -772,7 +775,8 @@ def _graph_bindings(
         "dst_offsets": dst_offsets_d,
         "es_src": dev(src_o[dst_sort]),
         "es_eid": dev(order[dst_sort]),
-        # edge_stream's work list: the bins longer than SPLIT_LEN in chunks
+        # the full stream's work list (edge_stream and the per-bind
+        # shuffle_reduce commits): the bins longer than SPLIT_LEN in chunks
         "es_split": sr_kernel.split_bins(dst_offsets_d, g.n_edges),
         "vids": torch.arange(g.n_vertices, dtype=torch.int32, device=device),
         "csr_row_pos": dev(row_ids),

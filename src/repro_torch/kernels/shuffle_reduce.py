@@ -3,48 +3,61 @@
 Replaces the reference package's Pallas TPU kernel
 ``kernels/shuffle_reduce.py::shuffle_reduce_sorted`` (and its wrapper
 ``kernels/ops.py::shuffle_reduce``). What bounds it on an H100 is bytes:
-one read of each update and one write of each bin. The design (one warp
-per bin over a bin-sorted stream, a shuffle tree, no atomics, so float
-sums are the same bits on every run) is described in the CUDA source.
+one read of each update and one write of each bin. The kernel walks a work
+list (:class:`BinSplit`: every bin longer than :data:`SPLIT_LEN` in
+chunks, folded in chunk order) and the rest of the bins in groups of 32,
+short bins a lane each; there are no atomics, so float sums are the same
+bits on every run. The CUDA source describes the design.
 
 Two entry points:
 
 * :func:`shuffle_reduce_sorted` — the kernel itself: a stream already
   sorted by bin plus ``offsets[n_out + 1]``. The engine's full-stream
-  commits call it with offsets computed once per bind.
+  commits call it with the offsets and the work list its bind built.
 * :func:`shuffle_reduce` — unsorted ``(vals, idx)``: a stable sort plus
   ``searchsorted`` is the routing step (the reference wrapper sorts
   outside its kernel too), then the kernel. Indices outside
   ``[0, n_out)`` are dropped.
 
-A CPU tensor takes the plain version in :mod:`.ref`; a CUDA tensor
-launches the kernel or raises.
+Every route hands the kernel a work list without reading anything back to
+the host: a bind's full stream its :func:`split_bins` list, a broadcast
+(stride-0) index the list :func:`one_bin_split` sizes on the host, and
+any other stream the fixed-shape list of :func:`launch_split`, built on
+the device. A CPU tensor takes the plain version in :mod:`.ref`; a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build, ref
 
-#: launches of the CUDA kernel since the last reset (set it to 0 to reset)
+#: calls that launched the CUDA kernels since the last reset (set it to 0 to
+#: reset): one per call, whatever number of kernels the call runs
 LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 OP_CODES = {"+": 0, "min": 1, "max": 2}
 
-# vals, n_vals, offsets, out, n_out, dtype, op, stream
+# vals, n_vals, offsets, out, n_out, chunks, n_chunks, split_bins, split_first,
+# n_split, split_len, partial, dtype, op, stream
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# offsets, n_out, n_vals, split_len, chunks, split_bins, split_first, n_windows, stream
+_LIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                  ctypes.c_void_p]
 
 
-def _lib():
-    lib = _build.load("shuffle_reduce")
-    fn = lib.repro_shuffle_reduce
+def _lib(name: str = "repro_shuffle_reduce", argtypes=_ARGTYPES):
+    fn = getattr(_build.load("shuffle_reduce"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -64,12 +77,16 @@ class BinSplit(NamedTuple):
     """The work list of a bin-sorted stream: every bin longer than
     :data:`SPLIT_LEN` cut into ``ceil(n_b / SPLIT_LEN)`` chunks.
 
-    Chunk ``k`` covers updates ``[lo + c * SPLIT_LEN, min(hi, lo + (c + 1)
-    * SPLIT_LEN))`` of its bin ``[lo, hi)`` and leaves its partial result in
-    slot ``k`` of a scratch buffer; split bin ``j`` owns slots
-    ``first[j]:first[j+1]``, its chunks in order, which a second pass folds
-    into ``out[bins[j]]``. A kernel walks the chunks as work items of their
-    own and skips the split bins where it walks the bins.
+    Chunk slot ``k`` holds ``(bin, c)``: it covers updates ``[lo + c *
+    SPLIT_LEN, min(hi, lo + (c + 1) * SPLIT_LEN))`` of its bin ``[lo, hi)``
+    and leaves its partial result in slot ``k`` of a scratch buffer. Split
+    bin ``j`` is ``bins[j]``, and its chunk ``c`` sits in slot ``first[j] +
+    c``; a second pass folds its partials in chunk order into
+    ``out[bins[j]]``. A kernel walks the chunks as work items of their own
+    and skips the split bins where it walks the bins. A fixed-shape list
+    (:func:`launch_split`) marks its unused chunk and bin slots with bin
+    ``-1``; :func:`split_bins` leaves none, so there split bin ``j`` owns
+    slots ``first[j]:first[j+1]``.
     """
 
     chunks: torch.Tensor  # int32 [n_chunks, 2]: (bin, chunk number c)
@@ -97,11 +114,88 @@ def split_bins(offsets: torch.Tensor, n_stream: int) -> BinSplit:
                     first)
 
 
+def split_windows(n_stream: int) -> int:
+    """Windows of :data:`SPLIT_LEN` positions in a stream of ``n_stream``
+    updates that :func:`launch_split` sizes its list by: 0 when no bin can
+    be longer than ``SPLIT_LEN``."""
+    return -(-n_stream // SPLIT_LEN) if n_stream > SPLIT_LEN else 0
+
+
+def launch_split(offsets: torch.Tensor, n_stream: int) -> BinSplit:
+    """A :class:`BinSplit` of fixed shapes for a stream of ``n_stream``
+    updates over ``offsets[n_out + 1]`` (non-decreasing, clamped into ``[0,
+    n_stream]``), built on the offsets' device without reading anything
+    back: ``chunks [2W, 2]``, ``bins [W]``, ``first [W + 1]`` for ``W =``
+    :func:`split_windows` ``(n_stream)``.
+
+    Window ``v`` covers positions ``[v * SPLIT_LEN, (v + 1) * SPLIT_LEN)``.
+    A long bin whose start lies in window ``w`` holds split slot ``w``
+    (``first[w] = 2w``) and its chunk ``c`` sits in chunk slot ``2w + c``:
+    at most one long bin starts in a window, and the slots of two long bins
+    never meet. Unused slots hold ``-1``. Its used chunk and bin slots, in
+    slot order, are :func:`split_bins`' list. On a CUDA tensor a kernel
+    (``csrc/shuffle_reduce.cu``, ``shuffle_reduce_list_kernel``) writes it;
+    on the CPU, :func:`split_bins`' list is scattered into the same
+    slots."""
+    w = split_windows(n_stream)
+    dev = offsets.device
+    if dev.type == "cpu":
+        return _launch_split_plain(offsets, n_stream, w)
+    if dev.type != "cuda" or offsets.dtype != torch.int32 or offsets.dim() != 1:
+        raise ValueError("launch_split: offsets must be 1-d int32 on a CUDA device")
+    offsets = offsets.contiguous()
+    unused = torch.full((5 * w,), -1, dtype=torch.int32, device=dev)
+    chunks, bins = unused[:4 * w].view(2 * w, 2), unused[4 * w:]
+    first = torch.empty(w + 1, dtype=torch.int32, device=dev)
+    if w == 0:
+        return BinSplit(chunks, bins, first.zero_())
+    rc = _lib("repro_shuffle_reduce_split_list", _LIST_ARGTYPES)(
+        offsets.data_ptr(), offsets.shape[0] - 1, n_stream, SPLIT_LEN, chunks.data_ptr(),
+        bins.data_ptr(), first.data_ptr(), w, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"shuffle_reduce split list launch failed: CUDA error {rc}")
+    return BinSplit(chunks, bins, first)
+
+
+def _launch_split_plain(offsets: torch.Tensor, n_stream: int, w: int) -> BinSplit:
+    """:func:`launch_split`'s list in plain PyTorch: :func:`split_bins`'
+    chunks and bins scattered into their window slots."""
+    split = split_bins(offsets, n_stream)
+    win = offsets.clamp(0, n_stream)[split.bins.long()].long() // SPLIT_LEN
+    per_bin = split.first.diff().long()
+    slot = 2 * win.repeat_interleave(per_bin) + split.chunks[:, 1].long()
+    chunks = torch.full((2 * w, 2), -1, dtype=torch.int32)
+    bins = torch.full((w,), -1, dtype=torch.int32)
+    chunks[slot] = split.chunks
+    bins[win] = split.bins
+    return BinSplit(chunks, bins, 2 * torch.arange(w + 1, dtype=torch.int32))
+
+
+def one_bin_split(idx: torch.Tensor, n_stream: int) -> Optional[BinSplit]:
+    """The work list of a stream whose every update targets ``idx[0]`` (a
+    broadcast, stride-0 index): one bin of ``n_stream`` updates in
+    ``ceil(n_stream / SPLIT_LEN)`` chunks, sized on the host, with the bin
+    read on the device. None when the bin is not longer than ``SPLIT_LEN``.
+    An ``idx[0]`` outside the bins names a bin the kernel skips."""
+    k = -(-n_stream // SPLIT_LEN)
+    if k < 2:
+        return None
+    dev = idx.device
+    b = idx[:1].to(torch.int32)
+    chunks = torch.stack([b.expand(k), torch.arange(k, dtype=torch.int32, device=dev)], dim=1)
+    return BinSplit(chunks, b, torch.arange(0, 2 * k, k, dtype=torch.int32, device=dev))
+
+
 def shuffle_reduce_sorted(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,
-                          op: str) -> torch.Tensor:
+                          op: str, split: Optional[BinSplit] = None) -> torch.Tensor:
     """Reduce bin ``b`` = ``vals[offsets[b]:offsets[b+1]]`` for every
     ``b < n_out``; empty bins hold the identity of ``op``. ``offsets`` is
-    non-decreasing; the kernel clamps it into ``[0, len(vals)]``."""
+    non-decreasing; the kernel clamps it into ``[0, len(vals)]``.
+
+    ``split`` is a work list over these offsets and this stream
+    (:func:`split_bins`, :func:`one_bin_split`); without one a CUDA call
+    builds :func:`launch_split`'s on the device. The plain version on the
+    CPU needs none."""
     global LAUNCHES
     if op not in OP_CODES:
         raise ValueError(f"shuffle_reduce: unsupported op {op!r}")
@@ -123,7 +217,21 @@ def shuffle_reduce_sorted(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,
     out = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
     if n_out == 0:
         return out
+    if split is None and split_windows(vals.shape[0]):
+        split = launch_split(offsets, vals.shape[0])
+    ptrs, n_chunks, n_split = (None, None, None), 0, 0
+    partial = None
+    if split is not None:
+        lists = (split.chunks, split.bins, split.first)
+        if any(t.device != vals.device or t.dtype != torch.int32 for t in lists):
+            raise TypeError("shuffle_reduce: the work list must be int32 on the operands' device")
+        lists = tuple(t.contiguous() for t in lists)
+        ptrs = tuple(t.data_ptr() for t in lists)
+        n_chunks, n_split = lists[0].shape[0], lists[1].shape[0]
+        partial = torch.empty(n_chunks, dtype=vals.dtype, device=vals.device)
     rc = _lib()(vals.data_ptr(), vals.shape[0], offsets.data_ptr(), out.data_ptr(), n_out,
+                ptrs[0], n_chunks, ptrs[1], ptrs[2], n_split, SPLIT_LEN,
+                None if partial is None else partial.data_ptr(),
                 DTYPE_CODES[vals.dtype], OP_CODES[op],
                 torch.cuda.current_stream(vals.device).cuda_stream)
     if rc != 0:
@@ -154,5 +262,6 @@ def shuffle_reduce(vals: torch.Tensor, idx: torch.Tensor, n_out: int,
     if vals.device.type == "cpu":
         return ref.shuffle_reduce_ref(vals, idx, n_out, op)
     perm, offsets = route(idx, n_out)
-    vals_s = vals if perm is None else vals[perm]
-    return shuffle_reduce_sorted(vals_s, offsets, n_out, op)
+    if perm is None:
+        return shuffle_reduce_sorted(vals, offsets, n_out, op, one_bin_split(idx, idx.shape[0]))
+    return shuffle_reduce_sorted(vals[perm], offsets, n_out, op)

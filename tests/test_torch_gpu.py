@@ -38,7 +38,7 @@ from repro_torch.models import moe as moe_mod
 
 SR_SHAPES = [(64, 16), (1000, 300), (4096, 512), (513, 1024), (7, 5)]
 ES_SHAPES = [(128, 32), (3000, 400), (5000, 123)]
-L = sr.SPLIT_LEN  # edge_stream's chunk length
+L = sr.SPLIT_LEN  # the chunk length of both graph kernels' work lists
 HUB = 100_003  # edges of the skewed stream's one long bin
 LM_BATCH = 4  # the serving CLI's batch: Kimi-K2's decode step dispatches 4 tokens
 ALGORITHMS = {
@@ -108,6 +108,140 @@ def test_cuda_offsets_past_the_stream_are_clamped(cuda, op):
     got = es.edge_stream_gather(vval, vact, src_s, None, None, bad, "src", op, split)
     assert torch.equal(got, ref.edge_stream_gather_ref(vval, vact, src_s, None, None,
                                                        bad.clamp(0, n), "src", op))
+
+
+def _sr_streams(cuda, dtype, seed: int, normal: bool = False) -> dict:
+    """shuffle_reduce's streams, each as (call, vals, offsets): the call
+    runs one route of the wrapper on the stream, ``vals`` and ``offsets``
+    are the sorted stream it reduces. Values are integers in [-8, 8], so no
+    partial sum of up to 2^21 of them leaves float32's exact integers and
+    every summation order gives the plain version's bits; ``normal`` draws
+    float32 values from a normal distribution instead."""
+    rng = np.random.default_rng(seed)
+    n_bins = 524_288
+
+    def values(n):
+        if normal:
+            return torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+        return torch.from_numpy(rng.integers(-8, 9, n).astype(np.int32)).to(dtype).to(cuda)
+
+    out = {}
+    # the one-bin counter: every update into one bin (a broadcast index)
+    vals = values(n_bins)
+    one = torch.tensor(77, dtype=torch.int32, device=cuda).expand(n_bins)
+    out["counter"] = (lambda op, v=vals: sr.shuffle_reduce(v, one, n_bins, op), vals,
+                      sr.route(one, n_bins)[1])
+    # a 2^20-update bin among bins around SPLIT_LEN and the kernel's other
+    # length classes (64 and 256 updates), empty bins
+    # and a short rest, through the bind's list and the per-launch one
+    counts = np.concatenate([[0, 2**20, L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 64, 65, 256, 257, 0],
+                             rng.integers(0, 90, 20_000)])
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)).to(cuda)
+    vals = values(int(counts.sum()))
+    split = sr.split_bins(offsets, vals.shape[0])
+    n_out = counts.shape[0]
+    out["hub_per_bind"] = (lambda op, v=vals: sr.shuffle_reduce_sorted(v, offsets, n_out, op,
+                                                                       split), vals, offsets)
+    out["hub_per_launch"] = (lambda op, v=vals: sr.shuffle_reduce_sorted(v, offsets, n_out, op),
+                             vals, offsets)
+    # the unsorted wrapper with a hub (40% of the updates) and dropped indices
+    n = 600_000
+    idx = torch.from_numpy(np.where(rng.random(n) < 0.4, 7, rng.integers(-5, 10_005, n))
+                           .astype(np.int32)).to(cuda)
+    vals = values(n)
+    perm, offs = sr.route(idx, 10_000)
+    out["unsorted_hub"] = (lambda op, v=vals: sr.shuffle_reduce(v, idx, 10_000, op), vals[perm],
+                           offs)
+    # sparse launches: 1,024 and 131,072 updates into 524,288 bins
+    for m in (1024, 131_072):
+        idx_m = torch.from_numpy(rng.integers(0, n_bins, m).astype(np.int32)).to(cuda)
+        vals = values(m)
+        perm, offs = sr.route(idx_m, n_bins)
+        out[f"sparse_{m}"] = (lambda op, v=vals, i=idx_m: sr.shuffle_reduce(v, i, n_bins, op),
+                              vals[perm], offs)
+    return out
+
+
+SR_STREAMS = ["counter", "hub_per_bind", "hub_per_launch", "unsorted_hub", "sparse_1024",
+              "sparse_131072"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("op", ["+", "min", "max"])
+def test_cuda_shuffle_reduce_walks_the_work_list_on_every_route(cuda, dtype, op):
+    """Every route (the bind's list, the stride-0 list, the per-launch list
+    built on the device) gives the plain version's answer exactly, counts
+    one launch a call, and the routes that build their list per launch
+    read nothing back to the host (sync debug mode "error")."""
+    for name, (call, vals, offsets) in _sr_streams(cuda, dtype, seed=21).items():
+        want = ref.segment_reduce_ref(vals, offsets, op)
+        torch.cuda.synchronize()
+        before = sr.LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call(op)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert sr.LAUNCHES == before + 1, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SR_STREAMS)
+def test_cuda_shuffle_reduce_float_sum_repeats_its_bits(cuda, name):
+    """Non-integer floats: two calls give the same bits, within the bound
+    of two summation orders of the plain version."""
+    call, vals, offsets = _sr_streams(cuda, torch.float32, seed=22, normal=True)[name]
+    a, b = call("+"), call("+")
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = ref.segment_reduce_ref(vals, offsets, "+")
+    ids = ref.bin_ids(offsets).long()  # the updates the bins hold (dropped ones sort outside)
+    n_b = torch.bincount(ids, minlength=a.shape[0]).double()
+    abs_sum = torch.zeros(a.shape[0], dtype=torch.float64, device=cuda).index_add_(
+        0, ids, vals[int(offsets[0]):int(offsets[-1])].abs().double())
+    assert bool(((a.double() - want.double()).abs() <= 2 * (n_b + 5) * 2.0**-24 * abs_sum).all())
+
+
+@pytest.mark.gpu
+def test_cuda_launch_list_matches_its_plain_version(cuda):
+    """The split list kernel writes launch_split's plain list, whose used
+    slots are split_bins' list (tests/test_torch_shuffle_split.py)."""
+    rng = np.random.default_rng(23)
+    for start, counts, cut in [
+            (0, [0, 2**20, L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 0], 0),
+            (-3 * L, list(rng.integers(0, 4 * L, 300)), 5 * L),
+            (0, [0] * 1000 + [9 * L + 3] + [0] * 1000, 0),
+            (0, list(rng.integers(0, 40, 524_288)), 0)]:
+        offsets = torch.from_numpy(np.concatenate([[start], start + np.cumsum(counts)])
+                                   .astype(np.int32))
+        n = max(0, int(offsets[-1]) - cut)
+        want = sr.launch_split(offsets, n)
+        got = sr.launch_split(offsets.to(cuda), n)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [0, 1, 64, 65, 257, L, L + 1, 4 * L + 9, 2**17])
+def test_cuda_a_bin_sums_the_same_wherever_it_sits(cuda, length):
+    """The same float values in one bin give the same bits after any other
+    bins, through the bind's list and the per-launch one."""
+    rng = np.random.default_rng(length)
+    bin_vals = torch.from_numpy(rng.normal(size=length).astype(np.float32)).to(cuda)
+    seen = set()
+    for before in ([], [3], [L + 7, 0, 40], [5 * L + 1, 100, 2], list(rng.integers(0, 90, 500))):
+        counts = np.array(list(before) + [length, 9, 2 * L])
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+        offsets = offsets.to(cuda)
+        vals = torch.from_numpy(rng.normal(size=int(counts.sum())).astype(np.float32)).to(cuda)
+        pos = int(sum(before))
+        vals[pos:pos + length] = bin_vals
+        split = sr.split_bins(offsets, vals.shape[0])
+        for s in (split, None):
+            got = sr.shuffle_reduce_sorted(vals, offsets, counts.shape[0], "+", s)
+            seen.add(got[len(before)].view(torch.int32).item())
+    assert len(seen) == 1
 
 
 @pytest.mark.gpu
