@@ -32,7 +32,12 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    attention over the KV cache and a prefill-size causal attention, its
    decode dispatch and a 4096-token prefill dispatch. Attention runs both
    routes the wrapper takes by dtype: float32 through the CUDA-core kernel,
-   bfloat16 through the tensor-core (sm90) kernel. The decode-shaped rows
+   bfloat16 through the tensor-core (sm90) kernel. The batched launches
+   (16 rows over the bind's edges, offsets and list) of ``shuffle_reduce``
+   (f32 ``+``, i32 min, i32 ``|``, a row stride of 0) and ``edge_stream``
+   (i32 add/min with shared weights, f32 src/``+``, i32 src/``|``) are
+   held to their plain versions and bit for bit to 16 one-row launches.
+   The decode-shaped rows
    also get their device time, read from profiler kernel events, beside
    the host-paced loop's time; so do both MoE gather rows.
 4. Graph path: ``repro_torch.compile(src).bind(g).run(**params)`` on the
@@ -45,6 +50,16 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    time, and one more the device time of each ``shuffle_reduce`` call by
    its shape (bins, updates): every kernel of ``csrc/shuffle_reduce.cu``
    the call ran (the list, the main kernel, the fold), summed.
+   Then the batched path, ``bind_batch(g).run_many(sets)``: BFS_ECP at K =
+   64 roots by the bit-packed multi-source path, BFS_ECP (``msbfs=False``)
+   and SSSP at K = 16 roots, PAGERANK at K = 16 with ``iters`` drawn from
+   16-20 (root 0 and the rest drawn from the seed); each sized first, one
+   cold and three warm batches with both graph kernels' counters set to 0
+   just before and read just after, every lane bit-identical to a
+   sequential ``Session.run``, the root-0 lane equal to the oracle,
+   MS-BFS's launches at most a quarter of the sequential ones; queries/s
+   beside K x the sequential warm median, launches, edges, one profiled
+   batch's busy and idle share, peak memory.
    The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
@@ -100,6 +115,9 @@ PREFILL_RUNS = 3  # timed forwards after one warm-up; the median is kept
 SKEW_HUB = 2**20  # edges (updates) of the one long bin in the skewed cases
 COUNTER_UPDATES = 2**19  # the one-bin counter: R19's |V| updates into |V| bins
 DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
+BATCH_K = 16  # queries a batch (generic path) and rows of the batched kernel checks
+BATCH_WARM_RUNS = 3  # warm batches per run; the median is kept
+BATCH_MSBFS = "__msbfs__"  # kernel_launches key of the multi-source BFS path
 
 
 def log(obj) -> None:
@@ -272,14 +290,14 @@ def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
 
 
 def ptxas_kernels(log_text: str) -> list:
-    """Each entry function of a ``ptxas -v`` log: its head dim (the
-    template argument), registers and spill bytes."""
+    """Each entry function of a ``ptxas -v`` log: its mangled name, head
+    dim (the first integer template argument), registers and spill bytes."""
     rows: list = []
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             dh = re.search(r"ILi(\d+)E", m.group(1))
-            rows.append({"dh": int(dh.group(1)) if dh else None})
+            rows.append({"entry": m.group(1), "dh": int(dh.group(1)) if dh else None})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and rows:
@@ -289,6 +307,15 @@ def ptxas_kernels(log_text: str) -> list:
         if m and rows:
             rows[-1]["registers"] = int(m.group(1))
     return rows
+
+
+def register_occupancy(registers: int, threads: int = 256) -> float:
+    """Theoretical occupancy (resident warps over the SM's 64) that a
+    kernel's register count allows at ``threads`` a block on sm_90: 65,536
+    registers an SM, allocated 256 at a time per warp, whole blocks only."""
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(32, (65536 // per_warp) // (threads // 32))
+    return min(64, blocks * threads // 32) / 64
 
 
 # ---------------------------------------------------------------------------
@@ -647,6 +674,134 @@ def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err_f,
         "shape": {"edges": n_e, "bins": n_out, "dtype": "float32", "apply": "src", "op": "+"},
     }
+    return rows
+
+
+def batched_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
+    """The batched launches at the main shape: BATCH_K rows (queries) over
+    the bound graph's dst-sorted edges, offsets and work list. Each is held
+    to its plain version (exact, or float ``+`` within f32_sum_tolerance
+    per bin) and bit for bit to BATCH_K one-row launches of the same kernel
+    (float ``+`` too: each row folds its bins in the one-row order), and
+    timed (CUDA events and profiler device time) beside the one-row
+    launches it replaces and its bound. Bounds: each input read once (a
+    shared operand once, not once a row), each output written once."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k = BATCH_K
+    offsets, split = gb["dst_offsets"], gb["es_split"]
+    n_out, n_e, n_v = offsets.shape[0] - 1, gb["es_src"].shape[0], gb["n_vertices"]
+    src_s, eid_s = gb["es_src"], gb["es_eid"]
+    ids = ref.row_bins(ref.bin_ids(offsets), k, n_out)  # row k's bins at k * n_out ..
+    rows = {}
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def one_row_launches(fn):
+        return torch.stack([fn(q) for q in range(k)])
+
+    # -- shuffle_reduce: float32 +, int32 min, int32 |, a row stride of 0 --
+    vals = torch.randn(k, n_e, generator=gen, device=dev)
+    ivals = torch.randint(-2**31, 2**31 - 1, (k, n_e), generator=gen, device=dev,
+                          dtype=torch.int32)
+    checks = {}
+    for name, v, op in (("f32 +", vals, "+"), ("i32 min", ivals, "min"), ("i32 |", ivals, "|"),
+                        ("f32 + row stride 0", vals[0].expand(k, -1), "+")):
+        got = sr.shuffle_reduce_sorted_batched(v, offsets, n_out, op, split)
+        one = one_row_launches(lambda q, v=v, op=op: sr.shuffle_reduce_sorted(
+            v[q], offsets, n_out, op, split))
+        assert torch.equal(bits(got), bits(one)), \
+            f"shuffle_reduce_batched {name}: differs from {k} one-row launches"
+        want = ref.segment_reduce_batched_ref(v, offsets, op)
+        tol = f32_sum_tolerance(v.reshape(-1), ids, k * n_out).view(k, n_out) if op == "+" \
+            and v.dtype == torch.float32 else None
+        checks[name] = check_equal(f"shuffle_reduce_batched main-shape {name}", got, want, op,
+                                   tol)
+        del got, one, want
+    b_ms, b_by = bound(4 * k * n_e + 4 * (n_out + 1) + 4 * k * n_out, k * n_e)
+    call = lambda: sr.shuffle_reduce_sorted_batched(vals, offsets, n_out, "+", split)  # noqa: E731
+    dev_b = device_ms(call, iters=10)
+    dev_one = device_ms(lambda: [sr.shuffle_reduce_sorted(vals[q], offsets, n_out, "+", split)
+                                 for q in range(k)], iters=3)
+    # the library call that computes the same sums (the port never calls it)
+    lib_out = torch.zeros(k * n_out, device=dev)
+    ids_l = ids.long()
+    flat = vals.reshape(-1)
+    lib = lambda: lib_out.scatter_reduce_(0, ids_l, flat, "sum")  # noqa: E731
+    dev_lib = device_ms(lib, iters=10)
+    rows["shuffle_reduce_batched"] = {
+        "kernel_ms": time_ms(call, iters=10), "kernel_device_ms": dev_b["ms"],
+        "kernel_device_kernels": dev_b["kernels"],
+        "one_row_launches_device_ms": dev_one["ms"],
+        "plain_ms": time_ms(lambda: ref.segment_reduce_batched_ref(vals, offsets, "+"),
+                            iters=2, warmup=1),
+        "library_ms": time_ms(lib, iters=10), "library_device_ms": dev_lib["ms"],
+        "library_call": "torch.Tensor.scatter_reduce_",
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": max(checks.values()), "max_abs_err_by_case": checks,
+        "bit_identical_to_one_row_launches": list(checks),
+        "shape": {"rows": k, "updates": n_e, "bins": n_out, "dtype": "float32", "op": "+",
+                  "work_list": "the bind's"},
+    }
+    del vals, ivals
+
+    # -- edge_stream: SSSP's relax (i32 add/min, shared weights), PageRank's
+    #    contribution (f32 src/+), MS-BFS's level step (i32 src/|) ---------
+    vact = torch.rand(k, n_v, generator=gen, device=dev) < 0.5
+    sp = torch.randint(0, 2**20, (k, n_v), generator=gen, device=dev, dtype=torch.int32)
+    rank = torch.rand(k, n_v, generator=gen, device=dev)
+    words = torch.randint(-2**31, 2**31 - 1, (k, n_v), generator=gen, device=dev,
+                          dtype=torch.int32)
+    every = torch.ones(n_v, dtype=torch.bool, device=dev)
+    cases = {
+        "edge_stream_batched": ("i32 add min, shared weights", sp, vact, eid_s, weights, "add",
+                                "min"),
+        "edge_stream_batched_f32": ("f32 src +", rank, vact, None, None, "src", "+"),
+        "edge_stream_batched_or": ("i32 src |, shared mask", words, every, None, None, "src",
+                                   "|"),
+    }
+    for row_name, (name, vv, act, eid, w, apply_op, op) in cases.items():
+        call = (lambda vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op:
+                es.edge_stream_gather_batched(vv, act, src_s, eid, w, offsets, apply_op, op,
+                                              split))
+        got = call()
+        one = one_row_launches(lambda q, vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op:
+                               es.edge_stream_gather(vv[q], act if act.dim() == 1 else act[q],
+                                                     src_s, eid, w, offsets, apply_op, op,
+                                                     split))
+        assert torch.equal(bits(got), bits(one)), \
+            f"edge_stream_batched {name}: differs from {k} one-row launches"
+        want = ref.edge_stream_gather_batched_ref(vv, act, src_s, eid, w, offsets, apply_op, op)
+        tol = None
+        if op == "+":
+            upd = torch.where(act, vv, 0.0).index_select(1, src_s)
+            tol = f32_sum_tolerance(upd.reshape(-1), ids, k * n_out).view(k, n_out)
+            del upd
+        err = check_equal(f"{row_name} main-shape {name}", got, want, op, tol)
+        del got, one, want
+        act_rows = act if act.dim() == 2 else act.expand(k, -1)
+        n_active = int(act_rows.index_select(1, src_s).sum())  # (row, edge) pairs applied
+        weighted = apply_op != "src"
+        n_bytes = (4 * n_e * (3 if weighted else 1) + k * n_v * (4 + (1 if act.dim() == 2 else 0))
+                   + (0 if act.dim() == 2 else n_v) + 4 * (n_out + 1) + 4 * k * n_out)
+        b_ms, b_by = bound(n_bytes, (2 if weighted else 1) * n_active)
+        dev_b = device_ms(call, iters=10)
+        dev_one = device_ms(lambda vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op: [
+            es.edge_stream_gather(vv[q], act if act.dim() == 1 else act[q], src_s, eid, w,
+                                  offsets, apply_op, op, split) for q in range(k)], iters=3)
+        rows[row_name] = {
+            "kernel_ms": time_ms(call, iters=10), "kernel_device_ms": dev_b["ms"],
+            "kernel_device_kernels": dev_b["kernels"],
+            "one_row_launches_device_ms": dev_one["ms"],
+            "plain_ms": time_ms(lambda vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op:
+                                ref.edge_stream_gather_batched_ref(vv, act, src_s, eid, w,
+                                                                   offsets, apply_op, op),
+                                iters=2, warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "bit_identical_to_one_row_launches": True,
+            "shape": {"rows": k, "edges": n_e, "bins": n_out, "case": name,
+                      "active_row_edges": n_active},
+        }
     return rows
 
 
@@ -1104,6 +1259,116 @@ def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
     return row
 
 
+def state_bytes(prog, g, k: int) -> int:
+    """Bytes of a batch's state on the card: every property ``[K, n]`` in
+    its dtype, the degree rows ``[K, V]``; the weights stay one shared row
+    unless a kernel writes them."""
+    n = 0
+    for p in prog.module.properties.values():
+        n += k * (g.n_edges if p.is_edge else g.n_vertices) * (1 if p.scalar == "bool" else 4)
+    return n
+
+
+def batch_phase(repro_torch, sources, sessions, g, oracle_of, sr, es, seed: int,
+                smi: str) -> tuple:
+    """The batched path on R19: ``bind_batch(g).run_many(sets)`` for
+    BFS_ECP at K = 64 (MS-BFS), BFS_ECP with ``msbfs=False`` and SSSP at K
+    = 16 (roots: 0 and others drawn from the seed), PAGERANK at K = 16
+    (``iters`` drawn from 16-20, so lanes converge apart and the masks
+    merge). Each run is sized first, then one cold and BATCH_WARM_RUNS warm
+    batches (the median is kept), with both graph kernels' counters set to
+    0 just before and read just after; every lane must equal a sequential
+    ``Session.run`` of the port bit for bit, and the root-0 lane the
+    oracle; one more batch is profiled."""
+    rng = np.random.default_rng(seed)
+    roots = [0] + [int(r) for r in rng.choice(np.arange(1, g.n_vertices), 63, replace=False)]
+    runs = [
+        ("BFS_ECP", "msbfs", [{"root": r} for r in roots], True),
+        ("BFS_ECP", "generic", [{"root": r} for r in roots[:BATCH_K]], False),
+        ("SSSP", "generic", [{"root": r} for r in roots[:BATCH_K]], True),
+        ("PAGERANK", "generic", [{"iters": int(i)} for i in rng.integers(16, 21, BATCH_K)], True),
+    ]
+    launches = {"shuffle_reduce": 0, "edge_stream": 0}
+    rows, sequential_s = [], {}
+    for name, path, sets, msbfs in runs:
+        k = len(sets)
+        prog = repro_torch.compile(getattr(sources, name))
+        planned = state_bytes(prog, g, k)
+        free, _ = torch.cuda.mem_get_info()
+        assert planned < free, f"{name} K={k}: {planned} B of state, {free} B free"
+        t0 = time.perf_counter()
+        bs = prog.bind_batch(g, msbfs=msbfs)
+        bind_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        sr.LAUNCHES = 0
+        es.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cold = bs.run_many(sets)
+        cold_s = time.perf_counter() - t0
+        warm_s = []
+        for _ in range(BATCH_WARM_RUNS):
+            t0 = time.perf_counter()
+            warm = bs.run_many(sets)
+            warm_s.append(time.perf_counter() - t0)
+        run_launches = {"shuffle_reduce": sr.LAUNCHES, "edge_stream": es.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        assert run_launches["edge_stream"] > 0, f"{name} ({path}): edge_stream never launched"
+        for kname, n in run_launches.items():
+            launches[kname] += n
+        st = warm[0].stats
+        assert st.batch_size == k and all(r.stats is st for r in warm)
+        assert (BATCH_MSBFS in st.kernel_launches) == (path == "msbfs"), (name, path)
+        # every lane against a sequential run of the port, bit for bit
+        sess, seq_s, seq_launches = sessions[name], [], 0
+        for p, a, c in zip(sets, warm, cold):
+            t0 = time.perf_counter()
+            want = sess.run(**p)
+            seq_s.append(time.perf_counter() - t0)
+            seq_launches += want.stats.total_launches
+            for prop, x in want.properties.items():
+                for got in (a, c):
+                    y = got.properties[prop]
+                    assert y.dtype == x.dtype and np.array_equal(x.view(np.uint8),
+                                                                 y.view(np.uint8)), \
+                        f"batched {name} ({path}) {p}: {prop} differs from the sequential run"
+            assert a.host_env == want.host_env and c.host_env == want.host_env, (name, p)
+        sequential_s[(name, k)] = statistics.median(seq_s)
+        prop, oracle = oracle_of(name, sets[0])
+        lane0 = warm[0].properties[prop]
+        if name == "PAGERANK":
+            assert np.allclose(lane0, oracle, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL), name
+        else:
+            assert np.array_equal(lane0.astype(np.int64), oracle), f"{name}: lane 0 vs oracle"
+        if path == "msbfs":
+            assert st.total_launches <= 0.25 * seq_launches, \
+                f"MS-BFS: {st.total_launches} launches a batch vs {seq_launches} sequential"
+        warm_med = statistics.median(warm_s)
+        prof = profile_run(lambda bs=bs, sets=sets: bs.run_many(sets))
+        rows.append({
+            "phase": "batch", "program": name, "path": path, "k": k, "card": smi,
+            "params": sets[0] if name != "PAGERANK" else {"iters": [p["iters"] for p in sets]},
+            "planned_state_bytes": planned, "bind_s": bind_s,
+            "cold_s": cold_s, "warm_s": warm_med, "warm_runs_s": warm_s,
+            "queries_per_s": k / warm_med,
+            "sequential_warm_median_s": sequential_s[(name, k)],
+            "sequential_k_s": k * sequential_s[(name, k)],
+            "sequential_queries_per_s": 1.0 / sequential_s[(name, k)],
+            "speedup": k * sequential_s[(name, k)] / warm_med,
+            "launches_per_batch": st.total_launches, "kernel_launches": st.kernel_launches,
+            "sequential_launches_for_k": seq_launches,
+            "edges_traversed": st.edges_traversed, "host_iterations": st.host_iterations,
+            "device_busy_s": prof["device_busy_s"], "device_idle_share": prof["device_idle_share"],
+            "profiled_wall_s": prof["wall_s"], "top_kernels_ms": prof["top_kernels_ms"],
+            "max_memory_allocated": peak, "lanes_bit_identical": k, "lane0_oracle": True,
+            "kernel_calls": run_launches,
+        })
+        del bs, cold, warm
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert launches["shuffle_reduce"] > 0, "shuffle_reduce never launched in the batch phase"
+    return rows, launches
+
+
 # ---------------------------------------------------------------------------
 # oracles (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
@@ -1210,6 +1475,12 @@ def main() -> int:
              "ptxas": {"kernels": len(regs), "max_registers": max(regs, default=None),
                        "spill_bytes": sum(spills)}})
     log({"phase": "build", "total_seconds": round(build_s, 3)})
+    for name in ("shuffle_reduce", "edge_stream"):  # 256 threads a block (reduce_ops.cuh)
+        entries = [{"entry": row["entry"], "registers": row.get("registers"),
+                    "theoretical_occupancy": register_occupancy(row["registers"])
+                    if "registers" in row else None}
+                   for row in ptxas_kernels(built[name]["log"])]
+        log({"phase": "build", "source": f"src/repro_torch/csrc/{name}.cu", "kernels": entries})
     sm90_lib = _build.load("flash_attention_sm90")
     sm90 = ptxas_kernels(built["flash_attention_sm90"]["log"])
     for row in sm90:
@@ -1237,6 +1508,10 @@ def main() -> int:
     rows = main_shape_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev)
     for name, row in rows.items():
         log({"phase": "kernels", "kernel": name, **row})
+    for name, row in batched_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev).items():
+        log({"phase": "kernels", "kernel": name, **row})
+    gc.collect()
+    torch.cuda.empty_cache()
     log({"phase": "kernels", "skewed_edge_stream": skewed_edge_stream(sr, es, ref, dev)})
     log({"phase": "kernels", "skewed_shuffle_reduce": skewed_shuffle_reduce(sr, ref, dev)})
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
@@ -1322,6 +1597,23 @@ def main() -> int:
              **profile_run(lambda n=name: sessions[n].run(**params[n]))})
         log({"phase": "profile", "program": name, "shuffle_reduce_launches":
              shuffle_reduce_launches(sr, lambda n=name: sessions[n].run(**params[n]))})
+
+    # -- 4b. the batched path ---------------------------------------------
+    def oracle_of(name: str, p: dict):
+        if name == "BFS_ECP":
+            return "old_level", bfs_levels(g.n_vertices, src_np, dst_np, p["root"])
+        if name == "SSSP":
+            return "SP", sssp_dist(g.n_vertices, src_np, dst_np, g.weights.astype(np.int64),
+                                   p["root"])
+        return "rank", pagerank(g.n_vertices, src_np, dst_np, p["iters"])
+
+    batch_rows, batch_launches = batch_phase(repro_torch, sources, sessions, g, oracle_of, sr,
+                                             es, args.seed, smi)
+    for row in batch_rows:
+        log(row)
+    for name, n in batch_launches.items():
+        launches[name] += n
+    log({"phase": "batch", "launches": batch_launches})
     del sessions, eng, results
     gc.collect()
     torch.cuda.empty_cache()

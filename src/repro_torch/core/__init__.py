@@ -2,5 +2,7 @@
 from .engine import Engine, EngineResult, EngineStats  # noqa: F401
 from .options import CompileOptions  # noqa: F401
 from .program import Program, ProgramError, compile  # noqa: F401,A004
-from .session import Session, SessionError  # noqa: F401
+from .session import (  # noqa: F401
+    BatchSession, ServiceClosed, Session, SessionError, SessionPool, batch_eligible,
+)
 from .target import Target  # noqa: F401

@@ -27,6 +27,16 @@ Dtype ABI: properties are int32, float32 or bool tensors; literals are 0-d
 tensors of those types on the kernel's device (never float64). Tensors are
 never updated in place: every write builds a new tensor, as the reference's
 immutable arrays do, so state entries may share storage safely.
+
+Batch axis (the torch analogue of the reference's ``vmap`` over the full
+stream, :attr:`LoweredKernel.run_batched`): in a batched launch every state
+array is ``[K, n]`` (row ``k`` is query ``k``) and every host scalar a
+``[K, 1]`` tensor, while the graph's bindings stay ``[V]``/``[E]`` and
+shared, so the graph is walked once per launch for all K rows. Lane values
+are then 0-d, ``[n]`` (the same in every row: literals, vertex ids, graph
+arrays) or ``[K, n]``; PyTorch's broadcasting combines them, indexing acts
+on the last axis (:func:`_index`), vertex ids stay vertex ids, and each
+commit gives every update its property's ``[K, n]`` shape.
 """
 from __future__ import annotations
 
@@ -84,22 +94,41 @@ def const(value, dtype: torch.dtype, device: str) -> torch.Tensor:
 
 
 def _index(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``arr[idx]`` for an int32 index tensor of any rank."""
-    if idx.dim() == 1:
-        return torch.index_select(arr, 0, idx)
-    return arr[idx]
+    """``arr[..., idx]``: lane values of ``arr`` (``[n]``, or ``[K, n]`` in a
+    batched launch) at an int32 index that is 0-d, ``[m]`` (shared by the
+    rows) or ``[K, m]`` (one row a query); a 0-d index of ``[K, n]`` gives
+    ``[K, 1]``. A row expanded over the batch (row stride 0) is gathered
+    once and the result stays shared."""
+    if arr.dim() == 2 and arr.stride(0) == 0:
+        arr = arr[0]
+    if arr.dim() == 1:
+        return torch.index_select(arr, 0, idx) if idx.dim() == 1 else arr[idx]
+    if idx.dim() <= 1:
+        return torch.index_select(arr, 1, idx.reshape(-1))
+    return torch.gather(arr, 1, idx.long())
 
 
 def _set(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """A copy of ``arr`` with ``arr[idx] = vals`` (duplicate indices: the
-    device's store order decides, as for the reference's ``.at[].set``)."""
-    out = arr.clone()
-    out[idx] = vals
+    """A copy of ``arr`` with ``arr[..., idx] = vals`` (per row for a ``[K,
+    m]`` index; duplicate indices: the device's store order decides, as for
+    the reference's ``.at[].set``)."""
+    out = arr.clone(memory_format=torch.contiguous_format)
+    if idx.dim() <= 1:
+        out[..., idx] = vals
+    else:
+        out.scatter_(1, idx.long(), torch.broadcast_to(vals, idx.shape).to(out.dtype))
     return out
 
 
 def _plain_scatter(prop_arr, idx, vals, op: str) -> torch.Tensor:
-    """Random scatter without the shuffle stage (the baseline path)."""
+    """Random scatter without the shuffle stage (the baseline path); a
+    batched ``[K, n]`` property scatters row ``k`` into ``k * n ..`` of one
+    flattened array."""
+    if prop_arr.dim() == 2:
+        k, n = prop_arr.shape
+        flat_idx = ref.row_bins(idx, k, n)
+        flat_vals = torch.broadcast_to(vals, (k, idx.shape[-1])).reshape(-1)
+        return _plain_scatter(prop_arr.reshape(-1), flat_idx, flat_vals, op).view(k, n)
     if op == "+":
         return prop_arr.clone().index_add_(0, idx, vals)
     reduce = {"*": "prod", "min": "amin", "max": "amax"}[op]
@@ -126,8 +155,13 @@ def apply_scatter(
     and work list ``split``, otherwise through its sorting wrapper. The
     ``shuffle=False`` baseline and the ``*`` op stay plain PyTorch
     scatters, as they are XLA scatters and not Pallas in the reference.
+
+    In a batched launch (``prop_arr`` ``[K, n]``) the rows' updates go
+    through one batched launch over the shared routing; an index that
+    differs per row (``[K, m]``) is routed per row
+    (:func:`~repro_torch.kernels.shuffle_reduce.shuffle_reduce_batched`).
     """
-    n = prop_arr.shape[0]
+    n = prop_arr.shape[-1]
     vals = vals.to(prop_arr.dtype)
     sorted_route = sort_perm is not None and offsets is not None
 
@@ -137,8 +171,13 @@ def apply_scatter(
             # identity (0, INT_MAX for min, INT_MIN for max) maps back by > 0
             return reduce(v.to(torch.int32), red_op) > 0
         if sorted_route:
-            return sr_kernel.shuffle_reduce_sorted(_index(v, sort_perm), offsets, n, red_op,
-                                                   split)
+            v = _index(v, sort_perm)
+            if v.dim() == 2:
+                return sr_kernel.shuffle_reduce_sorted_batched(v, offsets, n, red_op, split)
+            return sr_kernel.shuffle_reduce_sorted(v, offsets, n, red_op, split)
+        if v.dim() == 2 or idx.dim() == 2:
+            v = torch.broadcast_to(v, idx.shape[:-1] + v.shape[-1:]) if v.dim() == 1 else v
+            return sr_kernel.shuffle_reduce_batched(v, idx, n, red_op)
         return sr_kernel.shuffle_reduce(v, idx, n, red_op)
 
     if op is None:
@@ -147,7 +186,7 @@ def apply_scatter(
             # writing lane in stream order — the answer a sequential
             # interpretation of the kernel gives (the commit path the GT101
             # race analysis forces on).
-            n_lanes = idx.shape[0]
+            n_lanes = idx.shape[-1]
             pos = torch.arange(n_lanes, dtype=torch.int32, device=idx.device)
             if mask is not None:
                 pos = torch.where(mask, pos, -1)
@@ -356,8 +395,11 @@ class KernelExec:
                 old = lane.env[st.target.name]
                 if op == "*":
                     red = _plain_scatter(
-                        torch.full((lane.n_lanes,), ident, dtype=vals.dtype,
+                        torch.full(vals.shape[:-1] + (lane.n_lanes,), ident, dtype=vals.dtype,
                                    device=vals.device), row_pos, vals, op)
+                elif vals.dim() == 2:  # a batched launch: its rows over one indptr
+                    red = sr_kernel.shuffle_reduce_sorted_batched(
+                        vals, ex.parent_offsets, lane.n_lanes, op)
                 else:
                     # row_pos is sorted by construction: the CSR indptr is
                     # the bin offsets of this segment reduce
@@ -426,7 +468,7 @@ class KernelExec:
             cur = self.prop_current(prop)
             vids = lane.bindings[idx_expr.name]
             val = _broadcast(val, lane.n_lanes).to(cur.dtype)
-            if lane.valid is None and lane.n_lanes == cur.shape[0]:
+            if lane.valid is None and lane.n_lanes == cur.shape[-1]:
                 old = cur
                 new = val if op is None else combine(op, old, val)
                 if mask is not None:
@@ -479,8 +521,9 @@ class KernelExec:
                 options=self.options,
             )
         # materialize broadcast views: kernels and later launches read
-        # these as plain contiguous buffers
-        return {k: v.contiguous() for k, v in out.items()}
+        # these as plain contiguous buffers; in a batched launch an update
+        # that no row's value changes ([n]) gets its property's rows
+        return {k: _rows_like(v, self.state[k]).contiguous() for k, v in out.items()}
 
 
 class BackendError(Exception):
@@ -551,8 +594,19 @@ def _promote(a: torch.Tensor, b: torch.Tensor):
 
 
 def _broadcast(v: torch.Tensor, n: int) -> torch.Tensor:
+    """A lane value over ``n`` lanes: 0-d -> ``[n]``, a batched scalar
+    ``[K, 1]`` -> ``[K, n]`` (views, nothing copied)."""
     if v.dim() == 0:
         return v.expand(n)
+    if v.shape[-1] != n:
+        return v.expand(*v.shape[:-1], n)
+    return v
+
+
+def _rows_like(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``v`` with the leading (batch) axes of ``like`` that it lacks."""
+    if v.dim() < like.dim():
+        return v.expand(*like.shape[:like.dim() - v.dim()], *v.shape)
     return v
 
 
@@ -656,6 +710,8 @@ def _exec_edge_stream(module, kernel, plan: EdgeStreamPlan, options, gb, state, 
     lane = LaneCtx(n_lanes=n, bindings={kernel.src_param: gb["vids"]}, valid=None)
     vval = _broadcast(ex.eval(plan.operand, lane), n)
     weights = state.get(WEIGHT_KEY) if plan.apply_op != "src" else None
+    if weights is not None and weights.dim() == 2 and weights.stride(0) == 0:
+        weights = weights[0]  # a batch's shared weights: one row, read by every row
     if (cur.dtype not in es_kernel.DTYPE_CODES or vval.dtype != cur.dtype
             or (weights is not None and weights.dtype != cur.dtype)):
         return None
@@ -665,11 +721,14 @@ def _exec_edge_stream(module, kernel, plan: EdgeStreamPlan, options, gb, state, 
         vact = const(True, torch.bool, gb["device"]).expand(n)
     else:
         vact = _broadcast(ex.eval(plan.guard, lane), n).to(torch.bool)
-    reduced = es_kernel.edge_stream_gather(
-        vval.contiguous(), vact.contiguous(), gb["es_src"],
-        gb["es_eid"] if weights is not None else None, weights,
-        gb["dst_offsets"], plan.apply_op, plan.op, gb["es_split"],
-    )
+    args = (gb["es_src"], gb["es_eid"] if weights is not None else None, weights,
+            gb["dst_offsets"], plan.apply_op, plan.op, gb["es_split"])
+    if max(vval.dim(), vact.dim(), 1 if weights is None else weights.dim()) == 2:
+        # a batched launch: one row a query over the shared edges
+        reduced = es_kernel.edge_stream_gather_batched(_rows_like(vval, cur),
+                                                       vact.contiguous(), *args)
+    else:
+        reduced = es_kernel.edge_stream_gather(vval.contiguous(), vact.contiguous(), *args)
     return {plan.prop: combine(plan.op, cur, reduced)}
 
 
@@ -687,6 +746,14 @@ class LoweredKernel:
     run_full: Callable  # (state, scalars) -> prop updates
     run_subset: Optional[Callable] = None  # (state, scalars, batch) -> updates
     frontier: Optional[mir.FrontierInfo] = None
+
+    @property
+    def run_batched(self) -> Callable:
+        """``(state [K, n], scalars [K, 1]) -> updates [K, n]``: the full
+        stream over a batch of K queries (the batch path never compacts, as
+        in the reference). The evaluator takes the leading batch axis
+        wherever state and scalars carry one, so this is ``run_full``."""
+        return self.run_full
 
 
 def make_frontier_builder(n_vertices: int, n_edges: int, weighted: bool):

@@ -39,7 +39,14 @@ class EngineError(Exception):
 
 @dataclass
 class EngineStats:
-    """Per-run execution counters."""
+    """Per-run execution counters.
+
+    A stats object describes ONE engine run, which may answer more than one
+    query: a batched run (:mod:`repro_torch.batch`) answers K parameter
+    bindings with one set of launches and attaches the same stats object to
+    all K results with ``batch_size == K``. Launch and edge counters are
+    per batch; :attr:`per_query_launches` divides by the batch.
+    """
 
     kernel_launches: Dict[str, int] = field(default_factory=dict)
     compacted_launches: int = 0
@@ -61,10 +68,18 @@ class EngineStats:
     # the properties they read included
     frontier_masks: int = 0
     frontier_mask_s: float = 0.0
+    # how many queries this run answered (1 = a sequential run; K > 1 = one
+    # batched run whose launches served K parameter bindings at once)
+    batch_size: int = 1
 
     @property
     def total_launches(self) -> int:
         return sum(self.kernel_launches.values())
+
+    @property
+    def per_query_launches(self) -> float:
+        """Launches amortized over the queries this run answered."""
+        return self.total_launches / max(self.batch_size, 1)
 
 
 def count_launch(stats: EngineStats, module: mir.Module, name: str) -> None:
@@ -197,9 +212,11 @@ class Engine:
             self._lowered[name] = backend.lower_kernel(self.module, k, self.gb, self.target)
         return self._lowered[name]
 
-    def _timed_call(self, key, fn, *args):
+    def _timed_call(self, key, fn, *args, stats: Optional[EngineStats] = None):
         """Call ``fn``; attribute a first-touch (cold) call's wall time to
-        ``stats.compile_time_s``. The warm-key registry survives reset()."""
+        ``compile_time_s`` of ``stats`` (this engine's by default). The
+        warm-key registry survives reset() and is shared with the batch
+        engine that wraps this one (its keys are ``("batched", name, K)``)."""
         if key in self._warm_keys:
             return fn(*args)
         t0 = time.perf_counter()
@@ -208,7 +225,7 @@ class Engine:
         finally:
             if self.device != "cpu":
                 torch.cuda.synchronize(self.device)
-            self.stats.compile_time_s += time.perf_counter() - t0
+            (stats or self.stats).compile_time_s += time.perf_counter() - t0
             self._warm_keys.add(key)
 
     def _kernel_scalars(self, name: str) -> Dict[str, torch.Tensor]:
@@ -226,6 +243,27 @@ class Engine:
         count_launch(self.stats, self.module, name)
         self._execute_kernel(name, kern)
 
+    def batched_runner(self, name: str) -> Callable:
+        """The batch-axis launch of kernel ``name``, ``(state, scalars) ->
+        updates``: its full stream over ``[K, n]`` state and ``[K, 1]``
+        scalars, with per-row results bit-identical to K sequential launches
+        (the shared graph bindings are walked once for all K rows)."""
+        return self._kernel(name).run_batched
+
+    def _full_stats_bump(self, kern) -> Callable[[EngineStats], None]:
+        """Stats increment matching one full-stream launch of ``kern``."""
+        edges = 0
+        if kern.kind is mir.KernelKind.EDGE:
+            edges = self.graph.n_edges
+        elif isinstance(kern, mir.PipelineKernel):
+            edges = self.graph.n_edges * len(kern.edge_stages)
+
+        def bump(stats: EngineStats) -> None:
+            stats.full_launches += 1
+            stats.edges_traversed += edges
+
+        return bump
+
     def _execute_kernel(self, name: str, kern):
         lk = self._kernel(name)
         scalars = self._kernel_scalars(name)
@@ -240,13 +278,7 @@ class Engine:
             and self._launch_compacted_edge(lk, kern, scalars)
         ):
             return
-        self.stats.full_launches += 1
-        edges = 0
-        if kern.kind is mir.KernelKind.EDGE:
-            edges = self.graph.n_edges
-        elif isinstance(kern, mir.PipelineKernel):
-            edges = self.graph.n_edges * len(kern.edge_stages)
-        self.stats.edges_traversed += edges
+        self._full_stats_bump(kern)(self.stats)
         updates = self._timed_call(("full", name), lk.run_full, self.state, scalars)
         self.state.update(updates)
 

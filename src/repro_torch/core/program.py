@@ -32,7 +32,7 @@ from .parser import ParseError, parse
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from ..graph.storage import GraphData
-    from .session import Session
+    from .session import BatchSession, Session, SessionPool
     from .target import Target
 
 
@@ -168,6 +168,36 @@ class Program:
         from .session import Session
 
         return Session(self, graph, target=target, device=device, argv=argv)
+
+    def bind_batch(self, graph: "GraphData", *, target: "Optional[Target]" = None,
+                   device: Optional[str] = None, argv: Optional[list] = None,
+                   max_batch: Optional[int] = None, msbfs: bool = True) -> "BatchSession":
+        """Place this program onto ``graph`` for batched multi-query runs.
+
+        The returned :class:`~.session.BatchSession` answers a whole list of
+        parameter bindings per execution, with one set of launches: state
+        carries a leading batch axis, host control flow runs with per-query
+        masks, and BFS-like programs take the bit-packed multi-source path
+        (``msbfs=False`` turns it off). Results are bit-identical to
+        sequential :meth:`bind` + ``run`` calls. ``target`` and ``device``
+        are as for :meth:`bind`: without a GPU it raises unless
+        ``device="cpu"``.
+        """
+        from .session import BatchSession
+
+        return BatchSession(self, graph, target=target, device=device, argv=argv,
+                            max_batch=max_batch, msbfs=msbfs)
+
+    def pool(self, graph: "GraphData", size: int = 2, *, target: "Optional[Target]" = None,
+             device: Optional[str] = None, argv: Optional[list] = None, batch: int = 0,
+             batch_wait_s: float = 0.002) -> "SessionPool":
+        """A :class:`~.session.SessionPool` of ``size`` sessions bound to
+        ``graph`` for concurrent and batched query serving (``batch > 1``
+        turns on the dynamic batcher)."""
+        from .session import SessionPool
+
+        return SessionPool(self, graph, size, target=target, device=device, argv=argv,
+                           batch=batch, batch_wait_s=batch_wait_s)
 
 
 def compile_program(src: str, options: Optional[CompileOptions] = None) -> Program:

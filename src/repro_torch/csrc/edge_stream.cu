@@ -41,6 +41,18 @@
 // partials, in chunk order, into out[bin]. Which lanes sum a bin, and in
 // what order, is fixed by the offsets alone and nothing is atomic, so a
 // float + gives the same bits on every run.
+//
+// Batches: K rows of the vertex side (a query each, or the 32-source words
+// of multi-source BFS) share the sorted edges, the offsets and the work
+// list. Row r reads vval, vact and w at r * their row stride (0: one row
+// shared by all, as the graph's weights are) and writes bins r * n_out ..
+// and partials r * n_chunks ... Each row walks every bin as a one-row
+// launch does, so a batched float + gives each row the bits of its own
+// one-row launch; the edge arrays are never copied. The rows are
+// interleaved on blockIdx.x (block b serves row b % K), so the K blocks
+// that walk the same items run side by side and the edge streams (src_s,
+// eid_s, w by edge id) they all read come from DRAM about once, the other
+// rows hitting L2. Reduce | (int32) ORs the gathered words.
 
 #include "reduce_ops.cuh"
 
@@ -99,19 +111,36 @@ constexpr int kGroup = 8;
 constexpr int kQuad = 32 / kGroup;
 constexpr int kShort = kGroup * kSteps;
 
-template <typename T, int APPLY, int OP>
+// ROWS: a batched launch, block b serving row b % n_rows as block
+// b / n_rows of that row. A one-row launch (ROWS false) leaves the pointer
+// parameters as they are: a row's offset pointers live in registers, and
+// the one-row kernel, a chain of dependent gathers that needs every warp
+// an SM can hold, would lose occupancy to them.
+template <typename T, int APPLY, int OP, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 edge_stream_kernel(const T* __restrict__ vval, const uint8_t* __restrict__ vact,
                    const int32_t* __restrict__ src_s, const int32_t* __restrict__ eid_s,
                    int64_t n_edges, const T* __restrict__ w,
                    const int32_t* __restrict__ offsets, T* __restrict__ out, int64_t n_out,
                    const int2* __restrict__ chunks, int64_t n_chunks, int32_t chunk_len,
-                   T* __restrict__ partial) {
+                   T* __restrict__ partial, int64_t n_rows, int64_t vval_stride,
+                   int64_t vact_stride, int64_t w_stride) {
+  int64_t block = blockIdx.x, blocks = gridDim.x;
+  if constexpr (ROWS) {
+    const int64_t row = blockIdx.x % n_rows;
+    block = blockIdx.x / n_rows;
+    blocks = gridDim.x / n_rows;
+    vval += row * vval_stride;
+    vact += row * vact_stride;
+    if constexpr (APPLY != kSrc) w += row * w_stride;
+    out += row * n_out;
+    partial += row * n_chunks;  // null with no chunks: row * 0
+  }
   const int lane = threadIdx.x & 31;
   const int64_t warps_per_block = blockDim.x >> 5;
-  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * warps_per_block;
+  const int64_t n_warps = blocks * warps_per_block;
   const int64_t n_items = n_chunks + (n_out + kQuad - 1) / kQuad;
-  for (int64_t item = blockIdx.x * warps_per_block + (threadIdx.x >> 5); item < n_items;
+  for (int64_t item = block * warps_per_block + (threadIdx.x >> 5); item < n_items;
        item += n_warps) {
     if (item < n_chunks) {
       const int2 ch = chunks[item];  // (bin, chunk number)
@@ -160,6 +189,8 @@ __global__ void __launch_bounds__(kThreads)
 combine_kernel(const T* __restrict__ partial, int64_t n_chunks,
                const int32_t* __restrict__ split_bins, const int32_t* __restrict__ split_first,
                int64_t n_split, T* __restrict__ out, int64_t n_out) {
+  partial += static_cast<int64_t>(blockIdx.y) * n_chunks;  // row blockIdx.y
+  out += static_cast<int64_t>(blockIdx.y) * n_out;
   const int lane = threadIdx.x & 31;
   const int64_t j = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   if (j >= n_split) return;  // the whole warp
@@ -192,22 +223,31 @@ struct Args {
   const void* split_first;
   int64_t n_split;
   void* partial;
+  int64_t n_rows;
+  int64_t vval_stride;
+  int64_t vact_stride;
+  int64_t w_stride;
   cudaStream_t stream;
 };
 
 template <typename T, int APPLY, int OP>
 static cudaError_t launch(const Args& a) {
   const int64_t n_items = a.n_chunks + (a.n_out + kQuad - 1) / kQuad;
-  edge_stream_kernel<T, APPLY, OP><<<grid_for(n_items), kThreads, 0, a.stream>>>(
+  const int64_t grid = grid_for(n_items, a.n_rows) * a.n_rows;  // rows interleaved
+  auto kernel = a.n_rows > 1 ? edge_stream_kernel<T, APPLY, OP, true>
+                             : edge_stream_kernel<T, APPLY, OP, false>;
+  kernel<<<static_cast<unsigned>(grid), kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.vval), static_cast<const uint8_t*>(a.vact),
       static_cast<const int32_t*>(a.src_s), static_cast<const int32_t*>(a.eid_s), a.n_edges,
       static_cast<const T*>(a.w), static_cast<const int32_t*>(a.offsets),
       static_cast<T*>(a.out), a.n_out, static_cast<const int2*>(a.chunks), a.n_chunks,
-      a.chunk_len, static_cast<T*>(a.partial));
+      a.chunk_len, static_cast<T*>(a.partial), a.n_rows, a.vval_stride, a.vact_stride,
+      a.w_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 0) return err;
   const int64_t blocks = (a.n_split * 32 + kThreads - 1) / kThreads;
-  combine_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+  combine_kernel<T, OP><<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.n_rows)),
+                          kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.partial), a.n_chunks, static_cast<const int32_t*>(a.split_bins),
       static_cast<const int32_t*>(a.split_first), a.n_split, static_cast<T*>(a.out), a.n_out);
   return cudaGetLastError();
@@ -219,6 +259,9 @@ static cudaError_t by_op(int op, const Args& a) {
     case kSum: return launch<T, APPLY, kSum>(a);
     case kMin: return launch<T, APPLY, kMin>(a);
     case kMax: return launch<T, APPLY, kMax>(a);
+    case kOr:
+      if constexpr (std::is_same<T, int32_t>::value) return launch<T, APPLY, kOr>(a);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -235,33 +278,39 @@ static cudaError_t by_apply(int apply, int op, const Args& a) {
 
 }  // namespace repro
 
-// vval[V] and vact[V] (bool as bytes) are the vertex side; src_s[n_edges]
-// and eid_s[n_edges] list the edges sorted by destination bin, w[E] holds
-// weights by edge id (eid_s and w may be null for apply 'src');
-// offsets[n_out + 1] int32 (clamped into [0, n_edges]); out[n_out]. The
-// work list of split_bins over the same offsets: chunks[n_chunks] int32
-// pairs (bin, chunk number), split_bins[n_split], split_first[n_split + 1];
-// partial[n_chunks] is scratch of out's type. The bins longer than
-// chunk_len must be exactly the split bins; the list's indices are clamped,
-// so a list built from other offsets gives wrong bins but touches nothing
-// out of bounds. Launches one kernel, two when a bin is split; returns
-// cudaGetLastError() after the launches.
+// n_rows rows of the vertex side vval[V] and vact[V] (bool as bytes) and
+// of the weights w[E] by edge id, row r at r * vval_stride, vact_stride,
+// w_stride (0: one row shared by all); src_s[n_edges] and eid_s[n_edges]
+// list the edges sorted by destination bin (eid_s and w may be null for
+// apply 'src'); offsets[n_out + 1] int32 (clamped into [0, n_edges]);
+// out[n_rows, n_out]. The work list of split_bins over the same offsets:
+// chunks[n_chunks] int32 pairs (bin, chunk number), split_bins[n_split],
+// split_first[n_split + 1]; partial[n_rows, n_chunks] is scratch of out's
+// type. Edges, offsets and list serve every row; op | takes int32 only.
+// The bins longer than chunk_len must be exactly the split bins; the
+// list's indices are clamped, so a list built from other offsets gives
+// wrong bins but touches nothing out of bounds. Launches one kernel, two
+// when a bin is split; returns cudaGetLastError() after the launches.
 extern "C" int repro_edge_stream(const void* vval, const void* vact, const void* src_s,
                                  const void* eid_s, int64_t n_edges, const void* w,
                                  const void* offsets, void* out, int64_t n_out,
                                  const void* chunks, int64_t n_chunks, int chunk_len,
                                  const void* split_bins, const void* split_first,
-                                 int64_t n_split, void* partial, int dtype, int apply, int op,
-                                 void* stream) {
+                                 int64_t n_split, void* partial, int64_t n_rows,
+                                 int64_t vval_stride, int64_t vact_stride, int64_t w_stride,
+                                 int dtype, int apply, int op, void* stream) {
   using namespace repro;
   if (n_out <= 0) return cudaSuccess;
+  if (n_rows < 1 || n_rows > kMaxRows || vval_stride < 0 || vact_stride < 0 || w_stride < 0)
+    return cudaErrorInvalidValue;
   if (apply != kSrc && (eid_s == nullptr || w == nullptr)) return cudaErrorInvalidValue;
   if (chunk_len <= 0 || n_chunks < 0 || n_split < 0 || (n_chunks > 0 && partial == nullptr))
     return cudaErrorInvalidValue;
   if (n_edges > INT32_MAX - 32 * kSteps) return cudaErrorInvalidValue;  // 32-bit edge indices
-  const Args a{vval,   vact,  src_s,  eid_s,    n_edges,   w,          offsets,
-               out,    n_out, chunks, n_chunks, chunk_len, split_bins, split_first,
-               n_split, partial, static_cast<cudaStream_t>(stream)};
+  const Args a{vval,       vact,        src_s,   eid_s,   n_edges,     w,
+               offsets,    out,         n_out,   chunks,  n_chunks,    chunk_len,
+               split_bins, split_first, n_split, partial, n_rows,      vval_stride,
+               vact_stride, w_stride,   static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case kF32: return by_apply<float>(apply, op, a);
     case kI32: return by_apply<int32_t>(apply, op, a);

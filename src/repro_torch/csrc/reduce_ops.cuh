@@ -4,11 +4,12 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace repro {
 
 enum Dtype : int { kF32 = 0, kI32 = 1 };
-enum ReduceOp : int { kSum = 0, kMin = 1, kMax = 2 };
+enum ReduceOp : int { kSum = 0, kMin = 1, kMax = 2, kOr = 3 };
 enum ApplyOp : int { kAdd = 0, kMul = 1, kSrc = 2 };
 
 // Float arithmetic goes through the _rn intrinsics so that nvcc never
@@ -53,6 +54,12 @@ template <typename T> struct Reduce<T, kMax> {
   static __device__ __forceinline__ T identity() { return Limits<T>::lowest(); }
   static __device__ __forceinline__ T apply(T a, T b) { return b > a ? b : a; }
 };
+// Bitwise OR, int32 only (multi-source BFS ORs 32 frontier bits a word);
+// no float instantiation exists, and each launcher's by_op refuses one.
+template <> struct Reduce<int32_t, kOr> {
+  static __device__ __forceinline__ int32_t identity() { return 0; }
+  static __device__ __forceinline__ int32_t apply(int32_t a, int32_t b) { return a | b; }
+};
 
 // Fixed-shape tree over each group of WIDTH lanes (the whole warp by
 // default); the group's first lane ends with its result. Every lane of the
@@ -75,10 +82,12 @@ __device__ __forceinline__ int32_t clamp_offset(int32_t off, int64_t n) {
 }
 
 constexpr int kThreads = 256;  // 8 warps a block, one bin per warp at a time
+constexpr int64_t kMaxRows = 65535;  // rows go on gridDim.y
 
-// Blocks for a warp-per-bin grid-stride launch: enough to fill the card
-// several times over, never more than there are bins.
-inline int grid_for(int64_t n_bins) {
+// Blocks of each row for a warp-per-item grid-stride launch of `rows` rows
+// (blockIdx.y): enough to fill the card several times over in all, never
+// more than there are items in a row.
+inline int grid_for(int64_t n_bins, int64_t rows = 1) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -88,7 +97,8 @@ inline int grid_for(int64_t n_bins) {
   }
   const int64_t warps = kThreads / 32;
   int64_t blocks = (n_bins + warps - 1) / warps;
-  const int64_t cap = static_cast<int64_t>(sms) * 16;
+  int64_t cap = static_cast<int64_t>(sms) * 16 / (rows < 1 ? 1 : rows);
+  if (cap < 1) cap = 1;
   if (blocks > cap) blocks = cap;
   return static_cast<int>(blocks < 1 ? 1 : blocks);
 }

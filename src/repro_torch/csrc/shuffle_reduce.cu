@@ -1,5 +1,7 @@
 // Shuffle+Reduce (paper Fig. 7(c)) for Hopper: reduce a bin-sorted update
-// stream into n_out bins with +, min or max, over float32 or int32.
+// stream into n_out bins with +, min or max over float32 or int32, or with
+// bitwise | over int32; one stream or a batch of K streams (rows) that share
+// the bin layout.
 //
 // Replaces the Pallas TPU kernel kernels/shuffle_reduce.py
 // (shuffle_reduce_sorted), which ran a (partitions x tiles) grid with a
@@ -40,7 +42,16 @@
 // Which lanes sum a bin, and in what order, follows from the bin's length
 // alone, never from where it lies in the stream, and nothing is atomic: a
 // float + gives the same bits on every run, and a bin gives the same bits
-// wherever it sits (batched streams can match sequential ones).
+// wherever it sits.
+//
+// Batches: K rows of values (a query each) share the offsets and the work
+// list, so the rows go on gridDim.y and each block walks one row's items
+// exactly as a one-row launch walks them: row r reads its values at
+// vals + r * vals_stride (a stride of 0 shares one row) and writes bins
+// r * n_out .. and partials r * n_chunks ... Every row folds every bin in
+// the one-row order, so a batched float + gives each row the bits of its
+// own one-row launch. The graph's arrays are never copied K times, and the
+// 32-bit guard below stays a bound on one row's stream.
 //
 // The list comes from the caller, so no launch reads a size back to the
 // host: a bind builds one for its full stream once; a one-bin stream knows
@@ -112,12 +123,21 @@ __device__ __forceinline__ T walk_bins(const T* __restrict__ vals, unsigned m, i
   return acc;
 }
 
-template <typename T, int OP>
+// ROWS: a batched launch, row blockIdx.y. A one-row launch (ROWS false)
+// leaves the pointer parameters as they are (a row's offset pointers would
+// live in registers, which the one-row kernel would pay for in time).
+template <typename T, int OP, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
-shuffle_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
+shuffle_reduce_kernel(const T* __restrict__ vals, int64_t vals_stride, int64_t n_vals,
                       const int32_t* __restrict__ offsets, T* __restrict__ out, int64_t n_out,
                       const int2* __restrict__ chunks, int64_t n_chunks, int32_t split_len,
                       T* __restrict__ partial) {
+  if constexpr (ROWS) {
+    const int64_t row = blockIdx.y;
+    vals += row * vals_stride;
+    out += row * n_out;
+    partial += row * n_chunks;  // null with no chunks: row * 0
+  }
   const int lane = threadIdx.x & 31;
   const int64_t warps_per_block = blockDim.x >> 5;
   const int64_t n_warps = static_cast<int64_t>(gridDim.x) * warps_per_block;
@@ -167,6 +187,8 @@ shuffle_reduce_fold_kernel(const T* __restrict__ partial, int64_t n_chunks,
                            const int32_t* __restrict__ split_first, int64_t n_split,
                            int32_t split_len, T* __restrict__ out, int64_t n_out) {
   __shared__ T staged[kThreads / 32][kFoldTile];
+  partial += static_cast<int64_t>(blockIdx.y) * n_chunks;  // row blockIdx.y
+  out += static_cast<int64_t>(blockIdx.y) * n_out;
   const int lane = threadIdx.x & 31;
   T* tile = staged[threadIdx.x >> 5];
   const int64_t j = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -229,6 +251,8 @@ shuffle_reduce_list_kernel(const int32_t* __restrict__ offsets, int64_t n_out,
 
 struct Args {
   const void* vals;
+  int64_t vals_stride;
+  int64_t n_rows;
   int64_t n_vals;
   const void* offsets;
   void* out;
@@ -246,15 +270,20 @@ struct Args {
 template <typename T, int OP>
 static cudaError_t launch(const Args& a) {
   const int64_t n_items = a.n_chunks + (a.n_out + 31) / 32;
-  shuffle_reduce_kernel<T, OP><<<grid_for(n_items), kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.vals), a.n_vals, static_cast<const int32_t*>(a.offsets),
+  const dim3 grid(grid_for(n_items, a.n_rows), static_cast<unsigned>(a.n_rows));
+  auto kernel = a.n_rows > 1 ? shuffle_reduce_kernel<T, OP, true>
+                             : shuffle_reduce_kernel<T, OP, false>;
+  kernel<<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.vals), a.vals_stride, a.n_vals,
+      static_cast<const int32_t*>(a.offsets),
       static_cast<T*>(a.out), a.n_out, static_cast<const int2*>(a.chunks), a.n_chunks,
       a.split_len, static_cast<T*>(a.partial));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 0) return err;
   const int64_t blocks = (a.n_split * 32 + kThreads - 1) / kThreads;
-  shuffle_reduce_fold_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                      a.stream>>>(
+  shuffle_reduce_fold_kernel<T, OP><<<dim3(static_cast<unsigned>(blocks),
+                                           static_cast<unsigned>(a.n_rows)),
+                                      kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.partial), a.n_chunks, static_cast<const int32_t*>(a.offsets),
       a.n_vals, static_cast<const int32_t*>(a.split_bins),
       static_cast<const int32_t*>(a.split_first), a.n_split, a.split_len,
@@ -268,24 +297,30 @@ static cudaError_t by_op(int op, const Args& a) {
     case kSum: return launch<T, kSum>(a);
     case kMin: return launch<T, kMin>(a);
     case kMax: return launch<T, kMax>(a);
+    case kOr:
+      if constexpr (std::is_same<T, int32_t>::value) return launch<T, kOr>(a);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace repro
 
-// vals[n_vals] sorted by bin, offsets[n_out + 1] int32 (offsets outside
-// [0, n_vals] are clamped into it, so no bin reads past the stream),
-// out[n_out]. The work list over the same offsets: chunks[n_chunks] int32
-// pairs (bin, chunk number), a bin < 0 marking an unused slot;
-// split_bins[n_split] (-1: unused) and split_first[n_split]: split bin j's
-// chunk c sits in slot split_first[j] + c; partial[n_chunks] is scratch of
-// out's type. Every bin longer than split_len must be listed with all its
+// n_rows rows of vals[n_vals] sorted by bin, row r at vals + r *
+// vals_stride (0: one row shared); offsets[n_out + 1] int32 (offsets
+// outside [0, n_vals] are clamped into it, so no bin reads past the
+// stream), out[n_rows, n_out]. The work list over the same offsets:
+// chunks[n_chunks] int32 pairs (bin, chunk number), a bin < 0 marking an
+// unused slot; split_bins[n_split] (-1: unused) and split_first[n_split]:
+// split bin j's chunk c sits in slot split_first[j] + c;
+// partial[n_rows, n_chunks] is scratch of out's type. Offsets and list
+// serve every row. Every bin longer than split_len must be listed with all its
 // chunks; the list's indices are clamped, so a wrong list gives wrong bins
 // but touches nothing out of bounds. dtype and op are the codes of
-// reduce_ops.cuh. Launches one kernel, two when the list names a bin;
+// reduce_ops.cuh (| takes int32 only). Launches one kernel, two when the list names a bin;
 // returns cudaGetLastError() after the launches (0 on success).
-extern "C" int repro_shuffle_reduce(const void* vals, int64_t n_vals, const void* offsets,
+extern "C" int repro_shuffle_reduce(const void* vals, int64_t n_rows, int64_t vals_stride,
+                                    int64_t n_vals, const void* offsets,
                                     void* out, int64_t n_out, const void* chunks,
                                     int64_t n_chunks, const void* split_bins,
                                     const void* split_first, int64_t n_split, int split_len,
@@ -294,10 +329,11 @@ extern "C" int repro_shuffle_reduce(const void* vals, int64_t n_vals, const void
   if (n_out <= 0) return cudaSuccess;
   if (split_len <= 0 || n_chunks < 0 || n_split < 0 || (n_chunks > 0 && partial == nullptr))
     return cudaErrorInvalidValue;
+  if (n_rows < 1 || n_rows > kMaxRows || vals_stride < 0) return cudaErrorInvalidValue;
   if (n_vals > INT32_MAX - 32 * kWarpSteps) return cudaErrorInvalidValue;  // 32-bit indices
-  const Args a{vals,   n_vals,     offsets,     out,     n_out,
-               chunks, n_chunks,   split_bins,  split_first, n_split,
-               split_len, partial, static_cast<cudaStream_t>(stream)};
+  const Args a{vals,   vals_stride, n_rows,     n_vals,      offsets, out,
+               n_out,  chunks,      n_chunks,   split_bins,  split_first,
+               n_split, split_len,  partial,    static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case kF32: return by_op<float>(op, a);
     case kI32: return by_op<int32_t>(op, a);

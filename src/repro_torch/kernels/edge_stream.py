@@ -11,15 +11,25 @@ mask once per launch, and the dst-sorted edge lists and their work list
 (:func:`.shuffle_reduce.split_bins`: bins longer than ``SPLIT_LEN`` cut
 into chunks of their own) once per bind.
 
-Two entry points:
+Entry points, each with a batched twin over ``K`` rows (queries, or the
+32-source words of multi-source BFS) that share the edges, named after
+the reference's ``kernels/ops.py``:
 
 * :func:`edge_stream_gather` — the kernel itself, in its fused-gather
   form (what the engine's full-stream edge launches call).
+  :func:`edge_stream_gather_batched` takes ``[K, V]`` vertex operands and
+  ``[E]`` (shared, as a graph's weights are) or ``[K, E]`` weights over one
+  set of sorted edges, offsets and work list: one launch, the rows on the
+  grid, each row folded as its own one-row launch folds it.
 * :func:`edge_stream` — the reference's shape ``(src_vals, weights, dst,
   active)`` per edge: a stable sort by ``dst`` is the routing step (and
   the work list is built anew on every call), and the same kernel runs
   with an identity gather (vertex operand = the per-edge stream, indexed
-  by the sort permutation).
+  by the sort permutation). :func:`edge_stream_batched` takes ``[K, E]``
+  source values over one ``dst``, with ``weights`` and ``active`` shared or
+  per row.
+
+Reduce ``"|"`` (bitwise OR, int32 only) is the multi-source BFS step.
 
 A CPU tensor takes the plain version in :mod:`.ref`; a CUDA tensor
 launches the kernel or raises.
@@ -32,8 +42,8 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .shuffle_reduce import (DTYPE_CODES, OP_CODES, SPLIT_LEN, BinSplit, bin_offsets,
-                             split_bins)
+from .shuffle_reduce import (DTYPE_CODES, MAX_ROWS, OP_CODES, SPLIT_LEN, BinSplit,
+                             bin_offsets, check_op, rows_of, split_bins)
 
 #: calls that launched the CUDA kernels since the last reset (set it to 0 to
 #: reset): one per call, also when a split bin adds the combining kernel
@@ -42,11 +52,12 @@ LAUNCHES = 0
 APPLY_CODES = {"add": 0, "mul": 1, "src": 2}
 
 # vval, vact, src_s, eid_s, n_edges, w, offsets, out, n_out, chunks, n_chunks,
-# chunk_len, split_bins, split_first, n_split, partial, dtype, apply, op, stream
+# chunk_len, split_bins, split_first, n_split, partial, n_rows, vval_stride,
+# vact_stride, w_stride, dtype, apply, op, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
              + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
              + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int64] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -76,20 +87,67 @@ def edge_stream_gather(
     ``split`` is the work list :func:`.shuffle_reduce.split_bins` built from
     these ``offsets`` (the engine builds it once per bind); without it a
     CUDA call builds it here. The plain version on the CPU needs none."""
-    global LAUNCHES
-    if apply_op not in APPLY_CODES:
-        raise ValueError(f"edge_stream: unsupported apply {apply_op!r}")
-    if reduce_op not in OP_CODES:
-        raise ValueError(f"edge_stream: unsupported reduce {reduce_op!r}")
-    weighted = apply_op != "src"
-    if weighted and (eid_s is None or weights is None):
-        raise ValueError(f"edge_stream: apply {apply_op!r} needs eid_s and weights")
-    if weighted and eid_s.shape != src_s.shape:
-        raise ValueError("edge_stream: eid_s must be shaped like src_s")
-    n_out = offsets.shape[0] - 1
+    _check(vval, vact, src_s, eid_s, weights, apply_op, reduce_op)
+    if vval.dim() != 1 or vact.shape != vval.shape:
+        raise ValueError("edge_stream: vval and vact must be [V]")
     if vval.device.type == "cpu":
         return ref.edge_stream_gather_ref(vval, vact, src_s, eid_s, weights, offsets,
                                           apply_op, reduce_op)
+    return _launch(vval[None], vact[None], src_s, eid_s,
+                   None if weights is None else weights[None], offsets, apply_op, reduce_op,
+                   split)[0]
+
+
+def edge_stream_gather_batched(
+    vval: torch.Tensor,
+    vact: torch.Tensor,
+    src_s: torch.Tensor,
+    eid_s: Optional[torch.Tensor],
+    weights: Optional[torch.Tensor],
+    offsets: torch.Tensor,
+    apply_op: str,
+    reduce_op: str,
+    split: Optional[BinSplit] = None,
+) -> torch.Tensor:
+    """:func:`edge_stream_gather` of every row of ``[K, V]`` vertex values:
+    ``[K, len(offsets) - 1]`` in one launch. ``vact`` is ``[V]`` (shared by
+    the rows) or ``[K, V]``; ``weights`` ``[E]`` (shared) or ``[K, E]``.
+    Rows must each be contiguous; a row stride of 0 (an expanded row)
+    shares one row. Row ``k`` has the bits of ``edge_stream_gather(vval[k],
+    ...)``: each row folds each bin in the one-row order."""
+    _check(vval, vact, src_s, eid_s, weights, apply_op, reduce_op)
+    if vval.dim() != 2 or vact.shape[-1] != vval.shape[1] or vact.dim() not in (1, 2):
+        raise ValueError(f"edge_stream: vval must be [K, V] and vact [V] or [K, V], got "
+                         f"{tuple(vval.shape)} and {tuple(vact.shape)}")
+    if vval.device.type == "cpu":
+        return ref.edge_stream_gather_batched_ref(vval, vact, src_s, eid_s, weights, offsets,
+                                                  apply_op, reduce_op)
+    k = vval.shape[0]
+    vact = vact.expand(k, -1) if vact.dim() == 1 else vact
+    if weights is not None and weights.dim() == 1:
+        weights = weights.expand(k, -1)
+    return _launch(vval, vact, src_s, eid_s, weights, offsets, apply_op, reduce_op, split)
+
+
+def _check(vval, vact, src_s, eid_s, weights, apply_op: str, reduce_op: str) -> None:
+    if apply_op not in APPLY_CODES:
+        raise ValueError(f"edge_stream: unsupported apply {apply_op!r}")
+    check_op(reduce_op, vval.dtype, "edge_stream")
+    if apply_op != "src":
+        if eid_s is None or weights is None:
+            raise ValueError(f"edge_stream: apply {apply_op!r} needs eid_s and weights")
+        if eid_s.shape != src_s.shape:
+            raise ValueError("edge_stream: eid_s must be shaped like src_s")
+
+
+def _launch(vval, vact, src_s, eid_s, weights, offsets, apply_op: str, reduce_op: str,
+            split: Optional[BinSplit]) -> torch.Tensor:
+    """One launch of the kernel over the ``K`` rows of ``vval``, ``vact``
+    and ``weights`` (each ``[K, n]``, any row stride)."""
+    global LAUNCHES
+    weighted = apply_op != "src"
+    k = vval.shape[0]
+    n_out = offsets.shape[0] - 1
     tensors = [vval, vact, src_s, offsets] + ([eid_s, weights] if weighted else [])
     if vval.device.type != "cuda" or any(t.device != vval.device for t in tensors):
         raise ValueError("edge_stream: every tensor must be on one CUDA device")
@@ -99,28 +157,36 @@ def edge_stream_gather(
         raise TypeError("edge_stream: weights must have the vertex operand's dtype")
     if vact.dtype != torch.bool or vact.shape != vval.shape:
         raise TypeError("edge_stream: vact must be a bool mask shaped like vval")
+    if weighted and weights.shape[0] != k:
+        raise ValueError("edge_stream: weights must have vval's rows")
     if any(t.dtype != torch.int32 for t in (src_s, offsets, *([eid_s] if weighted else []))):
         raise TypeError("edge_stream: src_s, eid_s and offsets must be int32")
+    if not 1 <= k <= MAX_ROWS:
+        raise ValueError(f"edge_stream: {k} rows, the kernel takes 1 to {MAX_ROWS}")
     if split is None:
         split = split_bins(offsets, src_s.shape[0])
     lists = (split.chunks, split.bins, split.first)
     if any(t.device != vval.device or t.dtype != torch.int32 for t in lists):
         raise TypeError("edge_stream: the work list must be int32 on the operands' device")
-    vval, vact, src_s, offsets = (t.contiguous() for t in (vval, vact, src_s, offsets))
+    (vval, vval_stride), (vact, vact_stride) = rows_of(vval), rows_of(vact)
+    src_s, offsets = src_s.contiguous(), offsets.contiguous()
     chunks, bins, first = (t.contiguous() for t in lists)
     n_chunks = chunks.shape[0]
     eid_p = w_p = None
+    w_stride = 0
     if weighted:
-        eid_s, weights = eid_s.contiguous(), weights.contiguous()
+        eid_s = eid_s.contiguous()
+        weights, w_stride = rows_of(weights)
         eid_p, w_p = eid_s.data_ptr(), weights.data_ptr()
-    out = torch.empty(n_out, dtype=vval.dtype, device=vval.device)
+    out = torch.empty(k, n_out, dtype=vval.dtype, device=vval.device)
     if n_out == 0:
         return out
-    partial = torch.empty(n_chunks, dtype=vval.dtype, device=vval.device)
+    partial = torch.empty(k, n_chunks, dtype=vval.dtype, device=vval.device)
     rc = _lib()(vval.data_ptr(), vact.data_ptr(), src_s.data_ptr(), eid_p, src_s.shape[0],
                 w_p, offsets.data_ptr(), out.data_ptr(), n_out, chunks.data_ptr(), n_chunks,
                 SPLIT_LEN, bins.data_ptr(), first.data_ptr(), bins.shape[0],
-                partial.data_ptr(), DTYPE_CODES[vval.dtype], APPLY_CODES[apply_op],
+                partial.data_ptr(), k, vval_stride, vact_stride, w_stride,
+                DTYPE_CODES[vval.dtype], APPLY_CODES[apply_op],
                 OP_CODES[reduce_op], torch.cuda.current_stream(vval.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"edge_stream kernel launch failed: CUDA error {rc}")
@@ -147,3 +213,30 @@ def edge_stream(
     perm = perm.to(torch.int32)
     return edge_stream_gather(src_vals, active, perm, perm, weights,
                               bin_offsets(dst_s, n_out), apply_op, reduce_op)
+
+
+def edge_stream_batched(
+    src_vals: torch.Tensor,
+    weights: torch.Tensor,
+    dst: torch.Tensor,
+    active: torch.Tensor,
+    n_out: int,
+    apply_op: str = "add",
+    reduce_op: str = "min",
+) -> torch.Tensor:
+    """:func:`edge_stream` of each row of ``[K, E]`` source values over one
+    ``dst`` ``[E]``: ``[K, n_out]`` (the reference's
+    ``ops.edge_stream_batched``, with the destinations shared). ``weights``
+    and ``active`` are ``[E]`` (shared by the rows) or ``[K, E]``. ``dst`` is
+    routed once and the rows go through one batched launch."""
+    if src_vals.dim() != 2 or dst.dim() != 1:
+        raise ValueError(f"edge_stream_batched: src_vals must be [K, E] and dst [E], got "
+                         f"{tuple(src_vals.shape)} and {tuple(dst.shape)}")
+    if src_vals.device.type == "cpu":
+        check_op(reduce_op, src_vals.dtype, "edge_stream")
+        return ref.edge_stream_batched_ref(src_vals, weights, dst, active, n_out, apply_op,
+                                           reduce_op)
+    dst_s, perm = torch.sort(dst, stable=True)
+    perm = perm.to(torch.int32)
+    return edge_stream_gather_batched(src_vals, active, perm, perm, weights,
+                                      bin_offsets(dst_s, n_out), apply_op, reduce_op)

@@ -5,6 +5,11 @@ Each function here defines what its kernel computes. The wrappers in
 :mod:`.moe_dispatch` run these for tensors that lie on the CPU; the tests and ``chip_smoke.py`` hold each kernel against
 its plain version. They repeat the kernel's arithmetic and are no
 yardstick of speed.
+
+The batched forms (``*_batched_ref``) reduce ``K`` rows over one bin
+layout: row ``k``'s bins are ``k * n_out .. (k + 1) * n_out - 1`` of one
+flattened scatter, which keeps each bin's updates in stream order, so a
+row gives the same bits as the one-row version on the CPU.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ from typing import Optional
 
 import torch
 
-_OPS = ("+", "min", "max")
+_OPS = ("+", "min", "max", "|")
 _APPLY = ("add", "mul", "src")
 
 
@@ -29,7 +34,24 @@ def identity(op: str, dtype: torch.dtype):
         if dtype.is_floating_point:
             return float("-inf")
         return torch.iinfo(dtype).min
+    if op == "|":
+        if dtype != torch.int32:
+            raise TypeError(f"the bitwise-OR reduce takes int32, not {dtype}")
+        return 0
     raise ValueError(f"no identity for reduce op {op!r}")
+
+
+def _scatter_or(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[idx[i]] |= vals[i]``. PyTorch has no OR scatter-reduce, so each
+    of the 32 bits is reduced on its own with ``amax`` (exact) and the bits
+    are packed again."""
+    idx = idx.long()
+    packed = torch.zeros_like(out)
+    for b in range(32):
+        bit = torch.bitwise_right_shift(vals, b) & 1
+        red = (torch.bitwise_right_shift(out, b) & 1).scatter_reduce_(0, idx, bit, "amax")
+        packed |= torch.bitwise_left_shift(red, b)
+    return out.copy_(packed)
 
 
 def _scatter(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, op: str):
@@ -37,6 +59,8 @@ def _scatter(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, op: str):
         return out.index_add_(0, idx, vals)
     if op in ("min", "max"):
         return out.scatter_reduce_(0, idx.long(), vals, "a" + op, include_self=True)
+    if op == "|":
+        return _scatter_or(out, idx, vals)
     raise ValueError(op)
 
 
@@ -78,6 +102,36 @@ def segment_reduce_ref(vals_sorted: torch.Tensor, offsets: torch.Tensor,
     ids = bin_ids(offsets)
     seg = vals_sorted[lo:lo + ids.shape[0]]
     return shuffle_reduce_ref(seg, ids, n_out, op)
+
+
+def row_bins(ids: torch.Tensor, k: int, n_out: int) -> torch.Tensor:
+    """Row ``r``'s bin ``b`` -> ``r * n_out + b`` for ``ids`` of ``[n]``
+    (shared by the rows) or ``[k, n]``; a bin outside ``[0, n_out)`` maps to
+    -1, so that it is dropped and never lands in the next row's bins."""
+    ids = torch.broadcast_to(ids, (k, ids.shape[-1]))
+    base = torch.arange(k, dtype=ids.dtype, device=ids.device)[:, None] * n_out
+    return torch.where((ids >= 0) & (ids < n_out), ids + base, -1).reshape(-1)
+
+
+def shuffle_reduce_batched_ref(vals: torch.Tensor, idx: torch.Tensor, n_out: int,
+                               op: str) -> torch.Tensor:
+    """Row ``k`` of ``[K, N]`` values scatter-reduced into ``n_out`` bins by
+    ``idx`` (``[N]`` shared by the rows, or ``[K, N]``): ``[K, n_out]``."""
+    k = vals.shape[0]
+    return shuffle_reduce_ref(vals.reshape(-1), row_bins(idx, k, n_out), k * n_out,
+                              op).view(k, n_out)
+
+
+def segment_reduce_batched_ref(vals_sorted: torch.Tensor, offsets: torch.Tensor,
+                               op: str) -> torch.Tensor:
+    """:func:`segment_reduce_ref` of each row of ``[K, N]`` values over one
+    ``offsets``: ``[K, n_out]``."""
+    offsets = offsets.clamp(0, vals_sorted.shape[1])
+    n_out = offsets.shape[0] - 1
+    lo = int(offsets[0]) if n_out > 0 else 0
+    ids = bin_ids(offsets)
+    seg = vals_sorted[:, lo:lo + ids.shape[0]]
+    return shuffle_reduce_batched_ref(seg, ids, n_out, op)
 
 
 def _apply(apply_op: str, sv: torch.Tensor, w):
@@ -124,6 +178,30 @@ def edge_stream_gather_ref(
     upd = _apply(apply_op, sv, w)
     upd = torch.where(vact[src_s], upd, torch.full_like(upd, identity(reduce_op, upd.dtype)))
     return segment_reduce_ref(upd, offsets, reduce_op)
+
+
+def edge_stream_batched_ref(src_vals, weights, dst, active, n_out: int, apply_op: str,
+                            reduce_op: str) -> torch.Tensor:
+    """:func:`edge_stream_ref` of each row of ``[K, E]`` source values;
+    ``weights`` and ``active`` are ``[E]`` (shared) or ``[K, E]``, ``dst``
+    ``[E]``."""
+    upd = _apply(apply_op, src_vals, weights)
+    upd = torch.where(active, upd, torch.full_like(upd, identity(reduce_op, upd.dtype)))
+    return shuffle_reduce_batched_ref(upd, dst, n_out, reduce_op)
+
+
+def edge_stream_gather_batched_ref(vval, vact, src_s, eid_s, weights, offsets, apply_op: str,
+                                   reduce_op: str) -> torch.Tensor:
+    """:func:`edge_stream_gather_ref` of each row of ``[K, V]`` vertex
+    values; ``vact`` is ``[V]`` (shared) or ``[K, V]``, ``weights`` ``[E]``
+    (shared) or ``[K, E]``; the sorted edges and ``offsets`` serve every
+    row."""
+    sv = vval.index_select(-1, src_s)
+    w = weights.index_select(-1, eid_s) if apply_op != "src" else None
+    upd = _apply(apply_op, sv, w)
+    act = torch.broadcast_to(vact.index_select(-1, src_s), upd.shape)
+    upd = torch.where(act, upd, torch.full_like(upd, identity(reduce_op, upd.dtype)))
+    return segment_reduce_batched_ref(upd, offsets, reduce_op)
 
 
 def flash_attention_ref(

@@ -9,15 +9,23 @@ chunks, folded in chunk order) and the rest of the bins in groups of 32,
 short bins a lane each; there are no atomics, so float sums are the same
 bits on every run. The CUDA source describes the design.
 
-Two entry points:
+Entry points, each with a batched twin over ``K`` rows (queries) that
+share one bin layout, named after the reference's ``kernels/ops.py``:
 
 * :func:`shuffle_reduce_sorted` — the kernel itself: a stream already
   sorted by bin plus ``offsets[n_out + 1]``. The engine's full-stream
   commits call it with the offsets and the work list its bind built.
+  :func:`shuffle_reduce_sorted_batched` takes ``[K, N]`` values (a row
+  stride of 0 shares one row) over the same offsets and list: one launch,
+  the rows on the grid, each row folded as its own one-row launch folds
+  it.
 * :func:`shuffle_reduce` — unsorted ``(vals, idx)``: a stable sort plus
   ``searchsorted`` is the routing step (the reference wrapper sorts
   outside its kernel too), then the kernel. Indices outside
-  ``[0, n_out)`` are dropped.
+  ``[0, n_out)`` are dropped. :func:`shuffle_reduce_batched` takes ``[K,
+  N]`` values: an index shared by the rows is routed once; an index that
+  differs per row is routed per row, bin ``b`` of row ``k`` at ``k * n_out
+  + b`` of one stream.
 
 Every route hands the kernel a work list without reading anything back to
 the host: a bind's full stream its :func:`split_bins` list, a broadcast
@@ -40,14 +48,15 @@ from . import _build, ref
 LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
-OP_CODES = {"+": 0, "min": 1, "max": 2}
+OP_CODES = {"+": 0, "min": 1, "max": 2, "|": 3}  # "|": bitwise OR, int32 only
+MAX_ROWS = 65535  # rows of one batched launch (the grid's y dimension)
 
-# vals, n_vals, offsets, out, n_out, chunks, n_chunks, split_bins, split_first,
-# n_split, split_len, partial, dtype, op, stream
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# vals, n_rows, vals_row_stride, n_vals, offsets, out, n_out, chunks, n_chunks,
+# split_bins, split_first, n_split, split_len, partial, dtype, op, stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # offsets, n_out, n_vals, split_len, chunks, split_bins, split_first, n_windows, stream
 _LIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -186,6 +195,25 @@ def one_bin_split(idx: torch.Tensor, n_stream: int) -> Optional[BinSplit]:
     return BinSplit(chunks, b, torch.arange(0, 2 * k, k, dtype=torch.int32, device=dev))
 
 
+def check_op(op: str, dtype: torch.dtype, kernel: str) -> None:
+    """Raise on a reduce op the kernels do not take for ``dtype``."""
+    if op not in OP_CODES:
+        raise ValueError(f"{kernel}: unsupported op {op!r}")
+    if op == "|" and dtype != torch.int32:
+        raise TypeError(f"{kernel}: the bitwise-OR reduce takes int32, not {dtype}")
+
+
+def rows_of(t: torch.Tensor):
+    """``[K, n]`` operand ``t`` with each row contiguous (copied only where
+    a row is not) and its row stride: 0 for one row expanded over all ``K``
+    (nothing copied), as a kernel that takes a batch of rows reads it."""
+    if t.dim() != 2:
+        raise ValueError(f"expected a [K, n] operand, got shape {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        t = t.contiguous()
+    return t, (t.stride(0) if t.shape[0] > 1 else t.shape[1])
+
+
 def shuffle_reduce_sorted(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,
                           op: str, split: Optional[BinSplit] = None) -> torch.Tensor:
     """Reduce bin ``b`` = ``vals[offsets[b]:offsets[b+1]]`` for every
@@ -196,29 +224,58 @@ def shuffle_reduce_sorted(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,
     (:func:`split_bins`, :func:`one_bin_split`); without one a CUDA call
     builds :func:`launch_split`'s on the device. The plain version on the
     CPU needs none."""
-    global LAUNCHES
-    if op not in OP_CODES:
-        raise ValueError(f"shuffle_reduce: unsupported op {op!r}")
+    check_op(op, vals.dtype, "shuffle_reduce")
     if vals.dim() != 1:
         raise ValueError(f"shuffle_reduce: vals must be 1-d, got {tuple(vals.shape)}")
+    if vals.device.type == "cpu":
+        _check_offsets(offsets, n_out)
+        return ref.segment_reduce_ref(vals, offsets, op)
+    return _launch(vals.contiguous()[None], offsets, n_out, op, split)[0]
+
+
+def shuffle_reduce_sorted_batched(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,
+                                  op: str, split: Optional[BinSplit] = None) -> torch.Tensor:
+    """:func:`shuffle_reduce_sorted` of every row of ``[K, N]`` values over
+    one ``offsets`` and work list: ``[K, n_out]`` in one launch. Rows must
+    each be contiguous; a row stride of 0 (an expanded row) shares one row
+    of values. Row ``k`` has the bits of ``shuffle_reduce_sorted(vals[k],
+    ...)``: each row folds each bin in the one-row order."""
+    check_op(op, vals.dtype, "shuffle_reduce")
+    if vals.dim() != 2:
+        raise ValueError(f"shuffle_reduce: vals must be [K, N], got {tuple(vals.shape)}")
+    if vals.device.type == "cpu":
+        _check_offsets(offsets, n_out)
+        return ref.segment_reduce_batched_ref(vals, offsets, op)
+    return _launch(vals, offsets, n_out, op, split)
+
+
+def _check_offsets(offsets: torch.Tensor, n_out: int) -> None:
     if offsets.shape != (n_out + 1,):
         raise ValueError(f"offsets must be [n_out + 1] = [{n_out + 1}], "
                          f"got {tuple(offsets.shape)}")
-    if vals.device.type == "cpu":
-        return ref.segment_reduce_ref(vals, offsets, op)
+
+
+def _launch(vals: torch.Tensor, offsets: torch.Tensor, n_out: int, op: str,
+            split: Optional[BinSplit]) -> torch.Tensor:
+    """One launch of the kernel over the ``K`` rows of ``vals`` ``[K, N]``."""
+    global LAUNCHES
+    _check_offsets(offsets, n_out)
     if vals.device.type != "cuda" or offsets.device != vals.device:
         raise ValueError("shuffle_reduce: vals and offsets must be on one CUDA device")
     if vals.dtype not in DTYPE_CODES:
         raise TypeError(f"shuffle_reduce: unsupported dtype {vals.dtype}")
     if offsets.dtype != torch.int32:
         raise TypeError("shuffle_reduce: offsets must be int32")
-    vals = vals.contiguous()
+    k, n = vals.shape
+    if not 1 <= k <= MAX_ROWS:
+        raise ValueError(f"shuffle_reduce: {k} rows, the kernel takes 1 to {MAX_ROWS}")
+    vals, stride = rows_of(vals)
     offsets = offsets.contiguous()
-    out = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
+    out = torch.empty(k, n_out, dtype=vals.dtype, device=vals.device)
     if n_out == 0:
         return out
-    if split is None and split_windows(vals.shape[0]):
-        split = launch_split(offsets, vals.shape[0])
+    if split is None and split_windows(n):
+        split = launch_split(offsets, n)
     ptrs, n_chunks, n_split = (None, None, None), 0, 0
     partial = None
     if split is not None:
@@ -228,8 +285,8 @@ def shuffle_reduce_sorted(vals: torch.Tensor, offsets: torch.Tensor, n_out: int,
         lists = tuple(t.contiguous() for t in lists)
         ptrs = tuple(t.data_ptr() for t in lists)
         n_chunks, n_split = lists[0].shape[0], lists[1].shape[0]
-        partial = torch.empty(n_chunks, dtype=vals.dtype, device=vals.device)
-    rc = _lib()(vals.data_ptr(), vals.shape[0], offsets.data_ptr(), out.data_ptr(), n_out,
+        partial = torch.empty(k, n_chunks, dtype=vals.dtype, device=vals.device)
+    rc = _lib()(vals.data_ptr(), k, stride, n, offsets.data_ptr(), out.data_ptr(), n_out,
                 ptrs[0], n_chunks, ptrs[1], ptrs[2], n_split, SPLIT_LEN,
                 None if partial is None else partial.data_ptr(),
                 DTYPE_CODES[vals.dtype], OP_CODES[op],
@@ -265,3 +322,31 @@ def shuffle_reduce(vals: torch.Tensor, idx: torch.Tensor, n_out: int,
     if perm is None:
         return shuffle_reduce_sorted(vals, offsets, n_out, op, one_bin_split(idx, idx.shape[0]))
     return shuffle_reduce_sorted(vals[perm], offsets, n_out, op)
+
+
+def shuffle_reduce_batched(vals: torch.Tensor, idx: torch.Tensor, n_out: int,
+                           op: str = "+") -> torch.Tensor:
+    """Scatter-reduce each row of ``[K, N]`` values into ``n_out`` bins:
+    ``[K, n_out]``, row ``k`` equal to ``shuffle_reduce(vals[k], idx[k],
+    n_out, op)`` (the reference's ``ops.shuffle_reduce_batched``).
+
+    ``idx`` ``[N]`` is shared by the rows: routed once (one sort, or none
+    for a broadcast index), then one batched launch over its offsets.
+    ``idx`` ``[K, N]`` differs per row: routed per row, as one stream whose
+    row ``k`` fills bins ``k * n_out ..`` (indices outside ``[0, n_out)``
+    are dropped, never spilled into the next row), then one launch."""
+    if vals.dim() != 2 or idx.shape[-1] != vals.shape[1] or idx.dim() not in (1, 2):
+        raise ValueError(f"shuffle_reduce_batched: vals {tuple(vals.shape)} and idx "
+                         f"{tuple(idx.shape)} do not line up")
+    k = vals.shape[0]
+    if vals.device.type == "cpu":
+        check_op(op, vals.dtype, "shuffle_reduce")
+        return ref.shuffle_reduce_batched_ref(vals, idx, n_out, op)
+    if idx.dim() == 2:
+        flat = ref.row_bins(idx, k, n_out)
+        return shuffle_reduce(vals.reshape(-1), flat, k * n_out, op).view(k, n_out)
+    perm, offsets = route(idx, n_out)
+    if perm is None:
+        return shuffle_reduce_sorted_batched(vals, offsets, n_out, op,
+                                             one_bin_split(idx, idx.shape[0]))
+    return shuffle_reduce_sorted_batched(vals.index_select(1, perm), offsets, n_out, op)

@@ -25,6 +25,7 @@ import torch
 
 import repro_torch
 from repro_torch.algorithms import sources
+from repro_torch.batch import BatchEngine
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.graph import generators
 from repro_torch.kernels import edge_stream as es
@@ -343,6 +344,163 @@ def test_cuda_port_matches_cpu_port(cuda, algo):
             np.testing.assert_array_equal(got.properties[prop], a)
     assert got.host_env == want.host_env
     assert got.stats.kernel_launches == want.stats.kernel_launches
+
+
+# --------------------------------------------------------------------------
+# batched launches: K rows over one bin layout and work list
+# --------------------------------------------------------------------------
+
+
+def _batched_stream(cuda, dtype, k: int, seed: int):
+    """K rows of values over one skewed bin layout (a 2^17-update bin, bins
+    around SPLIT_LEN, empty bins, a short rest) and its work list: float32
+    rows drawn from a normal distribution (so only the one-row fold order
+    gives the one-row bits), int32 rows over all 32 bits."""
+    rng = np.random.default_rng(seed)
+    counts = np.concatenate([[0, 2**17, L - 1, L, L + 1, 0, 2 * L + 1, 64, 65, 257, 0],
+                             rng.integers(0, 40, 5_000)])
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)).to(cuda)
+    n = int(counts.sum())
+    if dtype == torch.float32:
+        vals = rng.normal(size=(k, n)).astype(np.float32)
+    else:
+        vals = rng.integers(-2**31, 2**31, (k, n), dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(vals).to(cuda), offsets, sr.split_bins(offsets, n)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "+"), (torch.float32, "min"),
+                                      (torch.int32, "+"), (torch.int32, "min"),
+                                      (torch.int32, "max"), (torch.int32, "|")])
+def test_cuda_shuffle_reduce_batched_rows_equal_one_row_launches(cuda, dtype, op):
+    """One launch of K rows: each row has the bits of its own one-row launch
+    (float + too), with the bind-style list and the per-launch one, and
+    equals the plain version (exactly where the order cannot matter)."""
+    k = 6
+    vals, offsets, split = _batched_stream(cuda, dtype, k, seed=11)
+    n_out = offsets.shape[0] - 1
+    for lst in (split, None):
+        before = sr.LAUNCHES
+        got = sr.shuffle_reduce_sorted_batched(vals, offsets, n_out, op, lst)
+        assert sr.LAUNCHES == before + 1 and got.shape == (k, n_out)
+        rows = torch.stack([sr.shuffle_reduce_sorted(vals[q], offsets, n_out, op, lst)
+                            for q in range(k)])
+        assert torch.equal(_bits(got), _bits(rows))
+    want = ref.segment_reduce_batched_ref(vals, offsets, op)
+    if dtype == torch.float32 and op == "+":
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_shuffle_reduce_batched_row_stride_zero_and_routes(cuda):
+    """A row expanded over the batch (stride 0) is read in place; the
+    unsorted batched wrapper routes a shared index once and a per-row index
+    per row, each equal to one-row calls."""
+    vals, offsets, split = _batched_stream(cuda, torch.float32, 1, seed=12)
+    n_out = offsets.shape[0] - 1
+    shared = vals[0].expand(5, -1)
+    got = sr.shuffle_reduce_sorted_batched(shared, offsets, n_out, "+", split)
+    one = sr.shuffle_reduce_sorted(vals[0], offsets, n_out, "+", split)
+    assert torch.equal(_bits(got), _bits(one.expand(5, -1)))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    v = torch.randint(-50, 50, (4, 5000), generator=gen, device=cuda, dtype=torch.int32)
+    idx = torch.randint(-3, 700, (4, 5000), generator=gen, device=cuda, dtype=torch.int32)
+    for ix in (idx, idx[0]):
+        for op in ("+", "max", "|"):
+            got = sr.shuffle_reduce_batched(v, ix, 690, op)
+            rows = torch.stack([sr.shuffle_reduce(v[q], ix if ix.dim() == 1 else ix[q], 690, op)
+                                for q in range(4)])
+            assert torch.equal(got, rows), (op, ix.dim())
+            assert torch.equal(got, ref.shuffle_reduce_batched_ref(v, ix, 690, op))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("apply_op", ["add", "mul", "src"])
+def test_cuda_edge_stream_batched_rows_equal_one_row_launches(cuda, dtype, apply_op):
+    """K rows of the vertex side over one skewed edge stream: per-row or
+    shared (stride 0) mask and weights, every op of the dtype (| for
+    int32); each row has its one-row launch's bits (float rows drawn from a
+    normal distribution, so only the one-row fold order gives them)."""
+    vval, vact, src_s, eid_s, w, offsets = _skewed_stream(cuda, dtype, seed=13)
+    k = 4
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if dtype == torch.float32:
+        rows_v = torch.randn(k, vval.shape[0], generator=gen, device=cuda)
+    else:
+        rows_v = torch.randint(-2**31, 2**31 - 1, (k, vval.shape[0]), generator=gen,
+                               device=cuda, dtype=torch.int32)
+    rows_a = torch.stack([vact[torch.randperm(vact.shape[0], generator=gen, device=cuda)]
+                          for _ in range(k)])
+    rows_w = torch.stack([w[torch.randperm(w.shape[0], generator=gen, device=cuda)]
+                          for _ in range(k)])
+    split = sr.split_bins(offsets, src_s.shape[0])
+    eid = None if apply_op == "src" else eid_s
+    for op in ("+", "min", "max") + (("|",) if dtype == torch.int32 else ()):
+        for act, ww in ((rows_a, rows_w), (vact, w)):
+            ww = None if apply_op == "src" else ww
+            before = es.LAUNCHES
+            got = es.edge_stream_gather_batched(rows_v, act, src_s, eid, ww, offsets, apply_op,
+                                                op, split)
+            assert es.LAUNCHES == before + 1
+            rows = torch.stack([es.edge_stream_gather(
+                rows_v[q], act if act.dim() == 1 else act[q], src_s, eid,
+                None if ww is None else (ww if ww.dim() == 1 else ww[q]), offsets, apply_op, op,
+                split) for q in range(k)])
+            assert torch.equal(_bits(got), _bits(rows)), (op, act.dim())
+            if not (dtype == torch.float32 and op == "+"):
+                want = ref.edge_stream_gather_batched_ref(rows_v, act, src_s, eid, ww, offsets,
+                                                          apply_op, op)
+                assert torch.equal(got, want), (op, act.dim())
+
+
+@pytest.mark.gpu
+def test_cuda_or_reduce_rejects_float(cuda):
+    off = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        sr.shuffle_reduce_sorted(torch.ones(2, device=cuda), off, 1, "|")
+    with pytest.raises(TypeError, match="int32"):
+        es.edge_stream_gather_batched(torch.ones(2, 2, device=cuda),
+                                      torch.ones(2, dtype=torch.bool, device=cuda),
+                                      torch.zeros(2, dtype=torch.int32, device=cuda), None, None,
+                                      off, "src", "|")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", list(ALGORITHMS))
+def test_cuda_bind_batch_matches_sequential_on_the_card(cuda, algo):
+    """bind_batch(g).run_many on the card: every lane bit-identical to a
+    sequential run on the card (float sums too: each row folds as its own
+    launch does), BFS_ECP by MS-BFS, and the batch's launches went through
+    the kernels."""
+    g = generators.power_law(200, 1400, seed=5, weighted=True)
+    name, params = ALGORITHMS[algo]
+    prog = repro_torch.compile(getattr(sources, name))
+    rng = np.random.default_rng(8)
+    sets = []
+    for _ in range(40 if algo == "bfs" else 6):
+        p = dict(params)
+        for key in ("root", "source"):
+            if key in p:
+                p[key] = int(rng.integers(0, 200))
+        sets.append(p)
+    sess = prog.bind(g)
+    seq = [sess.run(**p) for p in sets]
+    before = sr.LAUNCHES + es.LAUNCHES
+    bat = prog.bind_batch(g).run_many(sets)
+    assert sr.LAUNCHES + es.LAUNCHES > before
+    assert bat[0].stats.batch_size == len(sets)
+    assert (BatchEngine.MSBFS_NAME in bat[0].stats.kernel_launches) == (algo == "bfs")
+    for a, b in zip(seq, bat):
+        for prop, x in a.properties.items():
+            assert np.array_equal(x.view(np.uint8), b.properties[prop].view(np.uint8)), prop
+        assert a.host_env == b.host_env
 
 
 @pytest.mark.gpu
