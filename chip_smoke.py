@@ -116,6 +116,7 @@ SKEW_HUB = 2**20  # edges (updates) of the one long bin in the skewed cases
 COUNTER_UPDATES = 2**19  # the one-bin counter: R19's |V| updates into |V| bins
 DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
 BATCH_K = 16  # queries a batch (generic path) and rows of the batched kernel checks
+ROWS_PARTIAL = 13  # rows of the batched edge_stream check whose last group is partial
 BATCH_WARM_RUNS = 3  # warm batches per run; the median is kept
 BATCH_MSBFS = "__msbfs__"  # kernel_launches key of the multi-source BFS path
 
@@ -677,14 +678,44 @@ def main_shape_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
     return rows
 
 
-def batched_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
+def es_resources(ptxas: list, dtype, apply_op: str, op: str, group: int) -> dict:
+    """``ptxas`` registers and theoretical occupancy of the batched
+    ``edge_stream`` kernels one call of ``group``-row groups runs (the walk
+    and the pack; csrc/edge_stream.cu's template arguments) and of the
+    one-row walk of the same case."""
+    t = "f" if dtype == torch.float32 else "i"
+    apply_c = {"add": 0, "mul": 1, "src": 2}[apply_op]
+    op_c = {"+": 0, "min": 1, "max": 2, "|": 3}[op]
+    src = apply_op == "src"
+    names = {
+        "rows_kernel": f"edge_stream_rows_kernelI{t}Li{apply_c}ELi{op_c}ELi{group}EE",
+        "pack_kernel": f"pack_kernelI{t}Li{op_c if src else 0}ELi{group}ELb{int(src)}EE",
+        "one_row_kernel": f"edge_stream_kernelI{t}Li{apply_c}ELi{op_c}EE",
+    }
+    out = {"group_rows": group}
+    if not ptxas:  # a cached build prints no ptxas log
+        return {**out, "registers": "not measured: the build was cached"}
+    for key, pat in names.items():
+        hits = [row for row in ptxas if pat in row["entry"] and "registers" in row]
+        assert len(hits) == 1, f"ptxas: {len(hits)} entries match {pat}"
+        out[key] = {"registers": hits[0]["registers"],
+                    "occupancy": register_occupancy(hits[0]["registers"])}
+    return out
+
+
+def batched_kernels(sr, es, ref, gb, weights, dev: str, es_ptxas: list) -> dict:
     """The batched launches at the main shape: BATCH_K rows (queries) over
     the bound graph's dst-sorted edges, offsets and work list. Each is held
     to its plain version (exact, or float ``+`` within f32_sum_tolerance
     per bin) and bit for bit to BATCH_K one-row launches of the same kernel
     (float ``+`` too: each row folds its bins in the one-row order), and
     timed (CUDA events and profiler device time) beside the one-row
-    launches it replaces and its bound. Bounds: each input read once (a
+    launches it replaces and its bound. ``edge_stream`` also runs MS-BFS's
+    launch (2 int32 rows, ``src``/``|``, a shared flag row), timed the same
+    way, and each 16-row case at ROWS_PARTIAL rows (a partial group of
+    rows), held to its one-row launches bit for bit and not timed; each
+    row gives the ``ptxas`` registers and occupancy of the kernels it runs
+    (``es_ptxas``: the build's entries). Bounds: each input read once (a
     shared operand once, not once a row), each output written once."""
     gen = torch.Generator(device=dev).manual_seed(2)
     k = BATCH_K
@@ -759,23 +790,31 @@ def batched_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
         "edge_stream_batched_f32": ("f32 src +", rank, vact, None, None, "src", "+"),
         "edge_stream_batched_or": ("i32 src |, shared mask", words, every, None, None, "src",
                                    "|"),
+        "edge_stream_batched_msbfs": ("i32 src |, 2 rows, shared mask (MS-BFS)", words[:2],
+                                      every, None, None, "src", "|"),
     }
+    def es_rows(vv, act, eid, w, apply_op, op, lo=0, hi=None):
+        """Rows lo .. hi as one batched call, and as one-row launches."""
+        act = act if act.dim() == 1 else act[lo:hi]
+        batched = lambda: es.edge_stream_gather_batched(  # noqa: E731
+            vv[lo:hi], act, src_s, eid, w, offsets, apply_op, op, split)
+        one_rows = lambda: [es.edge_stream_gather(  # noqa: E731
+            row, act if act.dim() == 1 else act[q], src_s, eid, w, offsets, apply_op, op, split)
+            for q, row in enumerate(vv[lo:hi])]
+        return batched, one_rows
+
     for row_name, (name, vv, act, eid, w, apply_op, op) in cases.items():
-        call = (lambda vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op:
-                es.edge_stream_gather_batched(vv, act, src_s, eid, w, offsets, apply_op, op,
-                                              split))
+        k = vv.shape[0]
+        call, one_rows = es_rows(vv, act, eid, w, apply_op, op)
         got = call()
-        one = one_row_launches(lambda q, vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op:
-                               es.edge_stream_gather(vv[q], act if act.dim() == 1 else act[q],
-                                                     src_s, eid, w, offsets, apply_op, op,
-                                                     split))
+        one = torch.stack(one_rows())
         assert torch.equal(bits(got), bits(one)), \
             f"edge_stream_batched {name}: differs from {k} one-row launches"
         want = ref.edge_stream_gather_batched_ref(vv, act, src_s, eid, w, offsets, apply_op, op)
         tol = None
         if op == "+":
             upd = torch.where(act, vv, 0.0).index_select(1, src_s)
-            tol = f32_sum_tolerance(upd.reshape(-1), ids, k * n_out).view(k, n_out)
+            tol = f32_sum_tolerance(upd.reshape(-1), ids[:k * n_e], k * n_out).view(k, n_out)
             del upd
         err = check_equal(f"{row_name} main-shape {name}", got, want, op, tol)
         del got, one, want
@@ -786,9 +825,7 @@ def batched_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
                    + (0 if act.dim() == 2 else n_v) + 4 * (n_out + 1) + 4 * k * n_out)
         b_ms, b_by = bound(n_bytes, (2 if weighted else 1) * n_active)
         dev_b = device_ms(call, iters=10)
-        dev_one = device_ms(lambda vv=vv, act=act, eid=eid, w=w, apply_op=apply_op, op=op: [
-            es.edge_stream_gather(vv[q], act if act.dim() == 1 else act[q], src_s, eid, w,
-                                  offsets, apply_op, op, split) for q in range(k)], iters=3)
+        dev_one = device_ms(one_rows, iters=3)
         rows[row_name] = {
             "kernel_ms": time_ms(call, iters=10), "kernel_device_ms": dev_b["ms"],
             "kernel_device_kernels": dev_b["kernels"],
@@ -799,9 +836,23 @@ def batched_kernels(sr, es, ref, gb, weights, dev: str) -> dict:
                                 iters=2, warmup=1),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "bit_identical_to_one_row_launches": True,
+            **es_resources(es_ptxas, vv.dtype, apply_op, op, es.row_group(k)),
             "shape": {"rows": k, "edges": n_e, "bins": n_out, "case": name,
                       "active_row_edges": n_active},
         }
+        if k == BATCH_K:
+            # a partial group: ROWS_PARTIAL rows, bits only, not timed
+            part, part_one = es_rows(vv, act, eid, w, apply_op, op, hi=ROWS_PARTIAL)
+            assert torch.equal(bits(part()), bits(torch.stack(part_one()))), \
+                f"edge_stream_batched {name} at {ROWS_PARTIAL} rows: differs from one-row launches"
+            rows[row_name]["partial_group"] = {
+                "rows": ROWS_PARTIAL, "group_rows": es.row_group(ROWS_PARTIAL),
+                "bit_identical_to_one_row_launches": True}
+            # the same rows as two calls of k / 2 (groups of 8 rows, not 16)
+            halves = [es_rows(vv, act, eid, w, apply_op, op, h, h + k // 2)[0]
+                      for h in (0, k // 2)]
+            rows[row_name]["two_calls_of_half_the_rows_device_ms"] = device_ms(
+                lambda halves=halves: [f() for f in halves], iters=10)["ms"]
     return rows
 
 
@@ -1477,6 +1528,7 @@ def main() -> int:
     log({"phase": "build", "total_seconds": round(build_s, 3)})
     for name in ("shuffle_reduce", "edge_stream"):  # 256 threads a block (reduce_ops.cuh)
         entries = [{"entry": row["entry"], "registers": row.get("registers"),
+                    "spill_store_bytes": row.get("spill_store_bytes"),
                     "theoretical_occupancy": register_occupancy(row["registers"])
                     if "registers" in row else None}
                    for row in ptxas_kernels(built[name]["log"])]
@@ -1508,7 +1560,9 @@ def main() -> int:
     rows = main_shape_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev)
     for name, row in rows.items():
         log({"phase": "kernels", "kernel": name, **row})
-    for name, row in batched_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev).items():
+    es_ptxas = ptxas_kernels(built["edge_stream"]["log"])
+    for name, row in batched_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev,
+                                     es_ptxas).items():
         log({"phase": "kernels", "kernel": name, **row})
     gc.collect()
     torch.cuda.empty_cache()

@@ -19,8 +19,10 @@ the reference's ``kernels/ops.py``:
   form (what the engine's full-stream edge launches call).
   :func:`edge_stream_gather_batched` takes ``[K, V]`` vertex operands and
   ``[E]`` (shared, as a graph's weights are) or ``[K, E]`` weights over one
-  set of sorted edges, offsets and work list: one launch, the rows on the
-  grid, each row folded as its own one-row launch folds it.
+  set of sorted edges, offsets and work list: one call, whose warps walk
+  the edges once for each group of :func:`row_group` rows (the rows of a
+  group packed side by side a vertex first), each row folded as its own
+  one-row launch folds it.
 * :func:`edge_stream` — the reference's shape ``(src_vals, weights, dst,
   active)`` per edge: a stable sort by ``dst`` is the routing step (and
   the work list is built anew on every call), and the same kernel runs
@@ -46,18 +48,32 @@ from .shuffle_reduce import (DTYPE_CODES, MAX_ROWS, OP_CODES, SPLIT_LEN, BinSpli
                              bin_offsets, check_op, rows_of, split_bins)
 
 #: calls that launched the CUDA kernels since the last reset (set it to 0 to
-#: reset): one per call, also when a split bin adds the combining kernel
+#: reset): one per call, also when a batch adds the pack and a split bin the
+#: combining kernel
 LAUNCHES = 0
 
 APPLY_CODES = {"add": 0, "mul": 1, "src": 2}
 
-# vval, vact, src_s, eid_s, n_edges, w, offsets, out, n_out, chunks, n_chunks,
-# chunk_len, split_bins, split_first, n_split, partial, n_rows, vval_stride,
-# vact_stride, w_stride, dtype, apply, op, stream
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
+#: rows a warp of a batched launch walks together (``csrc/edge_stream.cu``'s R)
+GROUP_ROWS = (2, 8, 16)
+
+# vval, vact, n_vertices, src_s, eid_s, n_edges, w, offsets, out, n_out, chunks,
+# n_chunks, chunk_len, split_bins, split_first, n_split, partial, n_rows,
+# vval_stride, vact_stride, w_stride, group_rows, tile, bits, dtype, apply, op,
+# stream
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+             + [ctypes.c_int64] + [ctypes.c_void_p] * 3
              + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
              + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]
-             + [ctypes.c_int64] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int64] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def row_group(k: int) -> int:
+    """Rows a warp walks together in a ``k``-row launch: the least of
+    :data:`GROUP_ROWS` that holds them all, else the largest (the last
+    group then partial)."""
+    return next((r for r in GROUP_ROWS if r >= k), GROUP_ROWS[-1])
 
 
 def _lib():
@@ -110,7 +126,7 @@ def edge_stream_gather_batched(
     split: Optional[BinSplit] = None,
 ) -> torch.Tensor:
     """:func:`edge_stream_gather` of every row of ``[K, V]`` vertex values:
-    ``[K, len(offsets) - 1]`` in one launch. ``vact`` is ``[V]`` (shared by
+    ``[K, len(offsets) - 1]`` in one call. ``vact`` is ``[V]`` (shared by
     the rows) or ``[K, V]``; ``weights`` ``[E]`` (shared) or ``[K, E]``.
     Rows must each be contiguous; a row stride of 0 (an expanded row)
     shares one row. Row ``k`` has the bits of ``edge_stream_gather(vval[k],
@@ -142,8 +158,9 @@ def _check(vval, vact, src_s, eid_s, weights, apply_op: str, reduce_op: str) -> 
 
 def _launch(vval, vact, src_s, eid_s, weights, offsets, apply_op: str, reduce_op: str,
             split: Optional[BinSplit]) -> torch.Tensor:
-    """One launch of the kernel over the ``K`` rows of ``vval``, ``vact``
-    and ``weights`` (each ``[K, n]``, any row stride)."""
+    """One call of the kernels over the ``K`` rows of ``vval``, ``vact``
+    and ``weights`` (each ``[K, n]``, any row stride): the one-row walk for
+    ``K = 1``, else the pack and the walk of the row groups."""
     global LAUNCHES
     weighted = apply_op != "src"
     k = vval.shape[0]
@@ -169,6 +186,7 @@ def _launch(vval, vact, src_s, eid_s, weights, offsets, apply_op: str, reduce_op
     if any(t.device != vval.device or t.dtype != torch.int32 for t in lists):
         raise TypeError("edge_stream: the work list must be int32 on the operands' device")
     (vval, vval_stride), (vact, vact_stride) = rows_of(vval), rows_of(vact)
+    n_v = vval.shape[1]
     src_s, offsets = src_s.contiguous(), offsets.contiguous()
     chunks, bins, first = (t.contiguous() for t in lists)
     n_chunks = chunks.shape[0]
@@ -182,11 +200,23 @@ def _launch(vval, vact, src_s, eid_s, weights, offsets, apply_op: str, reduce_op
     if n_out == 0:
         return out
     partial = torch.empty(k, n_chunks, dtype=vval.dtype, device=vval.device)
-    rc = _lib()(vval.data_ptr(), vact.data_ptr(), src_s.data_ptr(), eid_p, src_s.shape[0],
-                w_p, offsets.data_ptr(), out.data_ptr(), n_out, chunks.data_ptr(), n_chunks,
-                SPLIT_LEN, bins.data_ptr(), first.data_ptr(), bins.shape[0],
-                partial.data_ptr(), k, vval_stride, vact_stride, w_stride,
-                DTYPE_CODES[vval.dtype], APPLY_CODES[apply_op],
+    # a batch's scratch: each group's rows packed as a [V, R] tile and, for
+    # weighted applies, its rows' flags as one R-bit word a vertex
+    group = row_group(k)
+    n_groups = -(-k // group)
+    tile = bits = None
+    if k > 1:
+        tile = torch.empty(n_groups, n_v, group, dtype=vval.dtype, device=vval.device)
+        if weighted:
+            bits = torch.empty(n_groups, n_v, -(-group // 8), dtype=torch.uint8,
+                               device=vval.device)
+    rc = _lib()(vval.data_ptr(), vact.data_ptr(), n_v, src_s.data_ptr(), eid_p,
+                src_s.shape[0], w_p, offsets.data_ptr(), out.data_ptr(), n_out,
+                chunks.data_ptr(), n_chunks, SPLIT_LEN, bins.data_ptr(), first.data_ptr(),
+                bins.shape[0], partial.data_ptr(), k, vval_stride, vact_stride, w_stride,
+                group, None if tile is None else tile.data_ptr(),
+                None if bits is None else bits.data_ptr(), DTYPE_CODES[vval.dtype],
+                APPLY_CODES[apply_op],
                 OP_CODES[reduce_op], torch.cuda.current_stream(vval.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"edge_stream kernel launch failed: CUDA error {rc}")

@@ -460,6 +460,78 @@ def test_cuda_edge_stream_batched_rows_equal_one_row_launches(cuda, dtype, apply
                 assert torch.equal(got, want), (op, act.dim())
 
 
+ROW_GROUP_KS = [2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 33, 64]  # R - 1, R, R + 1, 2R + 1 of R = 8, 16
+
+
+def _row_group_stream(cuda, dtype, k: int, seed: int):
+    """K rows over a skewed stream (split hub bins, bins around L, a
+    stretch of 64 empty bins): float rows from a normal distribution with
+    some -0.0 and int32 rows over all 32 bits; per-row flags and weights
+    (K rows) beside the shared ones."""
+    rng = np.random.default_rng(seed)
+    counts = np.concatenate([[0, 3 * L + 7, L - 1, L, L + 1, 0], np.zeros(64, np.int64),
+                             [2 * L + 1, 40, 33, 32], rng.integers(0, 17, 1500),
+                             rng.integers(0, 90, 200)])
+    n_v, n_e = 2000, int(counts.sum())
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    src_s = torch.from_numpy(rng.integers(0, n_v, n_e).astype(np.int32))
+    eid_s = torch.from_numpy(rng.permutation(n_e).astype(np.int32))
+    if dtype == torch.float32:
+        vval = rng.normal(size=(k, n_v)).astype(np.float32)
+        vval[rng.random((k, n_v)) < 0.02] = -0.0
+        w = rng.normal(size=(k, n_e)).astype(np.float32)
+    else:
+        vval = rng.integers(-2**31, 2**31, (k, n_v), dtype=np.int64).astype(np.int32)
+        w = rng.integers(-2**31, 2**31, (k, n_e), dtype=np.int64).astype(np.int32)
+    vact = rng.random((k, n_v)) < 0.6
+    return [torch.from_numpy(t).to(cuda) for t in (vval, vact, w)] + [
+        t.to(cuda) for t in (src_s, eid_s, offsets)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", ROW_GROUP_KS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("apply_op", ["add", "mul", "src"])
+def test_cuda_edge_stream_row_groups_equal_one_row_launches(cuda, k, dtype, apply_op):
+    """The batched walk over groups of rows (full and partial groups, one
+    group at K = 2, many at K = 64): each row has its one-row launch's bits
+    under every op, with per-row and shared (stride 0) flags and weights."""
+    vval, vact, w, src_s, eid_s, offsets = _row_group_stream(cuda, dtype, k, seed=20 + k)
+    split = sr.split_bins(offsets, src_s.shape[0])
+    assert split.bins.shape[0] == 3  # 3L + 7, L + 1 and 2L + 1 edges
+    eid = None if apply_op == "src" else eid_s
+    for op in ("+", "min", "max") + (("|",) if dtype == torch.int32 else ()):
+        for act, ww in ((vact, w), (vact[0], w[0])):
+            ww = None if apply_op == "src" else ww
+            before = es.LAUNCHES
+            got = es.edge_stream_gather_batched(vval, act, src_s, eid, ww, offsets, apply_op, op,
+                                                split)
+            assert es.LAUNCHES == before + 1 and got.shape == (k, offsets.shape[0] - 1)
+            rows = torch.stack([es.edge_stream_gather(
+                vval[q], act if act.dim() == 1 else act[q], src_s, eid,
+                None if ww is None else (ww if ww.dim() == 1 else ww[q]), offsets, apply_op, op,
+                split) for q in range(k)])
+            assert torch.equal(_bits(got), _bits(rows)), (op, act.dim())
+            if dtype == torch.int32:
+                want = ref.edge_stream_gather_batched_ref(vval, act, src_s, eid, ww, offsets,
+                                                          apply_op, op)
+                assert torch.equal(got, want), (op, act.dim())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 9])
+def test_cuda_edge_stream_row_groups_with_no_bins(cuda, k):
+    """n_out = 0: a [K, 0] result, as the one-row launches give."""
+    vval = torch.ones(k, 5, device=cuda)
+    vact = torch.ones(k, 5, dtype=torch.bool, device=cuda)
+    src_s = torch.zeros(0, dtype=torch.int32, device=cuda)
+    offsets = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = es.edge_stream_gather_batched(vval, vact, src_s, None, None, offsets, "src", "+")
+    assert got.shape == (k, 0)
+    one = es.edge_stream_gather(vval[0], vact[0], src_s, None, None, offsets, "src", "+")
+    assert one.shape == (0,)
+
+
 @pytest.mark.gpu
 def test_cuda_or_reduce_rejects_float(cuda):
     off = torch.tensor([0, 2], dtype=torch.int32, device=cuda)

@@ -196,3 +196,190 @@ def test_edge_stream_source_has_no_atomics():
     chunk order, so a float + gives the same bits on every run."""
     text = (_build.CSRC / "edge_stream.cu").read_text()
     assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", text)
+
+
+# --------------------------------------------------------------------------
+# the batched walk: groups of R rows, R / C lanes loading an edge's R values
+# --------------------------------------------------------------------------
+
+
+def test_row_group_is_the_least_width_that_holds_the_rows():
+    """``row_group(k)``: the least of GROUP_ROWS at or above k (K = 2 one
+    group of 2), else the largest, the last group then partial."""
+    assert es.GROUP_ROWS == tuple(sorted(es.GROUP_ROWS)) and es.GROUP_ROWS[0] == 2
+    for k in range(1, 80):
+        fits = [r for r in es.GROUP_ROWS if r >= k]
+        assert es.row_group(k) == (min(fits) if fits else max(es.GROUP_ROWS)), k
+    assert es.row_group(2) == 2 and -(-64 // es.row_group(64)) == 4
+
+
+def pack_group(vval, vact, group: int, g: int, apply_op: str, op: str):
+    """The pack kernel's output for rows g * group .. of ``[K, V]`` values
+    and ``[K, V]`` flags: the ``[V, group]`` tile (apply src: the identity
+    where a row's flag is off; rows past the last: the identity) and, for
+    weighted applies, each vertex's flag word (bit r: row r)."""
+    k, n_v = vval.shape
+    ident = ref.identity(op, vval.dtype)
+    rows = range(g * group, min(k, (g + 1) * group))
+    tile = torch.full((n_v, group), ident, dtype=vval.dtype)
+    word = torch.zeros(n_v, dtype=torch.int64)
+    for r, row in enumerate(rows):
+        tile[:, r] = vval[row]
+        if apply_op == "src":
+            tile[:, r] = torch.where(vact[row], vval[row], torch.full_like(vval[row], ident))
+        word |= vact[row].to(torch.int64) << r
+    return tile, (None if apply_op == "src" else word)
+
+
+def test_pack_twin_holds_each_rows_values_and_flags():
+    rng = np.random.default_rng(4)
+    vval = torch.from_numpy(rng.normal(size=(11, 50)).astype(np.float32))
+    vact = torch.from_numpy(rng.random((11, 50)) < 0.5)
+    for apply_op in ("src", "add"):
+        tile, word = pack_group(vval, vact, 8, 1, apply_op, "+")
+        for r in range(8):
+            row = 8 + r
+            if row >= 11:
+                assert torch.equal(tile[:, r], torch.zeros(50))
+                assert word is None or not (word >> r & 1).any()
+            elif apply_op == "src":
+                assert torch.equal(tile[:, r], torch.where(vact[row], vval[row], 0.0))
+            else:
+                assert torch.equal(tile[:, r], vval[row])
+                assert torch.equal((word >> r & 1).bool(), vact[row])
+
+
+def _fold(op, acc, val, on):
+    return torch.where(on, _apply(op, acc, val), acc)
+
+
+def one_row_run(upd, on, op, ident, lo, hi, lanes, order=None):
+    """The one-row walk of a run: lane v walks edges lo + v, lo + v +
+    lanes, ... in order, folding the active ones (an inactive edge
+    skipped), then the shuffle tree; returns lane 0's result (and records
+    the edges each lane walks)."""
+    acc = torch.full((lanes,), ident, dtype=upd.dtype)
+    for t in range(lo, hi, lanes):
+        e = torch.arange(t, t + lanes)
+        ok = e < hi
+        e = e.clamp(max=max(hi - 1, 0))
+        acc = _fold(op, acc, upd[e], ok & on[e])
+        if order is not None:
+            for v in range(lanes):
+                if ok[v]:
+                    order.setdefault(v, []).append(int(e[v]))
+    o = lanes // 2
+    while o:
+        acc = _apply(op, acc, torch.cat([acc[o:], acc[lanes - o:]]))
+        o //= 2
+    return acc[0]
+
+
+def group_run(tile, word, src_s, eid_s, w, apply_op, op, lo, hi, lanes, order=None):
+    """csrc/edge_stream.cu's walk_rows and reduce_rows for one group over one
+    run, lane by lane: lane P * a + q (P = R / C lanes an edge, C = min(R, 4))
+    holds virtual lanes A * j + a (A = lanes / P) for rows q * C + c; each
+    folds its edges from the packed tile (row r's flag bit, or the identity
+    the pack put there) with the shared weights ``w``; the tree pairs
+    registers at offsets of at least A and lanes P * o apart below it.
+    Returns the group's R results (and records the edges each (row,
+    virtual lane) walks)."""
+    n_v, group = tile.shape
+    c_n = min(group, 4)
+    p_n = group // c_n
+    a_n = lanes // p_n
+    ident = ref.identity(op, tile.dtype)
+    acc = torch.full((lanes, p_n, c_n), ident, dtype=tile.dtype)
+    for lane in range(lanes):
+        a, q = divmod(lane, p_n)
+        for j in range(p_n):
+            v = a_n * j + a
+            for e in range(lo + v, hi, lanes):
+                s = int(src_s[e])
+                for c in range(c_n):
+                    row = q * c_n + c
+                    if order is not None:
+                        order.setdefault((row, v), []).append(e)
+                    val = tile[s, row]
+                    if apply_op != "src":
+                        if not (int(word[s]) >> row) & 1:
+                            continue
+                        val = ref._apply(apply_op, val, w[eid_s[e]])
+                    acc[lane, j, c] = _apply(op, acc[lane, j, c], val)
+    o = lanes // 2
+    while o:
+        if o >= a_n:
+            for j in range(p_n - o // a_n):
+                acc[:, j] = _apply(op, acc[:, j], acc[:, j + o // a_n])
+        else:
+            src = torch.arange(lanes) + p_n * o
+            src = torch.where(src < lanes, src, torch.arange(lanes))
+            acc[:, 0] = _apply(op, acc[:, 0], acc[src, 0])
+        o //= 2
+    return acc[:p_n, 0].reshape(-1)
+
+
+def _fold_chunks(out, partial, split):
+    for j, b in enumerate(split.bins.tolist()):
+        acc = torch.tensor(0.0)
+        for c in range(split.first[j], split.first[j + 1]):
+            acc = acc + partial[c]
+        out[b] = acc
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 8, 9, 16, 33])
+@pytest.mark.parametrize("apply_op", ["src", "add"])
+def test_row_groups_fold_each_row_in_its_one_row_order(k, apply_op):
+    """Every row of a K-row launch, walked by its group (K = 1: the one-row
+    walk): the same edges in the same order for each (row, lane) as the
+    one-row walk, and the same float + bits, item by item and after the
+    chunks' fold; the one-row walk (inactive edges skipped) has the bits of
+    emulate_split (their identity folded). Inputs: normal values with some
+    -0.0, per-row flags, shared weights."""
+    rng = np.random.default_rng(100 + k)
+    counts = np.concatenate([[0, 2 * L + 17, L, 0, 0, 0], rng.integers(0, 40, 24),
+                             rng.integers(0, 9, 16)])
+    offsets = _offsets(counts)
+    n_out = len(counts)
+    n_v, n_e = 60, int(counts.sum())
+    src_s = torch.from_numpy(rng.integers(0, n_v, n_e).astype(np.int32))
+    eid_s = torch.from_numpy(rng.permutation(n_e).astype(np.int32))
+    vval = torch.from_numpy(rng.normal(size=(k, n_v)).astype(np.float32))
+    vval[torch.from_numpy(rng.random((k, n_v)) < 0.05)] = -0.0
+    vact = torch.from_numpy(rng.random((k, n_v)) < 0.6)
+    w = torch.from_numpy(rng.normal(size=n_e).astype(np.float32))
+    eid, ww = (None, None) if apply_op == "src" else (eid_s, w)
+    split = sr.split_bins(offsets, n_e)
+    items = work_items(split, offsets, n_e)
+    n_chunks = split.chunks.shape[0]
+    one = {"out": torch.empty(k, n_out), "partial": torch.empty(k, n_chunks)}
+    orders = {}
+    for row in range(k):
+        upd = ref._apply(apply_op, vval[row][src_s], None if ww is None else ww[eid])
+        for (where, idx), _, lo, hi, lanes in items:
+            order = orders.setdefault((row, where, idx), {})
+            one[where][row, idx] = one_row_run(upd, vact[row][src_s], "+", 0.0, lo, hi, lanes,
+                                               order)
+        _fold_chunks(one["out"][row], one["partial"][row], split)
+        sched, _ = emulate_split(vval[row], vact[row], src_s, eid, ww, offsets, apply_op, "+",
+                                 split)
+        assert torch.equal(one["out"][row].view(torch.int32), sched.view(torch.int32)), row
+    if k == 1:
+        return  # a one-row launch
+    group = es.row_group(k)
+    grouped = {"out": torch.empty(k, n_out), "partial": torch.empty(k, n_chunks)}
+    for g in range(-(-k // group)):
+        tile, word = pack_group(vval, vact, group, g, apply_op, "+")
+        rows = range(g * group, min(k, (g + 1) * group))
+        for (where, idx), _, lo, hi, lanes in items:
+            order = {}
+            got = group_run(tile, word, src_s, eid_s, w, apply_op, "+", lo, hi, lanes, order)
+            for r, row in enumerate(rows):
+                grouped[where][row, idx] = got[r]
+                assert {v: order.get((r, v), []) for v in range(lanes)} == {
+                    v: orders[row, where, idx].get(v, []) for v in range(lanes)}, (row, idx)
+    for row in range(k):
+        _fold_chunks(grouped["out"][row], grouped["partial"][row], split)
+    for where in ("partial", "out"):
+        assert torch.equal(grouped[where].view(torch.int32), one[where].view(torch.int32)), where
