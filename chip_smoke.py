@@ -30,9 +30,18 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    The LM kernels (flash attention, MoE gather) are held to theirs at the
    reference test shapes and at the LM path's shapes: Kimi-K2's decode
    attention over the KV cache and a prefill-size causal attention, its
-   decode dispatch and a 4096-token prefill dispatch. Attention runs both
-   routes the wrapper takes by dtype: float32 through the CUDA-core kernel,
-   bfloat16 through the tensor-core (sm90) kernel. The batched launches
+   decode dispatch and a 4096-token prefill dispatch. Attention runs every
+   route the wrapper takes by dtype and shape: bfloat16 through the
+   tensor-core (sm90) kernel, float32 through the CUDA-core kernel's decode
+   route (few query rows per kv head) or its tile route; each call's route
+   is read from the three launch counters. The float32 decode route also
+   runs at qwen3-0.6b's decode shape (its [4, 32, 8, 128] cache read in
+   place) and over a 4,096-key cache, each with its splits, the same bits
+   on two calls and the ``ptxas`` resources of its two kernels; at the long
+   cache a fault control (the splits folded without their exp(m_s - m)
+   weights, in plain PyTorch) must fail the float32 check. A route sweep
+   times both float32 routes at 2-32 query rows a kv head (the threshold's
+   measurement). The batched launches
    (16 rows over the bind's edges, offsets and list) of ``shuffle_reduce``
    (f32 ``+``, i32 min, i32 ``|``, a row stride of 0) and ``edge_stream``
    (i32 add/min with shared weights, f32 src/``+``, i32 src/``|``) are
@@ -67,7 +76,9 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    with the LM kernels' launch counters set to 0 before and read after:
    the two runs must give the same tokens and the logits must be finite.
    Then qwen3-0.6b at its full config in float32: decode logits at every
-   prompt position must agree with the whole-sequence forward.
+   prompt position must agree with the whole-sequence forward; every
+   one-query attention of its decode steps (2,240) must take the decode
+   route and the 16-token forward's 28 the tile route.
    Then qwen3-0.6b at its full config in bf16: one ``Model.forward`` over
    batch 4 x 2048 prompt tokens (wall time, device busy time and the
    tensor-core attention's share of it, launches, peak memory), after the
@@ -115,6 +126,7 @@ PREFILL_RUNS = 3  # timed forwards after one warm-up; the median is kept
 SKEW_HUB = 2**20  # edges (updates) of the one long bin in the skewed cases
 COUNTER_UPDATES = 2**19  # the one-bin counter: R19's |V| updates into |V| bins
 DECODE_RTOL = 2e-3  # decode vs forward, tests/test_models.py's own tolerance
+LONG_CACHE = 4096  # keys of the float32 decode route's long-cache row (qwen3-0.6b heads)
 BATCH_K = 16  # queries a batch (generic path) and rows of the batched kernel checks
 ROWS_PARTIAL = 13  # rows of the batched edge_stream check whose last group is partial
 BATCH_WARM_RUNS = 3  # warm batches per run; the median is kept
@@ -924,16 +936,31 @@ def check_row_rel(name: str, got: torch.Tensor, q, k, v, causal: bool, ref) -> d
             "control_keys": list(CONTROL_KEYS)}
 
 
+def took_route(fa, before) -> str:
+    """The route of the one attention call made since ``before`` (the
+    counters LAUNCHES, SM90_LAUNCHES, DECODE_LAUNCHES), read from them."""
+    moved = (fa.LAUNCHES - before[0], fa.SM90_LAUNCHES - before[1],
+             fa.DECODE_LAUNCHES - before[2])
+    routes = {(1, 1, 0): "sm90", (1, 0, 1): "decode", (1, 0, 0): "cuda_core"}
+    assert moved in routes, f"attention counters moved by {moved} in one call"
+    return routes[moved]
+
+
+def fa_counters(fa) -> tuple:
+    return fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES
+
+
 def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
     """The LM kernels at the reference test shapes (tests/test_kernels.py),
-    kernel vs plain: attention in float32 (the CUDA-core kernel) and bf16
-    (the tensor-core kernel), the gather exactly. Each attention case reads
-    the route its launch took from the two launch counters."""
+    kernel vs plain: attention in float32 (the CUDA-core kernel's tile and
+    decode routes) and bf16 (the tensor-core kernel), the gather exactly.
+    Each attention case reads the route its launch took from the three
+    launch counters."""
     rng = np.random.default_rng(1)
     n_cases = 0
     max_err = {"flash_attention_float32": 0.0, "flash_attention_bfloat16": 0.0,
                "moe_gather": 0.0}
-    routes = {"cuda_core": 0, "sm90": 0}
+    routes = {"cuda_core": 0, "decode": 0, "sm90": 0}
     for b, h, hkv, lq, lk, dh in [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64),
                                   (1, 4, 1, 1, 256, 64), (1, 2, 2, 100, 100, 32)]:
         for causal, window in [(True, 0), (False, 0), (True, 48)]:
@@ -943,12 +970,13 @@ def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
                            [(b, h, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)])
                 name = (f"flash_attention {b, h, hkv, lq, lk, dh} causal={causal} "
                         f"window={window} {dtype}")
-                before = (fa.LAUNCHES, fa.SM90_LAUNCHES)
+                before = fa_counters(fa)
                 got = fa.flash_attention(q, k, v, causal, window)
-                took = "sm90" if fa.SM90_LAUNCHES > before[1] else "cuda_core"
-                assert fa.LAUNCHES == before[0] + 1, f"{name}: no launch"
-                assert took == fa._route(q) == ("sm90" if dtype == torch.bfloat16
-                                                else "cuda_core"), f"{name}: took {took}"
+                took = took_route(fa, before)
+                want_route = ("sm90" if dtype == torch.bfloat16 else
+                              "decode" if lq == 1 or h // hkv * lq <= fa.DECODE_MAX_ROWS
+                              else "cuda_core")
+                assert took == fa._route(q, h // hkv) == want_route, f"{name}: took {took}"
                 routes[took] += 1
                 err = check_close(name, got, ref.flash_attention_ref(q, k, v, causal, window))
                 key = f"flash_attention_{str(dtype).split('.')[-1]}"
@@ -979,12 +1007,13 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
     peak rate of the dtype (bf16 tensor cores, float32 CUDA cores).
     ``device_side`` adds the device time of kernel and library call from
     profiler events (the host-paced loop times the wrapper's Python at
-    decode size)."""
+    decode size), and on the float32 decode route that of the tile route
+    on the same inputs."""
     b, h, lq, dh = q.shape
-    route = fa._route(q)
-    before = fa.SM90_LAUNCHES
+    route = fa._route(q, h // k.shape[1])
+    before = fa_counters(fa)
     got = fa.flash_attention(q, k, v, causal)
-    assert (fa.SM90_LAUNCHES > before) == (route == "sm90"), route
+    assert took_route(fa, before) == route, route
     err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)} {q.dtype}",
                       got, ref.flash_attention_ref(q, k, v, causal))
     rel = None
@@ -1013,6 +1042,12 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
     }
     if rel is not None:
         row["row_rel_check"] = rel
+    if route == "decode":
+        r, tiles, n, chunk = fa.decode_plan(b, k.shape[1], h // k.shape[1] * lq, k.shape[2], dh,
+                                            fa._sm_count(0))
+        row["decode"] = {"row_tile": r, "row_tiles": tiles, "splits": n, "chunk": chunk,
+                         "blocks": b * k.shape[1] * tiles * n,
+                         "kernels_per_call": 1 if n == 1 else 2}
     row["bound_share"] = b_ms / row["kernel_ms"]
     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
     if device_side:
@@ -1020,7 +1055,15 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
         ld = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=lib_causal, enable_gqa=True))
         row.update({"kernel_device_ms": kd["ms"], "kernel_device_kernels": kd["kernels"],
-                    "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"]})
+                    "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"],
+                    "device_bound_share": b_ms / kd["ms"],
+                    "kernel_over_library_device": kd["ms"] / ld["ms"]})
+        if route == "decode":  # the tile route on the same inputs: the float32 kernel before
+            tile = fa._launch("cuda_core", q, k, v, causal, 0)
+            check_close("flash_attention tile route", tile, ref.flash_attention_ref(q, k, v,
+                                                                                    causal))
+            row["tile_route_device_ms"] = device_ms(
+                lambda: fa._launch("cuda_core", q, k, v, causal, 0))["ms"]
     return row
 
 
@@ -1106,6 +1149,113 @@ def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
     return rows
 
 
+def decode_resources(ptxas: list, dh: int, rows: int) -> dict:
+    """``ptxas`` registers and spills of the float32 decode route's kernels
+    at head dim ``dh`` and row tile ``rows`` (the decode kernel's template
+    arguments) and of its combine."""
+    if not ptxas:  # a cached build prints no ptxas log
+        return {"registers": "not measured: the build was cached"}
+
+    def pick(match):
+        hits = [r for r in ptxas if match(r["entry"])]
+        assert len(hits) == 1, f"ptxas: {len(hits)} entries match"
+        r = hits[0]
+        return {"entry": r["entry"], "registers": r.get("registers"),
+                "spill_store_bytes": r.get("spill_store_bytes"),
+                "spill_load_bytes": r.get("spill_load_bytes"),
+                "theoretical_occupancy": register_occupancy(r["registers"])
+                if "registers" in r else None}
+
+    return {"decode_kernel": pick(lambda e: "flash_decode_kernel" in e
+                                  and f"ILi{dh}ELi{rows}EE" in e),
+            "combine_kernel": pick(lambda e: "flash_decode_combine_kernel" in e)}
+
+
+def split_rescale_control(fa, ref, q, k, v) -> dict:
+    """A fault control for the float32 check at a decode shape cut into
+    splits: the decode route's schedule in plain PyTorch
+    (``ref.flash_attention_split_ref``, the splits and layout the wrapper
+    takes), once as the kernel folds the splits and once without their
+    exp(m_s - m) weights. The sound one must pass ``check_close``'s
+    tolerance and the faulty one must fail it, so that the check is shown
+    able to fail at this shape in this run."""
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    _, _, n, chunk = fa.decode_plan(b, hkv, h // hkv * lq, lk, dh, fa._sm_count(0))
+    _, teams, unit = fa.decode_layout(dh)
+    assert n > 1, "the control needs a shape the wrapper cuts into splits"
+    want = ref.flash_attention_ref(q, k, v, True)
+    tol = FA_TOL[torch.float32]
+    out = {"splits": n, "chunk": chunk, "tol": tol}
+    for name, rescale in (("model", True), ("no_split_rescale", False)):
+        got = ref.flash_attention_split_ref(q, k, v, True, n_splits=n, chunk=chunk, teams=teams,
+                                            unit=unit, rescale=rescale)
+        out[f"{name}_max_abs_err"] = float((got - want).abs().max())
+        out[f"{name}_passes"] = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    assert out["model_passes"], f"the decode schedule's model fails the check: {out}"
+    assert not out["no_split_rescale_passes"], f"the rescale control passes the check: {out}"
+    return out
+
+
+def f32_decode_rows(fa, ref, cfg, dev: str, ptxas: list) -> dict:
+    """The float32 decode route at qwen3-0.6b's decode shape: q [4, 16, 1,
+    128] out of its [B, 1, H, Dh] activation over the [4, 32, 8, 128] cache
+    read in place (the shape of its 2,240 launches on the path), and the
+    same heads over a 4,096-key cache (134 MB of K/V, cut into splits).
+    Each row: kernel vs plain, the splits, device times of the kernel and
+    of SDPA, the bound, the same bits on two calls, and the ``ptxas``
+    resources of the decode and combine kernels; the long one also the
+    split-rescale fault control."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = {}
+    for name, lk in (("flash_attention_decode_qwen3", LM_PROMPT + LM_GEN),
+                     ("flash_attention_decode_long", LONG_CACHE)):
+        x = torch.randn(LM_BATCH, 1, h, dh, generator=gen, device=dev)
+        ck, cv = (torch.randn(LM_BATCH, lk, hkv, dh, generator=gen, device=dev)
+                  for _ in range(2))
+        q, k, v = x.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
+        row = _attention_row(fa, ref, q, k, v, True, lk, 20, device_side=True)
+        assert row["route"] == "decode", row["route"]
+        row["ptxas"] = decode_resources(ptxas, dh, row["decode"]["row_tile"])
+        row["same_bits_twice"] = torch.equal(fa.flash_attention(q, k, v),
+                                             fa.flash_attention(q, k, v))
+        assert row["same_bits_twice"], f"{name}: two calls gave different bits"
+        if lk == LONG_CACHE:
+            row["split_rescale_control"] = split_rescale_control(fa, ref, q, k, v)
+        rows[name] = row
+        del x, ck, cv, q, k, v
+    return rows
+
+
+def route_sweep(fa, ref, dev: str) -> list:
+    """Both float32 routes at the same shapes around DECODE_MAX_ROWS (qwen3
+    heads, group 2, at Lq 1-16; Kimi-K2 heads, group 8, at Lq 1-4; over 32
+    and 4,096 keys, causal), each held to the plain version and timed on
+    the device from profiler events: the measurement the threshold is set
+    from. Calls ``fa._launch`` with each route; none of it is counted."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = []
+    for lk in (LM_PROMPT + LM_GEN, LONG_CACHE):
+        k, v = (torch.randn(LM_BATCH, 8, lk, 128, generator=gen, device=dev) for _ in range(2))
+        for group, lqs in ((2, (1, 2, 4, 8, 16)), (8, (1, 2, 4))):
+            for lq in lqs:
+                q = torch.randn(LM_BATCH, 8 * group, lq, 128, generator=gen, device=dev)
+                want = ref.flash_attention_ref(q, k, v, True)
+                row = {"group": group, "lq": lq, "rows": group * lq, "lk": lk,
+                       "route": fa._route(q, group)}
+                for route in ("decode", "cuda_core"):
+                    got = fa._launch(route, q, k, v, True, 0)
+                    row[f"{route}_max_abs_err"] = check_close(
+                        f"{route} {tuple(q.shape)} over {tuple(k.shape)}", got, want)
+                    row[f"{route}_device_ms"] = device_ms(
+                        lambda r=route: fa._launch(r, q, k, v, True, 0))["ms"]
+                row["decode_over_tile"] = row["decode_device_ms"] / row["cuda_core_device_ms"]
+                out.append(row)
+        del k, v
+    return out
+
+
 def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     """Kimi-K2 at full width, depth cut to 2 layers, bf16: ``generate``
     twice (batch 4, prompt 16, generate 16) plus one ``forward`` over the
@@ -1124,6 +1274,7 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
 
     fa.LAUNCHES = 0
     fa.SM90_LAUNCHES = 0
+    fa.DECODE_LAUNCHES = 0
     md.LAUNCHES = 0
     step_s: list = []
     t0 = time.perf_counter()
@@ -1137,7 +1288,8 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     decode_aux = dict(model.last_aux)
     torch.cuda.synchronize()
     launches = {"flash_attention_sm90": fa.SM90_LAUNCHES,
-                "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES, "moe_gather": md.LAUNCHES}
+                "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES,
+                "flash_attention_decode": fa.DECODE_LAUNCHES, "moe_gather": md.LAUNCHES}
 
     assert torch.equal(first, second), "Kimi-K2: two generate runs gave different tokens"
     assert first.shape == (LM_BATCH, LM_GEN)
@@ -1147,7 +1299,8 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         "Kimi-K2: non-finite logits"
     assert launches["flash_attention_sm90"] > 0, \
         "the tensor-core flash kernel never launched on the bf16 LM path"
-    assert launches["flash_attention"] == 0, "a bf16 attention took the CUDA-core kernel"
+    assert launches["flash_attention"] == launches["flash_attention_decode"] == 0, \
+        "a bf16 attention took the CUDA-core kernel"
     assert launches["moe_gather"] > 0, "moe_gather never launched on the LM path"
     embed_bytes = model.embed.numel() * model.embed.element_size()
     # bytes one decode step must read: every weight but the embedding table
@@ -1203,6 +1356,7 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
     fa.LAUNCHES = 0
     fa.SM90_LAUNCHES = 0
+    fa.DECODE_LAUNCHES = 0
     step_s: list = []
     serve.generate(model, prompts, LM_GEN, step_s=step_s)
     t0 = time.perf_counter()
@@ -1220,8 +1374,14 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         worst = max(worst, err / scale)
     assert torch.isfinite(full).all()
     launches = {"flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES,
+                "flash_attention_decode": fa.DECODE_LAUNCHES,
+                "flash_attention_tile": fa.LAUNCHES - fa.SM90_LAUNCHES - fa.DECODE_LAUNCHES,
                 "flash_attention_sm90": fa.SM90_LAUNCHES}
-    assert launches["flash_attention"] > 0, "the CUDA-core flash kernel never launched (f32)"
+    # one query a step: two generate runs (prompt + generated steps) and the
+    # decode_step loop take the decode route; the one 16-token forward the tile route
+    steps = 2 * (LM_PROMPT + LM_GEN) + LM_PROMPT
+    assert launches["flash_attention_decode"] == steps * cfg.n_layers, launches
+    assert launches["flash_attention_tile"] == cfg.n_layers, launches
     assert launches["flash_attention_sm90"] == 0, "a float32 attention took the sm90 kernel"
     median_ms = statistics.median(step_s) * 1e3
     bound_ms = model.param_bytes() / HBM_BYTES_PER_S * 1e3  # tied head: the table is read
@@ -1276,11 +1436,13 @@ def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
         0, cfg.vocab_size, (LM_BATCH, PREFILL_LEN))).to(dev)
     fa.LAUNCHES = 0
     fa.SM90_LAUNCHES = 0
+    fa.DECODE_LAUNCHES = 0
     logits, _ = model.forward(tokens)
     torch.cuda.synchronize()
     launches = {"flash_attention_sm90": fa.SM90_LAUNCHES,
                 "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES}
     assert launches == {"flash_attention_sm90": cfg.n_layers, "flash_attention": 0}, launches
+    assert fa.DECODE_LAUNCHES == 0
     assert logits.shape == (LM_BATCH, PREFILL_LEN, cfg.vocab_size)
     assert torch.isfinite(logits).all(), f"{QWEN} bf16 forward: non-finite logits"
     del logits
@@ -1572,9 +1734,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})
     lm_rows = lm_main_shape_kernels(fa, md, ref, moe_mod, get_config(KIMI), dev)
+    fa_ptxas = ptxas_kernels(built["flash_attention"]["log"])
+    lm_rows["flash_attention_decode"]["ptxas"] = decode_resources(
+        fa_ptxas, 128, lm_rows["flash_attention_decode"]["decode"]["row_tile"])
+    lm_rows.update(f32_decode_rows(fa, ref, get_config(QWEN), dev, fa_ptxas))
     for name, row in lm_rows.items():
         log({"phase": "kernels", "kernel": name, **row})
     rows.update(lm_rows)
+    log({"phase": "kernels", "flash_attention_route_sweep": route_sweep(fa, ref, dev),
+         "decode_max_rows": fa.DECODE_MAX_ROWS})
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
     # -- 4. the main path ---------------------------------------------------
@@ -1683,6 +1853,7 @@ def main() -> int:
     qwen = qwen_phase(mods, dev, args.seed)
     log(qwen)
     launches["flash_attention"] = qwen["launches"]["flash_attention"]  # the f32 path
+    launches["flash_decode"] = qwen["launches"]["flash_attention_decode"]
     gc.collect()
     torch.cuda.empty_cache()
     log(qwen_prefill_phase(mods, ref, dev, args.seed))
@@ -1697,12 +1868,14 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:103"),
         "flash_attention_sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                                  "src/repro/kernels/flash_attention.py:103"),
+        "flash_decode": ("src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention.py:103"),
         "moe_gather": ("src/repro_torch/csrc/moe_gather.cu",
                        "src/repro/kernels/moe_dispatch.py:72"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        row = rows[name]
+        row = rows["flash_attention_decode_qwen3" if name == "flash_decode" else name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": row["max_abs_err"],
@@ -1712,6 +1885,14 @@ def main() -> int:
         })
         if "row_rel_check" in row:
             kernels[-1]["row_rel_err"] = row["row_rel_check"]["row_rel_err"]
+        if name == "flash_attention":  # the float32 calls: decode route + tile route
+            kernels[-1].update({"decode_launches": qwen["launches"]["flash_attention_decode"],
+                                "tile_launches": qwen["launches"]["flash_attention_tile"]})
+        if name == "flash_decode":  # at decode size the host paces the loop: device times
+            kernels[-1].update({"ms": row["kernel_device_ms"],
+                                "library_ms": row["library_device_ms"],
+                                "host_paced_ms": row["kernel_ms"], "timing": "device",
+                                "splits": row["decode"]["splits"]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

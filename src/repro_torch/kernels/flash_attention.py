@@ -1,21 +1,29 @@
-"""Flash attention: two hand-written CUDA kernels, chosen by dtype.
+"""Flash attention: three hand-written CUDA routes, chosen by dtype and shape.
 
 Replaces the reference package's Pallas TPU kernel
 ``kernels/flash_attention.py::flash_attention_call`` (and its wrapper
 ``kernels/ops.py::flash_attention``). What bounds it on an H100: bytes at
-decode (the KV cache read once), operations at prefill. Both kernels take
-one block per (batch, kv head, 64 query rows) with GQA inside the kernel
-and a float32 online softmax; they take no TPU tile knobs
-(``block_q``/``block_k``). The route follows from the dtype alone
-(:func:`_route`); it is not a knob, and nothing falls back from one kernel
-to the other:
+decode (the KV cache read once), operations at prefill. Every route keeps
+GQA inside the kernel and a float32 online softmax; none takes the TPU
+tile knobs (``block_q``/``block_k``). The route follows from the dtype and
+the shape alone (:func:`_route`); it is not a knob, and nothing falls back
+from one kernel to another:
 
-- bfloat16 on the card: ``csrc/flash_attention_sm90.cu``, both products on
-  the tensor cores (``wgmma``, bf16 operands, float32 accumulators; P is
-  rounded to bf16 before ``P.V``), K/V by TMA into two shared-memory
-  stages;
-- float32 on the card: ``csrc/flash_attention.cu``, float32 products on
-  the CUDA cores (the arithmetic of the plain version);
+- bfloat16 on the card: ``csrc/flash_attention_sm90.cu``, one block per
+  (batch, kv head, 64 query rows), both products on the tensor cores
+  (``wgmma``, bf16 operands, float32 accumulators; P is rounded to bf16
+  before ``P.V``), K/V by TMA into two shared-memory stages;
+- float32 on the card with few query rows per kv head (``group * Lq <=
+  DECODE_MAX_ROWS``, or ``Lq == 1``: a decode step): the decode route of
+  ``csrc/flash_attention.cu``. A block holds a tile of up to 8 of a kv
+  head's rows and one split of the keys (:func:`decode_plan`); in it the
+  keys are dealt to teams of lanes that each fold their own partial
+  softmax for all the tile's rows; a second kernel folds the splits'
+  partials in split order (none when there is one split);
+- float32 on the card otherwise: the tile route of
+  ``csrc/flash_attention.cu``, one block per (batch, kv head, 64 query
+  rows); float32 products on the CUDA cores, as on the decode route (the
+  arithmetic of the plain version);
 - a CPU tensor: the plain version in :mod:`.ref`.
 
 Strides are passed to the kernels, so a ``[B, L, H, Dh]`` activation or a
@@ -27,32 +35,60 @@ and TMA's tensor maps), is copied first.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Tuple
 
 import torch
 
 from . import _build, ref
 
-#: launches of either CUDA kernel since the last reset (set it to 0 to reset)
+#: launches of any CUDA route since the last reset (set it to 0 to reset);
+#: one a call, whatever number of kernels the call ran
 LAUNCHES = 0
 #: launches of the tensor-core kernel (bfloat16) since the last reset
 SM90_LAUNCHES = 0
+#: launches of the float32 decode route since the last reset
+DECODE_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 # route -> (source under csrc/, C entry point)
 KERNELS = {"sm90": ("flash_attention_sm90", "repro_flash_attention_sm90"),
-           "cuda_core": ("flash_attention", "repro_flash_attention")}
+           "cuda_core": ("flash_attention", "repro_flash_attention"),
+           "decode": ("flash_attention", "repro_flash_attention_decode")}
 
-# q, k, v, out, batch, heads, kv_heads, lq, lk, dh, strides, causal, window, scale,
-# stream
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
-             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+#: float32 attention takes the decode route when ``group * Lq`` (the query
+#: rows of one kv head) is at most this, and always at ``Lq == 1``.
+#: chip_smoke.py's ``route_sweep`` on the H100 (PERF.md section 6) finds the
+#: decode route ahead of the tile route at every row count it times, 2 to
+#: 32, by less as the rows grow; 16 (qwen3-0.6b at ``Lq = 8``, Kimi-K2 at
+#: ``Lq = 2``) is the most below qwen3's 16-token forward (32 rows), which
+#: stays on the tile route.
+DECODE_MAX_ROWS = 16
+#: the decode route cuts the keys into splits while its blocks stay within
+#: this many per SM ...
+DECODE_WAVES = 4
+#: ... but a split reads at least this many bytes of K and V
+DECODE_SPLIT_BYTES = 1 << 17
+DECODE_THREADS = 256  # threads of a decode block (csrc/flash_attention.cu: kDecodeThreads)
+DECODE_ROWS = 8  # query rows a decode block holds at most (kDecodeRowsMax)
+
+# q, k, v, out, batch, heads, kv_heads, lq, lk, dh, strides, causal, window, scale
+_COMMON = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+           + [ctypes.c_int] * 2 + [ctypes.c_float])
+# ..., then the decode route's scratch (partial acc, partial (m, l)), row tile,
+# n_splits, chunk; the stream last
+_ARGTYPES = {"sm90": _COMMON + [ctypes.c_void_p], "cuda_core": _COMMON + [ctypes.c_void_p],
+             "decode": _COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p]}
 
 
-def _route(q) -> str:
-    """Which kernel computes attention for ``q``, from its device type and
-    dtype alone: ``"sm90"`` (bfloat16 on the card), ``"cuda_core"``
-    (float32 on the card) or ``"plain"`` (the CPU)."""
+def _route(q, group: int = 1) -> str:
+    """Which kernel computes attention for ``q [B, H, Lq, Dh]`` whose heads
+    share kv heads in groups of ``group``, from its device type, dtype and
+    query rows alone: ``"sm90"`` (bfloat16 on the card), ``"decode"``
+    (float32 on the card, ``Lq == 1`` or ``group * Lq <= DECODE_MAX_ROWS``),
+    ``"cuda_core"`` (other float32 on the card) or ``"plain"`` (the CPU)."""
     if q.device.type == "cpu":
         return "plain"
     if q.device.type != "cuda":
@@ -60,15 +96,90 @@ def _route(q) -> str:
     if q.dtype == torch.bfloat16:
         return "sm90"
     if q.dtype == torch.float32:
-        return "cuda_core"
+        lq = q.shape[2]
+        return "decode" if lq == 1 or group * lq <= DECODE_MAX_ROWS else "cuda_core"
     raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
+
+
+def decode_layout(dh: int) -> Tuple[int, int, int]:
+    """``(lanes, teams, unit)`` of a decode block at head dim ``dh``
+    (``csrc/flash_attention.cu``, ``Decode<DH>``): a team of ``lanes``
+    lanes holds one key row (4 or 8 of its floats a lane), the block's
+    ``teams`` teams take the keys of their split in turn, and a team folds
+    ``unit`` keys at a time."""
+    lanes = min(32, dh // 4)
+    vec = dh // (4 * lanes)
+    return lanes, DECODE_THREADS // lanes, 8 // vec
+
+
+def split_chunk(lk: int, splits: int) -> Tuple[int, int]:
+    """Cut ``lk`` keys into at most ``splits`` splits of ``chunk =
+    ceil(lk / splits)`` keys (the last may be shorter): ``(n_splits,
+    chunk)`` with ``n_splits >= 1`` and no split empty (for ``lk == 0``:
+    one split, of no key)."""
+    chunk = -(-max(lk, 1) // splits)
+    return max(1, -(-lk // chunk)), chunk
+
+
+def _least_split(dh: int) -> int:
+    """The fewest keys a split of more than one holds: one round of the
+    block's teams, and DECODE_SPLIT_BYTES of K and V."""
+    _, teams, unit = decode_layout(dh)
+    return max(teams * unit, DECODE_SPLIT_BYTES // (8 * dh))
+
+
+def decode_splits(lk: int, blocks: int, dh: int, n_sm: int) -> Tuple[int, int]:
+    """The decode route's key splits, from the shape and the card alone:
+    ``(n_splits, chunk)`` (see :func:`split_chunk`) for ``lk`` keys at head
+    dim ``dh``, where ``blocks`` blocks (batch x kv heads x row tiles) each
+    take every split, on a card of ``n_sm`` SMs. As many splits as keep
+    the blocks within ``DECODE_WAVES`` per SM (rounded down, so that no
+    last wave runs a few blocks alone), but no split under DECODE_SPLIT_BYTES
+    of K and V nor under one round of the block's teams: at qwen3's decode
+    (32 blocks, Dh 128) one split below 256 keys, 16 at 4,096."""
+    want = min(DECODE_WAVES * n_sm // max(blocks, 1), lk // _least_split(dh))
+    return split_chunk(lk, max(1, want))
+
+
+def decode_row_tile(rows: int, kv_heads: int, lk: int, dh: int, n_sm: int) -> int:
+    """Query rows a decode block holds (its ``R``, one of 1, 2, 4 and 8,
+    which ``csrc/flash_attention.cu`` instantiates) for ``rows`` rows of
+    each of ``kv_heads`` (batch x kv heads) over ``lk`` keys: the least
+    that holds the rows (8 at most), halved while the blocks, even cut into
+    the most splits ``lk`` allows, would not give every one of the ``n_sm``
+    SMs a block. A block's warps take its rows one after another, so at a
+    short cache fewer rows a block (K and V then read once a tile, from
+    L2) finish sooner; at a long one the splits fill the card and R stays."""
+    r = 1
+    while r < min(rows, DECODE_ROWS):
+        r *= 2
+    most = max(1, lk // _least_split(dh))
+    while r > 1 and kv_heads * -(-rows // r) * most < n_sm:
+        r //= 2
+    return r
+
+
+def decode_plan(batch: int, kv_heads: int, rows: int, lk: int, dh: int,
+                n_sm: int) -> Tuple[int, int, int, int]:
+    """``(row_tile, row_tiles, n_splits, chunk)`` of a decode-route call:
+    :func:`decode_row_tile`, the tiles a kv head's ``rows`` rows take, and
+    :func:`decode_splits` over the ``batch x kv_heads x row_tiles``
+    blocks."""
+    r = decode_row_tile(rows, batch * kv_heads, lk, dh, n_sm)
+    tiles = -(-rows // r)
+    return (r, tiles, *decode_splits(lk, batch * kv_heads * tiles, dh, n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib(route: str):
     source, entry = KERNELS[route]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[route]
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,24 +202,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``Lk - Lq + i``; ``window > 0`` keeps keys ``> position - window``.
     Matches :func:`.ref.flash_attention_ref` (in bfloat16 within bf16's
     rounding: the products take bf16 operands)."""
-    global LAUNCHES, SM90_LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q [B, H, Lq, Dh] and k, v [B, Hkv, Lk, Dh], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv = k.shape[1]
     if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or h % hkv:
         raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
-    route = _route(q)
+    route = _route(q, h // hkv)
     if route == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _launch(route, q, k, v, causal, window)
+
+
+def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """Run ``route``'s kernel(s) on CUDA tensors whose shapes
+    :func:`flash_attention` has checked. :func:`flash_attention` passes the
+    route :func:`_route` chose; chip_smoke.py also calls it with the other
+    float32 route, to time both at one shape."""
+    global LAUNCHES, SM90_LAUNCHES, DECODE_LAUNCHES
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one CUDA device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if (route == "sm90") != (q.dtype == torch.bfloat16):
+        raise TypeError(f"flash_attention: route {route} does not take {q.dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
     if max(b * h * lq, lk) >= 2**31:
@@ -118,12 +242,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    rc = _lib(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq,
-                     lk, dh, strides, int(causal), int(window), 1.0 / math.sqrt(dh),
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, dh,
+            strides, int(causal), int(window), 1.0 / math.sqrt(dh)]
+    if route == "decode":
+        row_tile, _, n_splits, chunk = decode_plan(b, hkv, h // hkv * lq, lk, dh,
+                                                   _sm_count(q.device.index))
+        scratch = [0, 0]
+        if n_splits > 1:  # each row's partial (acc, then m and l) of every split
+            part_acc = torch.empty(b * h * lq, n_splits, dh, dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty(b * h * lq, n_splits, 2, dtype=torch.float32,
+                                  device=q.device)
+            scratch = [part_acc.data_ptr(), part_ml.data_ptr()]
+        args += [*scratch, row_tile, n_splits, chunk]
+    rc = _lib(route)(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention ({route}) kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     if route == "sm90":
         SM90_LAUNCHES += 1
+    elif route == "decode":
+        DECODE_LAUNCHES += 1
     return out

@@ -245,6 +245,78 @@ def flash_attention_ref(
     return out.to(q.dtype)
 
 
+def _fold_partials(parts, rescale: bool = True):
+    """Fold partial ``(m, l, acc)`` states in list order into one: each
+    weighted by ``exp(m_part - m)`` (0 for a part that saw no key) against
+    the largest ``m``. ``rescale=False`` weights every live part 1 (a fault:
+    the parts' maxima are then mixed)."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    l_sum = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mp, lp, ap in parts:
+        live = mp > float("-inf")
+        w = torch.exp(mp - m) if rescale else torch.ones_like(m)
+        w = torch.where(live, w, torch.zeros_like(w))
+        l_sum = l_sum + lp * w
+        acc = acc + ap * w[..., None]
+    return m, l_sum, acc
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True, window: int = 0, *, n_splits: int,
+                              chunk: int, teams: int, unit: int,
+                              rescale: bool = True) -> torch.Tensor:
+    """The decode route's schedule (``csrc/flash_attention.cu``,
+    ``flash_decode_kernel`` and its combine) in plain PyTorch, for the
+    tests: what :func:`flash_attention_ref` computes, taken in the
+    kernel's order. Split ``s`` holds keys ``[s * chunk, (s + 1) * chunk)``
+    (cut at ``Lk``); in it, team ``t`` of ``teams`` folds keys ``s * chunk
+    + t``, ``+ teams``, ... in that order, ``unit`` at a time, into its own
+    running ``(m, l, acc)``; the teams' states are folded in team order,
+    then the splits' in split order, and ``acc`` is divided by ``l``
+    clamped at ``1e-30``. ``rescale=False`` folds the splits without their
+    ``exp(m_s - m)`` weights: the fault control of ``chip_smoke.py``."""
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(dh))
+    q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    vf = v.float()
+    neg = torch.full((b, h, lq), float("-inf"), device=q.device)
+    zero_acc = torch.zeros(b, h, lq, dh, device=q.device)
+    splits = []
+    for s in range(n_splits):
+        s0, s1 = s * chunk, min(lk, (s + 1) * chunk)
+        parts = []
+        for t in range(teams):
+            keys = torch.arange(s0 + t, max(s0 + t, s1), teams, device=q.device)
+            m, l_sum, acc = neg, torch.zeros_like(neg), zero_acc
+            for u in range(0, keys.numel(), unit):
+                kk = keys[u:u + unit]
+                sc = logits[..., kk]
+                live = sc.amax(dim=-1) > float("-inf")  # the row sees a key of this unit
+                m_new = torch.where(live, torch.maximum(m, sc.amax(dim=-1)), m)
+                alpha = torch.where(live, torch.exp(m - m_new), torch.ones_like(m))
+                p = torch.where(sc > float("-inf"), torch.exp(sc - m_new[..., None]),
+                                torch.zeros_like(sc))
+                l_sum = l_sum * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[..., kk, :])
+                m = m_new
+            parts.append((m, l_sum, acc))
+        splits.append(_fold_partials(parts))
+    _, l_sum, acc = _fold_partials(splits, rescale)
+    return (acc / l_sum.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
 def moe_gather_ref(
     tokens: torch.Tensor,  # [G, T, D] token table of each group
     rows: Optional[torch.Tensor],  # [G, R] token row of each stream slot, or None

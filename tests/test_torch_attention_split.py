@@ -1,0 +1,236 @@
+"""The float32 decode route's schedule, held to the reference on the CPU.
+
+``csrc/flash_attention.cu``'s decode route cuts the keys into splits
+(``kernels/flash_attention.py::decode_splits``), deals each split's keys
+to the block's teams of lanes (team ``t`` takes keys ``t``, ``t + teams``,
+... a ``unit`` at a time), folds each team's partial ``(m, l, acc)``, then
+the teams in team order and the splits in split order. The CUDA kernel
+runs only on the card (``tests/test_torch_gpu.py``); here
+``ref.flash_attention_split_ref`` takes the same steps in plain PyTorch,
+with the layout the wrapper reads of the kernel (``decode_layout``), and
+is held to the reference's Pallas kernel in interpret mode within the
+reference tests' ``2e-3`` and to the port's plain version within ``1e-5``
+(both are float32; only the order of the sums differs).
+"""
+import itertools
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention as fa
+
+H100_SMS = 132
+LKS = (1, 2, 31, 32, 33)
+MASKS = [(True, 0), (False, 0), (True, 8)]
+HKV = 2
+
+
+def _case(b, group, lq, lk, dh, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, HKV * group, lq, dh)).astype(np.float32)
+    k = rng.normal(size=(b, HKV, lk, dh)).astype(np.float32)
+    v = rng.normal(size=(b, HKV, lk, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _model(q, k, v, causal, window, n_splits, chunk, rescale=True):
+    _, teams, unit = fa.decode_layout(q.shape[-1])
+    return ref.flash_attention_split_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal, window, n_splits=n_splits,
+        chunk=chunk, teams=teams, unit=unit, rescale=rescale).numpy()
+
+
+def _plain(q, k, v, causal, window):
+    return ref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal,
+                                   window).numpy()
+
+
+def _pallas(q, k, v, causal, window):
+    return np.asarray(ref_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                              block_q=64, block_k=64, interpret=True))
+
+
+def _split_counts(lk, largest):
+    """Every distinct ``(n_splits, chunk)`` that asking for 1..largest splits gives."""
+    return sorted({fa.split_chunk(lk, s) for s in range(1, largest + 1)})
+
+
+# --------------------------------------------------------------------------
+# the split function
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lk", list(range(0, 70)) + [127, 128, 129, 1000, 4095, 4096, 4097])
+def test_split_chunk_cuts_every_key_into_one_split(lk):
+    """At least one split, none empty, and every key in exactly one."""
+    for asked in range(1, 70):
+        n, chunk = fa.split_chunk(lk, asked)
+        assert 1 <= n <= asked and chunk >= 1
+        owner = [kp // chunk for kp in range(lk)]
+        assert owner == sorted(owner) and set(owner) == (set(range(n)) if lk else set())
+        assert all(min(lk, (s + 1) * chunk) > s * chunk for s in range(n)) or lk == 0
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_decode_splits_keep_their_limits(dh):
+    """``decode_splits`` never asks for more blocks than about DECODE_WAVES
+    an SM, never cuts a split under DECODE_SPLIT_BYTES of K and V (nor
+    under one round of the teams) unless there is one split, and depends
+    on nothing but its arguments."""
+    _, teams, unit = fa.decode_layout(dh)
+    least = max(teams * unit, fa.DECODE_SPLIT_BYTES // (8 * dh))
+    for lk, blocks, n_sm in itertools.product([0, 1, 33, 128, 129, 700, 4096, 70000],
+                                              [1, 2, 32, 132, 600, 5000], [1, 16, 132]):
+        n, chunk = fa.decode_splits(lk, blocks, dh, n_sm)
+        assert (n, chunk) == fa.decode_splits(lk, blocks, dh, n_sm)
+        assert n >= 1 and (n - 1) * chunk < max(lk, 1) <= n * chunk
+        assert n <= max(1, -(-fa.DECODE_WAVES * n_sm // blocks))
+        if n > 1:
+            assert chunk >= least
+
+
+def test_decode_plan_at_the_paths_shapes():
+    """qwen3-0.6b's decode (4 x 8 kv heads, 2 rows each) and Kimi-K2's (8
+    rows each) over the CLI's 32-slot cache: one split, and one row a
+    block, so that 64 and 256 blocks reach more of the card's 132 SMs
+    than 32 would. Over a 4,096-key cache the splits fill the card, the
+    rows stay in one tile, and 16 splits keep 32 x 16 = 512 blocks within
+    four an SM."""
+    for lk in range(1, 256):
+        assert fa.decode_splits(lk, 32, 128, H100_SMS) == (1, lk)
+    assert fa.decode_plan(4, 8, 2, 32, 128, H100_SMS) == (1, 2, 1, 32)
+    assert fa.decode_plan(4, 8, 8, 32, 128, H100_SMS) == (1, 8, 1, 32)
+    assert fa.decode_plan(4, 8, 2, 4096, 128, H100_SMS) == (2, 1, 16, 256)
+    assert fa.decode_plan(4, 8, 8, 4096, 128, H100_SMS) == (8, 1, 16, 256)
+    assert fa.decode_plan(2, 1, 48, 32, 128, H100_SMS) == (1, 48, 1, 32)
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_decode_row_tile_keeps_its_limits(dh):
+    """R is 1, 2, 4 or 8, holds all the rows when they fit one tile and
+    the blocks fill the card, and is only made smaller while the blocks
+    at the most splits the length allows would leave SMs without one."""
+    least = max(fa.decode_layout(dh)[1] * fa.decode_layout(dh)[2],
+                fa.DECODE_SPLIT_BYTES // (8 * dh))
+    for rows, kv_heads, lk, n_sm in itertools.product([1, 2, 3, 8, 9, 16, 48], [1, 4, 32, 200],
+                                                      [0, 32, 4096], [16, 132]):
+        r = fa.decode_row_tile(rows, kv_heads, lk, dh, n_sm)
+        assert r in (1, 2, 4, 8)
+        full = min(8, 1 << (rows - 1).bit_length())
+        most = max(1, lk // least)
+        assert r == full or kv_heads * -(-rows // (2 * r)) * most < n_sm
+        if kv_heads * -(-rows // full) * most >= n_sm:
+            assert r == full
+
+
+def test_decode_layout_matches_the_source():
+    """The layout the model takes is the kernel's: 256 threads a block, a
+    team of Dh/4 lanes (32 at most), 8/vec keys a unit, 8 rows a block."""
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"constexpr int kDecodeThreads = (\d+);", text).group(1) == \
+        str(fa.DECODE_THREADS)
+    assert re.search(r"constexpr int kDecodeRowsMax = (\d+);", text).group(1) == \
+        str(fa.DECODE_ROWS)
+    assert "kLanes = DH / 4 < 32 ? DH / 4 : 32;" in text
+    assert "kTeams = kDecodeThreads / kLanes;" in text
+    assert "kUnit = 8 / kVec;" in text
+    assert [fa.decode_layout(d) for d in fa.HEAD_DIMS] == [(8, 32, 8), (16, 16, 8), (32, 8, 8),
+                                                           (32, 8, 4)]
+
+
+# --------------------------------------------------------------------------
+# the schedule against the reference
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("lq", [1, 2])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_split_model_matches_pallas(dh, group, lq, causal, window):
+    """Every head dim, GQA group, Lq of 1 and 2 and mask, at Lk = 1, 2, 31,
+    32 and 33, under 1, 2, 3 and Lk splits: the model within 2e-3 of the
+    Pallas kernel (at Lk = 33) and within 1e-5 of the plain version."""
+    for lk in LKS:
+        q, k, v = _case(2, group, lq, lk, dh, seed=dh + 10 * group + 100 * lq + lk)
+        plain = _plain(q, k, v, causal, window)
+        pallas = _pallas(q, k, v, causal, window) if lk == LKS[-1] else None
+        if pallas is not None:
+            np.testing.assert_allclose(plain, pallas, rtol=2e-3, atol=2e-3)
+        for n, chunk in sorted({fa.split_chunk(lk, s) for s in (1, 2, 3, lk)}):
+            got = _model(q, k, v, causal, window, n, chunk)
+            np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"lk={lk} splits={n} chunk={chunk}")
+            if pallas is not None:
+                np.testing.assert_allclose(got, pallas, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_split_model_under_every_split_count(dh, causal, window):
+    """Lk = 33 under every split count from 1 to 33 (each split then holds
+    one key at the end), group 2 and Lq = 2."""
+    lk = 33
+    q, k, v = _case(1, 2, 2, lk, dh, seed=7 * dh)
+    plain = _plain(q, k, v, causal, window)
+    for n, chunk in _split_counts(lk, lk):
+        np.testing.assert_allclose(_model(q, k, v, causal, window, n, chunk), plain,
+                                   rtol=1e-5, atol=1e-5, err_msg=f"splits={n}")
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_split_model_over_a_long_cache(dh):
+    """A few thousand keys under every split count from 1 to the most
+    ``decode_splits`` gives at that length (one block, the H100's SMs),
+    held to Pallas and to the plain version; the split the wrapper takes
+    for qwen3's 32 blocks among them."""
+    lk = 2500
+    q, k, v = _case(1, 2, 1, lk, dh, seed=dh)
+    plain = _plain(q, k, v, True, 0)
+    np.testing.assert_allclose(plain, _pallas(q, k, v, True, 0), rtol=2e-3, atol=2e-3)
+    largest = fa.decode_splits(lk, 1, dh, H100_SMS)[0]
+    assert largest > 1
+    counts = _split_counts(lk, largest)
+    assert fa.decode_splits(lk, 32, dh, H100_SMS) in counts
+    for n, chunk in counts:
+        np.testing.assert_allclose(_model(q, k, v, True, 0, n, chunk), plain, rtol=1e-5,
+                                   atol=1e-5, err_msg=f"splits={n}")
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+def test_split_model_zeroes_rows_without_keys(dh):
+    """Rows whose keys are all masked come out 0, not NaN: causal with
+    more queries than keys (the first query sits before every key); under
+    a window of 1 each row sees one key, so every other split and team
+    holds none of its keys and must weigh nothing; and no key at all."""
+    q, k, v = _case(1, 2, 2, 1, dh, seed=3)
+    for n, chunk in [(1, 1)]:
+        out = _model(q, k, v, True, 0, n, chunk)
+        assert np.isfinite(out).all()
+        assert np.array_equal(out[:, :, 0], np.zeros_like(out[:, :, 0]))
+        np.testing.assert_allclose(out, _plain(q, k, v, True, 0), rtol=1e-5, atol=1e-5)
+    q, k, v = _case(1, 8, 2, 40, dh, seed=4)
+    for n, chunk in _split_counts(40, 5):
+        out = _model(q, k, v, True, 1, n, chunk)
+        np.testing.assert_allclose(out, _plain(q, k, v, True, 1), rtol=1e-5, atol=1e-5)
+    q, k, v = _case(1, 2, 1, 0, dh, seed=5)
+    out = _model(q, k, v, True, 0, *fa.decode_splits(0, 2, dh, H100_SMS))
+    assert np.array_equal(out, np.zeros_like(out))
+
+
+def test_split_rescale_fault_fails_the_check():
+    """The splits folded without their exp(m_s - m) weights (chip_smoke.py's
+    fault control) miss the plain version by far more than 2e-3 over a
+    long cache, so the check the kernel passes can fail there."""
+    lk = 2048
+    q, k, v = _case(1, 2, 1, lk, 128, seed=11)
+    n, chunk = fa.decode_splits(lk, 2, 128, H100_SMS)
+    assert n > 1
+    plain = _plain(q, k, v, True, 0)
+    bad = _model(q, k, v, True, 0, n, chunk, rescale=False)
+    assert not np.allclose(bad, plain, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_model(q, k, v, True, 0, n, chunk), plain, rtol=1e-5, atol=1e-5)

@@ -11,10 +11,11 @@ Each kernel is held to its plain PyTorch version on the same inputs
 the gather exactly; attention within 2e-3 in float32 and 3e-2 in
 bfloat16, the reference tests' tolerances), each program to the same
 program on the CPU, and the LM path's decode to its own forward.
-Attention takes its route by dtype: float32 the CUDA-core kernel,
-bfloat16 the tensor-core (sm90) kernel, which multiplies bf16 operands
-(P rounded to bf16) and so is held to the plain float32 arithmetic within
-bf16's 3e-2.
+Attention takes its route by dtype and shape: bfloat16 the tensor-core
+(sm90) kernel, which multiplies bf16 operands (P rounded to bf16) and so
+is held to the plain float32 arithmetic within bf16's 3e-2; float32 the
+CUDA-core kernel's decode route at few query rows per kv head (a decode
+step) and its tile route otherwise.
 """
 import dataclasses
 import math
@@ -685,6 +686,137 @@ def test_cuda_flash_attention_reads_the_cache_in_place(cuda):
     out = fa.flash_attention(q, k, k, causal=True)
     assert torch.equal(out[:, :, :3], torch.zeros_like(out[:, :, :3]))
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=2e-3, atol=2e-3)
+
+
+DECODE_LK = (1, 2, 31, 32, 33, 4096)  # around the teams' rounds; the last split across blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("lq", [1, 2])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_cuda_decode_route_matches_plain(cuda, dh, group, lq, causal, window):
+    """The float32 decode route (few query rows per kv head) at every head
+    dim, GQA group, Lq of 1 and 2 and mask, over key lengths around its
+    rounds and a 4,096-key cache that decode_splits cuts across blocks:
+    one launch a call, the decode counter up by one, within 2e-3 of the
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(dh + group + lq)
+    hkv = 2
+    for lk in DECODE_LK:
+        q = torch.randn(2, hkv * group, lq, dh, generator=gen, device=cuda)
+        k, v = (torch.randn(2, hkv, lk, dh, generator=gen, device=cuda) for _ in range(2))
+        assert fa._route(q, group) == "decode"
+        before = (fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        assert (fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES) == \
+            (before[0] + 1, before[1], before[2] + 1)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3,
+                                   msg=lambda m: f"lk={lk}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [17, 32, 4096])
+def test_cuda_decode_route_reads_the_cache_in_place(cuda, lk):
+    """qwen3-0.6b's decode step: q [4, 16, 1, 128] out of a [B, 1, H, Dh]
+    activation and the [B, buf, Hkv, Dh] cache prefix, both read through
+    strides (no copy), the output in q's layout; and a granite-20b-like
+    group of 48 rows over one kv head (six row tiles)."""
+    gen = torch.Generator(device=cuda).manual_seed(lk)
+    x = torch.randn(4, 1, 16, 128, generator=gen, device=cuda)
+    cache = torch.randn(4, lk + 5, 8, 128, generator=gen, device=cuda)
+    q, kv = x.transpose(1, 2), cache[:, :lk].transpose(1, 2)
+    assert fa._aligned(kv) is kv and fa._aligned(q) is q
+    before = fa.DECODE_LAUNCHES
+    got = fa.flash_attention(q, kv, kv)
+    assert fa.DECODE_LAUNCHES == before + 1
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, kv, kv), rtol=2e-3, atol=2e-3)
+    q = torch.randn(2, 48, 1, 128, generator=gen, device=cuda)
+    k, v = (torch.randn(2, 1, lk, 128, generator=gen, device=cuda) for _ in range(2))
+    got = fa.flash_attention(q, k, v)
+    assert fa.DECODE_LAUNCHES == before + 2
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_cuda_decode_route_zeroes_rows_without_keys(cuda, dh):
+    """Rows whose keys are all masked come out exactly 0: causal with more
+    queries than keys, a window of 1 over a cache cut into splits (every
+    split but one holds none of a row's keys), and no key at all."""
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q = torch.randn(1, 8, 2, dh, generator=gen, device=cuda)
+    k = torch.randn(1, 2, 1, dh, generator=gen, device=cuda)
+    out = fa.flash_attention(q, k, k, causal=True)
+    assert torch.equal(out[:, :, 0], torch.zeros_like(out[:, :, 0]))
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=2e-3, atol=2e-3)
+    k = torch.randn(1, 2, 4096, dh, generator=gen, device=cuda)
+    assert fa.decode_plan(1, 2, 8, 4096, dh, fa._sm_count(0))[2] > 1
+    out = fa.flash_attention(q, k, k, causal=True, window=1)
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k, window=1), rtol=2e-3,
+                               atol=2e-3)
+    empty = torch.zeros(1, 2, 0, dh, device=cuda)
+    before = fa.DECODE_LAUNCHES
+    out = fa.flash_attention(q[:, :, :1], empty, empty)
+    assert fa.DECODE_LAUNCHES == before + 1
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [32, 4096])
+def test_cuda_decode_route_gives_the_same_bits_twice(cuda, lk):
+    """No atomics, and the splits and teams fold in a fixed order: a
+    second call repeats the first, with one split and with many."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(4, 64, 1, 128, generator=gen, device=cuda)
+    k, v = (torch.randn(4, 8, lk, 128, generator=gen, device=cuda) for _ in range(2))
+    assert (fa.decode_plan(4, 8, 8, lk, 128, fa._sm_count(0))[2] > 1) == (lk > 32)
+    assert torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_launches_count_once_a_call(cuda):
+    """DECODE_LAUNCHES goes up by exactly one a call, whether the call ran
+    one kernel (one split) or two (the splits' combine); the tile route
+    and bfloat16 leave it alone."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn(1, 4, 1, 64, generator=gen, device=cuda)
+    for lk in (5, 300, 5000):
+        k = torch.randn(1, 2, lk, 64, generator=gen, device=cuda)
+        before = (fa.LAUNCHES, fa.DECODE_LAUNCHES)
+        fa.flash_attention(q, k, k)
+        assert (fa.LAUNCHES, fa.DECODE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    before = (fa.LAUNCHES, fa.DECODE_LAUNCHES)
+    fa.flash_attention(torch.randn(1, 4, 64, 64, device=cuda), k, k)
+    fa.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert (fa.LAUNCHES, fa.DECODE_LAUNCHES) == (before[0] + 2, before[1])
+
+
+@pytest.mark.gpu
+def test_cuda_qwen3_decode_step_takes_the_decode_route(cuda):
+    """qwen3-0.6b's smoke model in float32: each decode step runs one
+    decode-route launch a layer, the 16-token forward one tile-route
+    launch a layer, and every step's logits stay within 2e-3 * scale of
+    the forward's."""
+    model = _smoke_model("qwen3-0.6b", torch.float32, cuda, seed=1)
+    n_layers = model.cfg.n_layers
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 16), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    before = (fa.LAUNCHES, fa.DECODE_LAUNCHES)
+    full, _ = model.forward(toks)
+    assert (fa.LAUNCHES, fa.DECODE_LAUNCHES) == (before[0] + n_layers, before[1])
+    cache = model.init_cache(2, 16)
+    for t in range(16):
+        before = (fa.LAUNCHES, fa.DECODE_LAUNCHES)
+        lg, cache = model.decode_step(cache, toks[:, t:t + 1])
+        assert (fa.LAUNCHES, fa.DECODE_LAUNCHES) == (before[0] + n_layers,
+                                                     before[1] + n_layers)
+        err = float((lg[:, 0] - full[:, t]).abs().max())
+        assert err < 2e-3 * max(float(full[:, t].abs().max()), 1.0), (t, err)
 
 
 @pytest.mark.gpu

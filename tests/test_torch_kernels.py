@@ -244,9 +244,10 @@ def test_flash_attention_rejects_bad_shapes():
         fa.flash_attention(q, q, q[..., :16])
 
 
-def _stand_in(device_type: str, dtype: torch.dtype):
+def _stand_in(device_type: str, dtype: torch.dtype, lq: int = 64):
     """What the route reads of q, and nothing else: no card is needed."""
-    return types.SimpleNamespace(device=types.SimpleNamespace(type=device_type), dtype=dtype)
+    return types.SimpleNamespace(device=types.SimpleNamespace(type=device_type), dtype=dtype,
+                                 shape=(1, 8, lq, 32))
 
 
 @pytest.mark.parametrize("device_type,dtype,route", [
@@ -268,6 +269,65 @@ def test_flash_attention_routes_have_built_sources(route):
     source, entry = fa.KERNELS[route]
     assert source in _build.SOURCES
     assert f'extern "C" int {entry}(' in (_build.CSRC / f"{source}.cu").read_text()
+
+
+@pytest.mark.parametrize("group,lq,route", [
+    (2, 1, "decode"), (8, 1, "decode"), (48, 1, "decode"), (1, 1, "decode"),
+    (2, 2, "decode"), (8, 2, "decode"), (2, 8, "decode"), (1, 16, "decode"),
+    (2, 16, "cuda_core"), (8, 4, "cuda_core"), (1, 17, "cuda_core"), (4, 64, "cuda_core")])
+def test_flash_attention_float32_route_follows_the_rows(group, lq, route):
+    """float32 on the card takes the decode route at Lq = 1 whatever the
+    group (qwen3-0.6b's 2, Kimi-K2's 8, granite-20b's 48) and whenever
+    group x Lq is at most DECODE_MAX_ROWS; qwen3's 16-token forward (32
+    rows) and anything larger take the tile route."""
+    assert (group * lq <= fa.DECODE_MAX_ROWS or lq == 1) == (route == "decode")
+    assert fa._route(_stand_in("cuda", torch.float32, lq), group) == route
+
+
+@pytest.mark.parametrize("group,lq", [(1, 1), (8, 1), (48, 1), (2, 2), (2, 16), (4, 64)])
+def test_flash_attention_decode_route_takes_only_float32_on_the_card(group, lq):
+    """bfloat16 never takes the decode route (it has the tensor-core
+    kernel), and a CPU tensor always takes the plain version."""
+    assert fa._route(_stand_in("cuda", torch.bfloat16, lq), group) == "sm90"
+    for dtype in (torch.float32, torch.bfloat16):
+        assert fa._route(_stand_in("cpu", dtype, lq), group) == "plain"
+
+
+def test_flash_attention_decode_on_the_cpu_launches_nothing():
+    """A decode-shaped call on CPU tensors runs the plain version: no
+    counter moves, and the result is the plain version's."""
+    rng = np.random.default_rng(24)
+    q = torch.from_numpy(rng.normal(size=(2, 16, 1, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 8, 32, 128)).astype(np.float32))
+            for _ in range(2))
+    before = (fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES)
+    got = fa.flash_attention(q, k, v)
+    assert (fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES) == before
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v))
+
+
+def test_flash_attention_launch_refuses_a_route_of_another_dtype():
+    """Each route's kernel takes one dtype: asked to run bfloat16 on a
+    float32 route, or float32 on the tensor-core route, the launcher
+    raises before it reaches a kernel."""
+    x = torch.zeros(1, 2, 1, 32)
+    for route, dtype in (("decode", torch.bfloat16), ("cuda_core", torch.bfloat16),
+                         ("sm90", torch.float32)):
+        t = x.to(dtype)
+        with pytest.raises(TypeError, match="does not take"):
+            fa._launch(route, t, t, t, True, 0)
+
+
+def test_flash_attention_decode_route_has_its_entry_point():
+    """The decode route is a second entry point of the float32 source,
+    which _build compiles; its kernels use no atomics."""
+    source, entry = fa.KERNELS["decode"]
+    assert source == fa.KERNELS["cuda_core"][0] and source in _build.SOURCES
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    assert f'extern "C" int {entry}(' in text
+    assert "flash_decode_kernel" in text and "flash_decode_combine_kernel" in text
+    decode = text[text.index("// decode route"):]
+    assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", decode)
 
 
 def test_flash_attention_sm90_source_keeps_its_contract():
