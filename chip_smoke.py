@@ -41,7 +41,13 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    cache a fault control (the splits folded without their exp(m_s - m)
    weights, in plain PyTorch) must fail the float32 check. A route sweep
    times both float32 routes at 2-32 query rows a kv head (the threshold's
-   measurement). The batched launches
+   measurement). The float32 tile route (every instantiation's ``ptxas``
+   registers, spills and shared memory in the build phase; a spill at Dh <=
+   128 fails the run) also runs at qwen3-0.6b's 16-token forward shape,
+   and at the 2048-token prefill row gives its device time, its tile plan,
+   the same bits on two calls and a fault control (its schedule in plain
+   PyTorch without the per-tile rescale) that must fail the float32 check.
+   The batched launches
    (16 rows over the bind's edges, offsets and list) of ``shuffle_reduce``
    (f32 ``+``, i32 min, i32 ``|``, a row stride of 0) and ``edge_stream``
    (i32 add/min with shared weights, f32 src/``+``, i32 src/``|``) are
@@ -83,7 +89,13 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    batch 4 x 2048 prompt tokens (wall time, device busy time and the
    tensor-core attention's share of it, launches, peak memory), after the
    kernel is held to its plain version at exactly that attention shape.
+   Then the same forward in float32 (``lm_prefill_f32``): 28 tile-route
+   launches asserted, none of the decode route or the sm90 kernel, the
+   tile route held to its plain version at that attention shape, the same
+   bits on two calls, its share of the forward's device time beside the
+   attention's bound.
 6. The last line is ``{"ok": true, "device": {...}}``.
+
 """
 from __future__ import annotations
 
@@ -1058,7 +1070,7 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
                     "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"],
                     "device_bound_share": b_ms / kd["ms"],
                     "kernel_over_library_device": kd["ms"] / ld["ms"]})
-        if route == "decode":  # the tile route on the same inputs: the float32 kernel before
+        if route == "decode":  # the tile route on the same inputs, at the tile tile_plan picks
             tile = fa._launch("cuda_core", q, k, v, causal, 0)
             check_close("flash_attention tile route", tile, ref.flash_attention_ref(q, k, v,
                                                                                     causal))
@@ -1124,7 +1136,10 @@ def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
     attention (one query per head over the 32-slot cache, read in its
     [B, buf, Hkv, Dh] layout) and a prefill-size causal attention, each in
     bf16 (the tensor-core kernel) and in float32 (the CUDA-core kernel);
-    the decode step's dispatch and a 4096-token prefill dispatch."""
+    the decode step's dispatch and a 4096-token prefill dispatch. The
+    float32 prefill row (the tile route) also gives its device time, the
+    same bits on two calls, its tile plan and the tile rescale fault
+    control."""
     gen = torch.Generator(device=dev).manual_seed(1)
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     buf = LM_PROMPT + LM_GEN
@@ -1140,7 +1155,14 @@ def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
         s = 2048
         q, k, v = (torch.randn(1, n, s, dh, generator=gen, device=dev).to(dtype)
                    for n in (h, hkv, hkv))
-        rows[name] = _attention_row(fa, ref, q, k, v, True, s * (s + 1) // 2, 3)
+        rows[name] = _attention_row(fa, ref, q, k, v, True, s * (s + 1) // 2, 3,
+                                    device_side=dtype == torch.float32)
+        if dtype == torch.float32:
+            rows[name]["same_bits_twice"] = torch.equal(fa.flash_attention(q, k, v),
+                                                        fa.flash_attention(q, k, v))
+            assert rows[name]["same_bits_twice"], f"{name}: two calls gave different bits"
+            rows[name]["tile"] = tile_facts(fa, q, k)
+            rows[name]["tile_rescale_control"] = tile_rescale_control(fa, ref, q, k, v)
         del q, k, v, ck, cv
     rows["moe_gather"] = _dispatch_row(md, ref, moe_mod, cfg, LM_BATCH, gen, 20,
                                        device_side=True)
@@ -1195,6 +1217,80 @@ def split_rescale_control(fa, ref, q, k, v) -> dict:
     assert out["model_passes"], f"the decode schedule's model fails the check: {out}"
     assert not out["no_split_rescale_passes"], f"the rescale control passes the check: {out}"
     return out
+
+
+def tile_resources(ptxas: list, fa) -> list:
+    """``ptxas`` registers and spills of every instantiation of the float32
+    tile route (head dim, large or small tile), with the dynamic shared
+    memory its launch asks for (the wrapper's count, which a CPU test holds
+    to the source's ``Tile`` constants). A spill at Dh <= 128 fails the
+    run."""
+    rows = [r for r in ptxas if "flash_attention_kernel" in r["entry"]]
+    if not rows:  # a cached build prints no ptxas log
+        return [{"registers": "not measured: the build was cached"}]
+    out = []
+    for r in rows:
+        small = re.search(r"Lb([01])E", r["entry"]).group(1) == "1"
+        bm, bn = fa.tile_shape(r["dh"], small)
+        smem = fa.tile_smem_bytes(r["dh"], small)
+        spills = r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+        assert r["dh"] > 128 or spills == 0, f"tile route spills at Dh {r['dh']}: {r}"
+        out.append({"dh": r["dh"], "row_tile": bm, "key_tile": bn, "registers": r.get("registers"),
+                    "spill_store_bytes": r.get("spill_store_bytes"),
+                    "spill_load_bytes": r.get("spill_load_bytes"), "dynamic_smem_bytes": smem})
+    return sorted(out, key=lambda x: (x["dh"], -x["row_tile"]))
+
+
+def tile_facts(fa, q, k) -> dict:
+    """The tile route's plan for q over k: rows a block holds, keys a tile,
+    tiles a kv head, blocks, and the block's shared memory."""
+    b, h, lq, dh = q.shape
+    hkv = k.shape[1]
+    bm, bn, tiles = fa.tile_plan(b, hkv, h // hkv * lq, dh, fa._sm_count(0))
+    return {"row_tile": bm, "key_tile": bn, "tiles": tiles, "blocks": b * hkv * tiles,
+            "smem_bytes": fa.tile_smem_bytes(dh, (bm, bn) != fa.tile_shape(dh, False))}
+
+
+def tile_rescale_control(fa, ref, q, k, v) -> dict:
+    """A fault control for the float32 check at a tile-route shape: the
+    tile route's schedule in plain PyTorch (``ref.flash_attention_tile_ref``,
+    with the tiles the wrapper takes), once as the kernel folds its key
+    tiles and once without the per-tile rescale of ``l`` and ``acc``. The
+    sound one must pass ``check_close``'s tolerance and the faulty one must
+    fail it, so that the check is shown able to fail at this shape in this
+    run."""
+    plan = tile_facts(fa, q, k)
+    want = ref.flash_attention_ref(q, k, v, True)
+    tol = FA_TOL[torch.float32]
+    out = {"row_tile": plan["row_tile"], "key_tile": plan["key_tile"], "tol": tol}
+    for name, rescale in (("model", True), ("no_tile_rescale", False)):
+        got = ref.flash_attention_tile_ref(q, k, v, True, bm=plan["row_tile"],
+                                           bn=plan["key_tile"], rescale=rescale)
+        out[f"{name}_max_abs_err"] = float((got - want).abs().max())
+        out[f"{name}_passes"] = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+        del got
+    assert out["model_passes"], f"the tile schedule's model fails the check: {out}"
+    assert not out["no_tile_rescale_passes"], f"the rescale control passes the check: {out}"
+    return out
+
+
+def qwen_forward_row(fa, ref, cfg, dev: str) -> dict:
+    """The float32 tile route at qwen3-0.6b's 16-token forward (the shape
+    of its 28 tile-route launches in the f32 phase): q [2, 16, 16, 128]
+    out of its [B, L, H, Dh] activation over k, v [2, 8, 16, 128] out of
+    theirs, causal; kernel vs plain, device times of kernel and SDPA from
+    profiler events (the host paces a loop at this size)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = (torch.randn(2, LM_PROMPT, n, dh, generator=gen, device=dev).transpose(1, 2)
+               for n in (h, hkv, hkv))
+    row = _attention_row(fa, ref, q, k, v, True, LM_PROMPT * (LM_PROMPT + 1) // 2, 20,
+                         device_side=True)
+    assert row["route"] == "cuda_core", row["route"]
+    row["same_bits_twice"] = torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
+    assert row["same_bits_twice"], "qwen3 forward row: two calls gave different bits"
+    row["tile"] = tile_facts(fa, q, k)
+    return row
 
 
 def f32_decode_rows(fa, ref, cfg, dev: str, ptxas: list) -> dict:
@@ -1472,6 +1568,79 @@ def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
     return row
 
 
+def qwen_prefill_f32_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
+    """qwen3-0.6b at its full config in float32: ``Model.forward`` over
+    LM_BATCH x PREFILL_LEN prompt tokens from the seed, the float32 tile
+    route's path at full width. First the tile route is held to its plain
+    version at exactly that forward's attention shape and layout ([4, 16,
+    2048, 128] over [4, 8, 2048, 128], viewed from [B, L, H, Dh]) within
+    FA_TOL[float32], gives the same bits on two calls, and is timed beside
+    the plain version and SDPA; then one warm-up forward with the counters
+    set to 0 just before and read just after (one tile-route launch per
+    layer, none of the decode route or the sm90 kernel), PREFILL_RUNS timed
+    forwards (host clock ending in a synchronise; the median is kept) and
+    one profiled forward (device busy time and the tile route's share of
+    it)."""
+    fa, md, get_config, Model, serve = repro_torch_mods
+    cfg = get_config(QWEN)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    q, k, v = (torch.randn(LM_BATCH, PREFILL_LEN, n, dh, generator=gen, device=dev)
+               .transpose(1, 2) for n in (h, hkv, hkv))
+    pairs = PREFILL_LEN * (PREFILL_LEN + 1) // 2
+    check = _attention_row(fa, ref, q, k, v, True, pairs, 3, device_side=True)
+    assert check["route"] == "cuda_core", check["route"]
+    check["same_bits_twice"] = torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
+    assert check["same_bits_twice"], "lm_prefill_f32: two calls gave different bits"
+    check["tile"] = tile_facts(fa, q, k)
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (LM_BATCH, PREFILL_LEN))).to(dev)
+    fa.LAUNCHES = 0
+    fa.SM90_LAUNCHES = 0
+    fa.DECODE_LAUNCHES = 0
+    logits, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_tile": fa.LAUNCHES - fa.SM90_LAUNCHES - fa.DECODE_LAUNCHES,
+                "flash_attention_decode": fa.DECODE_LAUNCHES,
+                "flash_attention_sm90": fa.SM90_LAUNCHES}
+    assert launches == {"flash_attention_tile": cfg.n_layers, "flash_attention_decode": 0,
+                        "flash_attention_sm90": 0}, launches
+    assert logits.shape == (LM_BATCH, PREFILL_LEN, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all(), \
+        f"{QWEN} f32 forward: non-finite logits"
+    del logits
+    runs_s = []
+    for _ in range(PREFILL_RUNS):
+        t0 = time.perf_counter()
+        model.forward(tokens)
+        torch.cuda.synchronize()
+        runs_s.append(time.perf_counter() - t0)
+    prof = profile_run(lambda: model.forward(tokens), top=8, focus="flash_attention_kernel")
+    attn_flop = cfg.n_layers * 4 * LM_BATCH * h * pairs * dh
+    row = {
+        "phase": "lm_prefill_f32", "model": QWEN, "dtype": "float32", "reduced": {},
+        "batch": LM_BATCH, "prompt_len": PREFILL_LEN,
+        "kernel_check": {"tol": FA_TOL[torch.float32], **check},
+        "forward_ms_median": statistics.median(runs_s) * 1e3,
+        "forward_ms_runs": [t * 1e3 for t in runs_s],
+        "attention_flop": attn_flop,
+        "attention_bound_ms": attn_flop / F32_OPS_PER_S * 1e3,
+        "attention_bound_share": attn_flop / F32_OPS_PER_S * 1e3 / prof["focus_ms"],
+        "launches_per_forward": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "profile_forward": prof,
+    }
+    del model
+    return row
+
+
 def state_bytes(prog, g, k: int) -> int:
     """Bytes of a batch's state on the card: every property ``[K, n]`` in
     its dtype, the degree rows ``[K, V]``; the weights stay one shared row
@@ -1695,6 +1864,9 @@ def main() -> int:
                     if "registers" in row else None}
                    for row in ptxas_kernels(built[name]["log"])]
         log({"phase": "build", "source": f"src/repro_torch/csrc/{name}.cu", "kernels": entries})
+    fa_ptxas = ptxas_kernels(built["flash_attention"]["log"])
+    log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "tile_kernels": tile_resources(fa_ptxas, fa)})
     sm90_lib = _build.load("flash_attention_sm90")
     sm90 = ptxas_kernels(built["flash_attention_sm90"]["log"])
     for row in sm90:
@@ -1734,7 +1906,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})
     lm_rows = lm_main_shape_kernels(fa, md, ref, moe_mod, get_config(KIMI), dev)
-    fa_ptxas = ptxas_kernels(built["flash_attention"]["log"])
+    lm_rows["flash_attention_qwen3_forward"] = qwen_forward_row(fa, ref, get_config(QWEN), dev)
     lm_rows["flash_attention_decode"]["ptxas"] = decode_resources(
         fa_ptxas, 128, lm_rows["flash_attention_decode"]["decode"]["row_tile"])
     lm_rows.update(f32_decode_rows(fa, ref, get_config(QWEN), dev, fa_ptxas))
@@ -1857,6 +2029,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(qwen_prefill_phase(mods, ref, dev, args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_f32 = qwen_prefill_f32_phase(mods, ref, dev, args.seed)
+    log(prefill_f32)
+    f32_tile = qwen["launches"]["flash_attention_tile"] + \
+        prefill_f32["launches_per_forward"]["flash_attention_tile"]
+    launches["flash_attention"] += prefill_f32["launches_per_forward"]["flash_attention_tile"]
 
     # -- 6. summary ----------------------------------------------------------
     meta = {
@@ -1887,7 +2066,9 @@ def main() -> int:
             kernels[-1]["row_rel_err"] = row["row_rel_check"]["row_rel_err"]
         if name == "flash_attention":  # the float32 calls: decode route + tile route
             kernels[-1].update({"decode_launches": qwen["launches"]["flash_attention_decode"],
-                                "tile_launches": qwen["launches"]["flash_attention_tile"]})
+                                "tile_launches": f32_tile, "device_ms": row["kernel_device_ms"],
+                                "library_device_ms": row["library_device_ms"],
+                                "tile": row["tile"]})
         if name == "flash_decode":  # at decode size the host paces the loop: device times
             kernels[-1].update({"ms": row["kernel_device_ms"],
                                 "library_ms": row["library_device_ms"],

@@ -20,21 +20,58 @@
 // Bound on this card: at decode (Lq = 1) bytes, the KV cache read once; at
 // prefill operations, 4 * Lq * Lk * Dh per head (halved when causal), at
 // 67 TFLOP/s for float32 outside the tensor cores. Both routes keep the
-// plain version's float32 arithmetic (qwen3-0.6b's float32
-// decode-vs-forward check relies on it), so neither uses the tensor cores.
+// plain version's float32 arithmetic, FFMA only, no TF32 (qwen3-0.6b's
+// float32 decode-vs-forward check relies on it).
 //
-// Tile route (repro_flash_attention): one block per (b, kv head, tile of
-// 64 query rows). The rows of a tile enumerate (query head of the kv
-// head's group, query position), so GQA shares each staged K/V tile
-// between the group's heads and no KV head is repeated in memory.
-// Each query row is owned by Dh/32 threads, each holding 32 of its dims
-// (q and the accumulator in registers); a score is their partial dots
-// summed with __shfl_xor_sync. K and V tiles (32 keys, 16 at Dh = 256) are
-// staged in shared memory as float4s. Each tile's scores are taken first,
-// then the running max, sum and accumulator are rescaled once per tile.
-// Strides are passed for q, k, v and out (the last dim contiguous), so the
-// [B, L, H, Dh] activations and the [B, buf, Hkv, Dh] KV cache are read in
-// place.
+// Tile route (repro_flash_attention), FA2 order: a block holds a tile of
+// BM query rows of one (batch, kv head) and streams that head's key tiles
+// of BN keys through shared memory. The first design (one block per 64
+// rows, Dh/32 threads a row, each holding 32 of its dims) ran at 17% of the
+// bound on a 2048-token causal prefill. What held it back, and what this
+// design does about each:
+// 1. No register reuse: every FFMA read its K or V operand from shared
+//    memory (one LDS.128 per 4 FFMAs), so shared-memory bandwidth set the
+//    pace. Here the block's 256 threads are 16 row groups x 16 key groups.
+//    Thread (rg, cg) holds R query rows (rg + 16 i) and scores C keys
+//    (cg + 16 j) of a key tile: for every 4 head dims it loads R + C
+//    float4s and does 4 R C FFMAs (R = 8, C = 4: 128 FFMAs for 12 loads).
+//    For O += P V it holds the same R rows x Dh/16 head dims: per key R/4
+//    float4s of P and Dh/64 of V for R Dh/16 FFMAs (64 for 4 loads at Dh
+//    128). Q and K lie in shared memory row by row, their 16-byte chunks
+//    swizzled (chunk c of row r at c ^ (r & 7)), so a warp's Q loads (two
+//    rows) and K loads (16 keys) meet no bank conflict. P goes through
+//    shared memory once a tile, as [key][rg * R + i], so a thread's rows
+//    are one vector.
+// 2. Loads were not overlapped: each tile was loaded, stored and used
+//    between two barriers. Here K and V tiles arrive by cp.async (16-byte
+//    copies, zeros past Lk) in two stages: tile j + 1 is in flight while
+//    tile j is computed (commit_group, then wait_group and one barrier at
+//    the top of the next tile).
+// 3. Redundant softmax work: the max, expf and shuffles of each score were
+//    done by all Dh/32 threads of its row. Here each score has one owner
+//    and one exp2f (on logits scaled by log2 e); a row's tile max is
+//    reduced over the 16 threads that share the row, in one warp, by four
+//    shuffles; the running sum stays a per-thread partial, reduced once at
+//    the end; and the rescale by exp(m_old - m_new) stays in registers, as
+//    a thread's rows are the same in both products.
+// 4. Causal skipping used atomics and masked key by key, and blocks ran in
+//    row order, so the longest tiles of the causal triangle started last.
+//    Here a kv head's rows are numbered position-major (row g: position
+//    g / group, head g % group of the group), so a tile's rows hold
+//    consecutive positions. Every thread computes from the shape alone the
+//    keys any row of the tile sees and those every row sees; the block
+//    visits the key tiles of the first and checks key by key only in those
+//    not inside the second. The first B x Hkv blocks take the last query
+//    tile of each kv head, and so on down, so the tiles with the most keys
+//    start first.
+// Shared memory (floats: BM Dh of Q, two stages x BN Dh each of K and V,
+// BN (BM + 4) of P) and tiles per Dh: up to Dh 128 BM = 128, BN = 64
+// (R = 8, C = 4; 230,400 bytes at Dh 128, one block an SM); at Dh 256
+// BM = 64, BN = 32 (R = 4, C = 2; its Q tile alone is 64 KB; 205,312
+// bytes), both stages kept at every Dh. Where the large tiles would give
+// the card fewer blocks than SMs (qwen3-0.6b's 16-token forward: 16), the
+// wrapper (tile_plan) asks for the small tile, BM = BN = 16 (R = C = 1),
+// whose blocks are more and each do a small part of the work.
 //
 // Decode route (repro_flash_attention_decode), for few query rows per kv
 // head (a decode step: group x Lq rows, 2 for qwen3-0.6b, 8 for Kimi-K2).
@@ -64,14 +101,11 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
 namespace repro_fa {
-
-constexpr int kRows = 64;    // query rows per block
-constexpr int kDimsPer = 32;  // head dims per thread
-constexpr int kChunks = kDimsPer / 4;
 
 struct Strides {
   int64_t b, h, l;  // element strides of the batch, head and position dims
@@ -89,144 +123,327 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kRows * (DH / kDimsPer))
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int n_heads,
-                       int n_kv_heads, int lq, int lk, Strides sq, Strides sk, Strides sv,
-                       Strides so, int causal, int window, float scale) {
-  constexpr int kTpr = DH / kDimsPer;         // threads per query row
-  constexpr int kKeys = DH <= 128 ? 32 : 16;  // keys per staged tile
-  constexpr int kVecs = DH / 4;               // float4 chunks per key row
-  __shared__ float4 ks[kKeys][kVecs];
-  __shared__ float4 vs[kKeys][kVecs];
-  __shared__ int s_lo, s_hi;
+// -------------------------------------------------------------------------
+// tile route
+// -------------------------------------------------------------------------
 
-  const int group = n_heads / n_kv_heads;
-  const int rows_total = group * lq;
-  const int tiles = (rows_total + kRows - 1) / kRows;
-  int bid = blockIdx.x;
-  const int tile = bid % tiles;
-  bid /= tiles;
-  const int kvh = bid % n_kv_heads;
-  const int b = bid / n_kv_heads;
+constexpr int kTileThreads = 256;
+constexpr int kGroups = 16;  // row groups = key groups of a tile block (16 x 16 threads)
 
-  const int tid = threadIdx.x;
-  const int lane = tid % kTpr;
-  const int r = tile * kRows + tid / kTpr;
-  const bool active = r < rows_total;
-  const int i = active ? r % lq : 0;
-  const int h = kvh * group + (active ? r / lq : 0);
-  const int q_pos = lk - lq + i;
-  int lo = 0, hi = lk;  // this row's keys: [lo, hi)
-  if (causal) hi = min(hi, q_pos + 1);
-  if (window > 0) lo = max(lo, q_pos - window + 1);
-  if (!active) hi = lo;
+// The tile of head dim DH: large, or small for shapes with few blocks.
+template <int DH, bool kSmall>
+struct Tile {
+  static constexpr int R = kSmall ? 1 : (DH <= 128 ? 8 : 4);  // query rows of a thread
+  static constexpr int C = kSmall ? 1 : (DH <= 128 ? 4 : 2);  // keys a thread scores a tile
+  static constexpr int BM = kGroups * R;                      // query rows of a block
+  static constexpr int BN = kGroups * C;                      // keys of a tile
+  static constexpr int PS = BM + 4;                           // floats a key of the P tile
+  static constexpr int D = DH / kGroups;                      // output dims of a thread
+  static constexpr int W = D < 4 ? D : 4;                     // ... loaded W at a time
+  static constexpr int kV4 = DH / 4;                          // 16-byte chunks of a row
+  static constexpr int kSmemFloats = BM * DH + 4 * BN * DH + BN * PS;
+};
 
-  if (tid == 0) {
-    s_lo = lk;
-    s_hi = 0;
-  }
-  __syncthreads();
-  if (lane == 0 && hi > lo) {
-    atomicMin(&s_lo, lo);
-    atomicMax(&s_hi, hi);
-  }
-  __syncthreads();
-  const int k_begin = s_lo, k_end = s_hi;
-
-  float4 qr[kChunks], acc[kChunks];
-  const float* q_row = q + b * sq.b + h * sq.h + static_cast<int64_t>(i) * sq.l;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    qr[c] = active ? load4(q_row + 4 * (lane + kTpr * c)) : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY, l = 0.f;
-
-  const float* k_head = k + b * sk.b + kvh * sk.h;
-  const float* v_head = v + b * sv.b + kvh * sv.h;
-  for (int k0 = k_begin; k0 < k_end; k0 += kKeys) {
-    const int n = min(kKeys, k_end - k0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kKeys * kVecs; idx += blockDim.x) {
-      const int j = idx / kVecs, c = idx % kVecs;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (j < n) {
-        kv = load4(k_head + static_cast<int64_t>(k0 + j) * sk.l + 4 * c);
-        vv = load4(v_head + static_cast<int64_t>(k0 + j) * sv.l + 4 * c);
-      }
-      ks[j][c] = kv;
-      vs[j][c] = vv;
-    }
-    __syncthreads();
-
-    float s[kKeys];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) d = dot4(qr[c], ks[j][lane + kTpr * c], d);
-#pragma unroll
-      for (int o = kTpr / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      const int kp = k0 + j;
-      s[j] = (j < n && kp >= lo && kp < hi) ? d * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    if (tile_max == -INFINITY) continue;  // no key of this tile reaches this row
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);  // 0 on the first live tile (m = -inf)
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      acc[c].x *= alpha;
-      acc[c].y *= alpha;
-      acc[c].z *= alpha;
-      acc[c].w *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = vs[j][lane + kTpr * c];
-        acc[c].x = fmaf(p, vv.x, acc[c].x);
-        acc[c].y = fmaf(p, vv.y, acc[c].y);
-        acc[c].z = fmaf(p, vv.z, acc[c].z);
-        acc[c].w = fmaf(p, vv.w, acc[c].w);
-      }
-    }
-    m = m_new;
-  }
-
-  if (!active) return;
-  const float denom = fmaxf(l, 1e-30f);
-  float* o_row = out + b * so.b + h * so.h + static_cast<int64_t>(i) * so.l;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 a = acc[c];
-    *reinterpret_cast<float4*>(o_row + 4 * (lane + kTpr * c)) =
-        make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+// N consecutive floats (N = 1, 2 or 4) in one shared-memory access
+template <int N>
+__device__ __forceinline__ void ld_vec(float* x, const float* p) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = *p;
   }
 }
 
-static cudaError_t launch(int dh, const float* q, const float* k, const float* v, float* out,
-                          int batch, int n_heads, int n_kv_heads, int lq, int lk,
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float* x) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !valid
+// (src is then not read, but must still be a device address)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the 16-byte chunk c of row r of a swizzled [rows][DH] tile (DH >= 32)
+template <int DH>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DH + 4 * (c ^ (r & 7));
+}
+
+// keys [lo, hi) that a query at position off + p sees
+__device__ __forceinline__ int keys_lo(int p, int off, int window) {
+  return window > 0 ? max(0, off + p - window + 1) : 0;
+}
+__device__ __forceinline__ int keys_hi(int p, int off, int lk, int causal) {
+  return causal ? min(lk, off + p + 1) : lk;
+}
+
+// Block: tile `tile` of BM rows of (b, kvh); row g of a kv head is query
+// head kvh * group + g % group at position g / group (position-major).
+template <int DH, bool kSmall>
+__global__ void __launch_bounds__(kTileThreads, 1)
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int n_heads,
+                       int n_kv_heads, int n_bh, int lq, int lk, Strides sq, Strides sk,
+                       Strides sv, Strides so, int causal, int window, float scale_log2) {
+  using T = Tile<DH, kSmall>;
+  constexpr int R = T::R, C = T::C, BM = T::BM, BN = T::BN, D = T::D, W = T::W;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [BM][DH], swizzled
+  float* k_s = q_s + BM * DH;                     // [2][BN][DH], swizzled
+  float* v_s = k_s + 2 * BN * DH;                 // [2][BN][DH]
+  float* p_s = v_s + 2 * BN * DH;                 // [BN][PS]: P[key][rg * R + i]
+
+  const int group = n_heads / n_kv_heads;
+  const int rows_total = group * lq;
+  const int tiles = (rows_total + BM - 1) / BM;
+  const int tile = tiles - 1 - static_cast<int>(blockIdx.x / n_bh);  // most keys first
+  const int bh = static_cast<int>(blockIdx.x % n_bh);
+  const int kvh = bh % n_kv_heads, b = bh / n_kv_heads;
+  const int g0 = tile * BM, g1 = min(g0 + BM, rows_total);
+  const int off = lk - lq;
+
+  // the keys any row of the tile sees, and those every row sees
+  const int p_min = g0 / group, p_max = (g1 - 1) / group;
+  const int k_lo = keys_lo(p_min, off, window), k_hi = keys_hi(p_max, off, lk, causal);
+  const int full_lo = keys_lo(p_max, off, window), full_hi = keys_hi(p_min, off, lk, causal);
+
+  const int tid = threadIdx.x;
+  const int rg = tid / kGroups, cg = tid % kGroups;
+  const float* k_head = k + b * sk.b + kvh * sk.h;
+  const float* v_head = v + b * sv.b + kvh * sv.h;
+
+  float acc[R][D], m[R], l[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[i][d] = 0.f;
+  }
+
+  if (k_hi > k_lo) {
+    // Q: row s of the tile, zeros past the last row
+    for (int e = tid; e < BM * T::kV4; e += kTileThreads) {
+      const int s = e / T::kV4, c = e % T::kV4, g = g0 + s;
+      const bool ok = g < rows_total;
+      const float* src = ok ? q + b * sq.b + (kvh * group + g % group) * sq.h +
+                                  static_cast<int64_t>(g / group) * sq.l + 4 * c
+                            : q;
+      cp_async16(q_s + swz<DH>(s, c), src, ok);
+    }
+    // K and V tile t into stage st, zeros past Lk
+    auto load_kv = [&](int t, int st) {
+      float* ks = k_s + st * BN * DH;
+      float* vs = v_s + st * BN * DH;
+      for (int e = tid; e < BN * T::kV4; e += kTileThreads) {
+        const int j = e / T::kV4, c = e % T::kV4, kp = t * BN + j;
+        const bool ok = kp < lk;
+        cp_async16(ks + swz<DH>(j, c), ok ? k_head + static_cast<int64_t>(kp) * sk.l + 4 * c : k,
+                   ok);
+        cp_async16(vs + j * DH + 4 * c,
+                   ok ? v_head + static_cast<int64_t>(kp) * sv.l + 4 * c : v, ok);
+      }
+      cp_async_commit();
+    };
+
+    const int t_first = k_lo / BN, t_last = (k_hi - 1) / BN;
+    load_kv(t_first, 0);  // in one group with Q
+    for (int t = t_first; t <= t_last; ++t) {
+      const int st = (t - t_first) & 1;
+      cp_async_wait_all();
+      __syncthreads();  // tile t has landed; every thread is done with tile t - 1
+      if (t < t_last) load_kv(t + 1, st ^ 1);
+
+      // S = Q K^T: R rows x C keys a thread, 4 head dims at a time
+      const float* ks = k_s + st * BN * DH;
+      float s[R][C];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < T::kV4; ++c) {
+        float kf[C][4];
+#pragma unroll
+        for (int j = 0; j < C; ++j) ld_vec<4>(kf[j], ks + swz<DH>(cg + kGroups * j, c));
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float qf[4];
+          ld_vec<4>(qf, q_s + swz<DH>(rg + kGroups * i, c));
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            s[i][j] = fmaf(qf[0], kf[j][0], s[i][j]);
+            s[i][j] = fmaf(qf[1], kf[j][1], s[i][j]);
+            s[i][j] = fmaf(qf[2], kf[j][2], s[i][j]);
+            s[i][j] = fmaf(qf[3], kf[j][3], s[i][j]);
+          }
+        }
+      }
+
+      // masks (only in a tile not inside every row's keys), then the online
+      // softmax: each row's tile max over its 16 threads, the rescale, P
+      const bool inside = t * BN >= full_lo && (t + 1) * BN <= full_hi;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float mx = -INFINITY;
+        if (inside) {
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            s[i][j] *= scale_log2;
+            mx = fmaxf(mx, s[i][j]);
+          }
+        } else {
+          const int p = (g0 + rg + kGroups * i) / group;
+          const int lo = keys_lo(p, off, window), hi = keys_hi(p, off, lk, causal);
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            const int kp = t * BN + cg + kGroups * j;
+            s[i][j] = kp >= lo && kp < hi ? s[i][j] * scale_log2 : -INFINITY;
+            mx = fmaxf(mx, s[i][j]);
+          }
+        }
+#pragma unroll
+        for (int o = kGroups / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[i], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no key yet: p = 0, alpha = 0
+        const float alpha = exp2f(m[i] - m_use);
+        m[i] = m_new;
+        l[i] *= alpha;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[i][d] *= alpha;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const float pr = exp2f(s[i][j] - m_use);
+          l[i] += pr;
+          s[i][j] = pr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        float col[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) col[i] = s[i][j];
+        float* dst = p_s + (cg + kGroups * j) * T::PS + rg * R;
+#pragma unroll
+        for (int i = 0; i < R; i += (R < 4 ? R : 4)) st_vec<(R < 4 ? R : 4)>(dst + i, col + i);
+      }
+      __syncthreads();  // P of the tile is in shared memory
+
+      // O += P V: R rows x D dims a thread, one key at a time
+      const float* vs = v_s + st * BN * DH;
+#pragma unroll 8
+      for (int j = 0; j < BN; ++j) {
+        float pf[R], vf[D];
+#pragma unroll
+        for (int i = 0; i < R; i += (R < 4 ? R : 4))
+          ld_vec<(R < 4 ? R : 4)>(pf + i, p_s + j * T::PS + rg * R + i);
+#pragma unroll
+        for (int u = 0; u < D / W; ++u) ld_vec<W>(vf + W * u, vs + j * DH + W * cg + kGroups * W * u);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int d = 0; d < D; ++d) acc[i][d] = fmaf(pf[i], vf[d], acc[i][d]);
+      }
+    }
+  }
+
+  // each row's sum over its 16 threads, then out = acc / max(sum, 1e-30)
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int o = kGroups / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const int g = g0 + rg + kGroups * i;
+    if (g >= rows_total) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    float* o_row = out + b * so.b + (kvh * group + g % group) * so.h +
+                   static_cast<int64_t>(g / group) * so.l;
+#pragma unroll
+    for (int u = 0; u < D / W; ++u) {
+      float x[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) x[e] = acc[i][W * u + e] * inv;
+      st_vec<W>(o_row + W * cg + kGroups * W * u, x);
+    }
+  }
+}
+
+template <int DH, bool kSmall>
+static cudaError_t launch_tile(const float* q, const float* k, const float* v, float* out,
+                               int batch, int n_heads, int n_kv_heads, int lq, int lk,
+                               const Strides* st, int causal, int window, float scale,
+                               cudaStream_t stream) {
+  using T = Tile<DH, kSmall>;
+  const int64_t rows = static_cast<int64_t>(n_heads / n_kv_heads) * lq;
+  const int64_t n_bh = static_cast<int64_t>(batch) * n_kv_heads;
+  const int64_t blocks = n_bh * ((rows + T::BM - 1) / T::BM);
+  if (blocks > 0x7fffffff || rows > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  constexpr int smem = static_cast<int>(sizeof(float)) * T::kSmemFloats;
+  // the shared-memory limit, raised once per instantiation and device (a
+  // CUDA runtime call on every launch would pace the short ones)
+  static std::atomic<uint64_t> raised{0};  // bit d: device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(raised.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<DH, kSmall>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(bit, std::memory_order_release);
+  }
+  flash_attention_kernel<DH, kSmall><<<static_cast<unsigned>(blocks), kTileThreads, smem, stream>>>(
+      q, k, v, out, n_heads, n_kv_heads, static_cast<int>(n_bh), lq, lk, st[0], st[1], st[2],
+      st[3], causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// the tile of head dim dh that holds row_tile query rows: 1 large, 0 small, -1 none
+template <int DH>
+static int tile_kind(int row_tile) {
+  return row_tile == Tile<DH, false>::BM ? 1 : row_tile == Tile<DH, true>::BM ? 0 : -1;
+}
+
+static cudaError_t launch(int dh, int row_tile, const float* q, const float* k, const float* v,
+                          float* out, int batch, int n_heads, int n_kv_heads, int lq, int lk,
                           const Strides* st, int causal, int window, float scale,
                           cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(n_heads / n_kv_heads) * lq;
-  const int64_t blocks = static_cast<int64_t>(batch) * n_kv_heads * ((rows + kRows - 1) / kRows);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks));
   switch (dh) {
-#define REPRO_FA_CASE(D)                                                                   \
-  case D:                                                                                  \
-    flash_attention_kernel<D><<<grid, kRows * (D / kDimsPer), 0, stream>>>(                \
-        q, k, v, out, n_heads, n_kv_heads, lq, lk, st[0], st[1], st[2], st[3], causal,     \
-        window, scale);                                                                    \
-    break;
+#define REPRO_FA_CASE(D)                                                                      \
+  case D:                                                                                     \
+    switch (tile_kind<D>(row_tile)) {                                                         \
+      case 1:                                                                                 \
+        return launch_tile<D, false>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk, st,    \
+                                     causal, window, scale, stream);                          \
+      case 0:                                                                                 \
+        return launch_tile<D, true>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk, st,     \
+                                    causal, window, scale, stream);                           \
+      default:                                                                                \
+        return cudaErrorInvalidValue;                                                         \
+    }
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
     REPRO_FA_CASE(128)
@@ -235,7 +452,6 @@ static cudaError_t launch(int dh, const float* q, const float* k, const float* v
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // -------------------------------------------------------------------------
@@ -580,18 +796,19 @@ static cudaError_t launch_decode(int dh, int row_tile, const float* q, const flo
 // given by their data pointers and strides[12] = (batch, head, position)
 // element strides of q, k, v, out in that order, the last dim contiguous
 // and every row aligned for a 16-byte load. Dh is 32, 64, 128 or 256; H is
-// a multiple of Hkv. Returns cudaGetLastError() after the launch (0 on
-// success).
+// a multiple of Hkv. row_tile is the query rows a block holds, the large
+// or the small tile of Dh (Tile<DH, kSmall>::BM; any other value is
+// cudaErrorInvalidValue). Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int batch, int n_heads, int n_kv_heads, int lq, int lk,
                                      int dh, const int64_t* strides, int causal, int window,
-                                     float scale, void* stream) {
+                                     float scale, int row_tile, void* stream) {
   using namespace repro_fa;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || lk < 0) return cudaErrorInvalidValue;
   Strides st[4];
   for (int t = 0; t < 4; ++t) st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  return launch(dh, static_cast<const float*>(q), static_cast<const float*>(k),
+  return launch(dh, row_tile, static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(out), batch, n_heads,
                 n_kv_heads, lq, lk, st, causal, window, scale, static_cast<cudaStream_t>(stream));
 }

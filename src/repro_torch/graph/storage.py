@@ -483,17 +483,25 @@ def graph_from_arrays(
     src,
     dst,
     weights=None,
+    *,
+    n_vertices_logical: Optional[int] = None,
+    n_edges_logical: Optional[int] = None,
 ) -> GraphData:
     """Build a :class:`GraphData` from plain edge arrays.
 
     Any array-likes with a numpy view work (numpy arrays, lists, CPU
     tensors), so a graph built by another package crosses over as its
     ``(n_vertices, src, dst, weights)`` arrays and both sides run on the
-    same edges in the same order.
+    same edges in the same order. A graph padded with ``pad_to`` crosses
+    with its real counts too (``n_vertices_logical``, ``n_edges_logical``;
+    ``None`` means the physical count), so programs that normalise by
+    ``vertices.size()`` agree on both sides.
     """
     return GraphData(
         int(n_vertices),
         np.array(src, dtype=np.int32),
         np.array(dst, dtype=np.int32),
         None if weights is None else np.array(weights),
+        n_vertices_logical=None if n_vertices_logical is None else int(n_vertices_logical),
+        n_edges_logical=None if n_edges_logical is None else int(n_edges_logical),
     )

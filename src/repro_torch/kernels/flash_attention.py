@@ -21,9 +21,12 @@ from one kernel to another:
   softmax for all the tile's rows; a second kernel folds the splits'
   partials in split order (none when there is one split);
 - float32 on the card otherwise: the tile route of
-  ``csrc/flash_attention.cu``, one block per (batch, kv head, 64 query
-  rows); float32 products on the CUDA cores, as on the decode route (the
-  arithmetic of the plain version);
+  ``csrc/flash_attention.cu``, a register-blocked FlashAttention on the
+  CUDA cores (float32 FFMA, the arithmetic of the plain version): a block
+  holds a tile of a kv head's query rows, numbered position-major, and
+  streams the key tiles any of them sees through two cp.async stages
+  (:func:`tile_plan` picks the tile, :func:`key_tiles` models the key
+  tiles a block visits);
 - a CPU tensor: the plain version in :mod:`.ref`.
 
 Strides are passed to the kernels, so a ``[B, L, H, Dh]`` activation or a
@@ -73,12 +76,18 @@ DECODE_SPLIT_BYTES = 1 << 17
 DECODE_THREADS = 256  # threads of a decode block (csrc/flash_attention.cu: kDecodeThreads)
 DECODE_ROWS = 8  # query rows a decode block holds at most (kDecodeRowsMax)
 
+# threads of a tile-route block: 16 row groups x 16 key groups
+# (csrc/flash_attention.cu: kTileThreads, kGroups)
+TILE_THREADS = 256
+TILE_GROUPS = 16
+
 # q, k, v, out, batch, heads, kv_heads, lq, lk, dh, strides, causal, window, scale
 _COMMON = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
            + [ctypes.c_int] * 2 + [ctypes.c_float])
-# ..., then the decode route's scratch (partial acc, partial (m, l)), row tile,
-# n_splits, chunk; the stream last
-_ARGTYPES = {"sm90": _COMMON + [ctypes.c_void_p], "cuda_core": _COMMON + [ctypes.c_void_p],
+# ..., then the tile route's row tile, or the decode route's scratch (partial
+# acc, partial (m, l)), row tile, n_splits, chunk; the stream last
+_ARGTYPES = {"sm90": _COMMON + [ctypes.c_void_p],
+             "cuda_core": _COMMON + [ctypes.c_int, ctypes.c_void_p],
              "decode": _COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p]}
 
@@ -99,6 +108,63 @@ def _route(q, group: int = 1) -> str:
         lq = q.shape[2]
         return "decode" if lq == 1 or group * lq <= DECODE_MAX_ROWS else "cuda_core"
     raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
+
+
+def tile_shape(dh: int, small: bool) -> Tuple[int, int]:
+    """``(BM, BN)`` of a tile-route block at head dim ``dh``
+    (``csrc/flash_attention.cu``, ``Tile<DH, kSmall>``): its query rows
+    and the keys of its key tiles. Each of its 16 x 16 threads holds ``R =
+    BM / 16`` rows and scores ``C = BN / 16`` keys of a key tile: 8 x 4 in
+    the large tile up to Dh 128, 4 x 2 at Dh 256, 1 x 1 in the small one."""
+    r, c = (1, 1) if small else (8, 4) if dh <= 128 else (4, 2)
+    return TILE_GROUPS * r, TILE_GROUPS * c
+
+
+def tile_smem_bytes(dh: int, small: bool) -> int:
+    """Dynamic shared memory of a tile-route block: Q ``[BM, Dh]``, two
+    stages each of K and V ``[BN, Dh]``, and P ``[BN, BM + 4]``, float32."""
+    bm, bn = tile_shape(dh, small)
+    return 4 * (bm * dh + 4 * bn * dh + bn * (bm + 4))
+
+
+def tile_plan(batch: int, kv_heads: int, rows: int, dh: int, n_sm: int) -> Tuple[int, int, int]:
+    """``(BM, BN, tiles)`` of a tile-route call, from the shape and the card
+    alone: ``rows`` query rows of each of ``batch x kv_heads`` kv heads cut
+    into ``tiles`` tiles of ``BM``. The large tile, unless its blocks would
+    not give each of the ``n_sm`` SMs one (qwen3-0.6b's 16-token forward:
+    2 x 8 blocks); then the small one, whose blocks are more and shorter."""
+    bm, bn = tile_shape(dh, False)
+    if batch * kv_heads * -(-rows // bm) < n_sm:
+        bm, bn = tile_shape(dh, True)
+    return bm, bn, -(-rows // bm)
+
+
+def key_tiles(tile: int, bm: int, bn: int, rows: int, group: int, lq: int, lk: int,
+              causal: bool, window: int) -> list:
+    """``[(key tile, inside)]`` that a tile-route block visits, in order, as
+    the kernel computes them from the shape. The block holds rows ``tile *
+    bm`` to ``min((tile + 1) * bm, rows) - 1`` of a kv head, at positions
+    ``row // group`` (query ``i`` at key position ``lk - lq + i``). Some
+    row sees a key in ``[lo, hi)`` (the keys of the first position's lower
+    and the last's upper bound), every row each key in ``[full_lo,
+    full_hi)``; the block visits the key tiles of ``bn`` keys (tile ``t``:
+    keys ``t * bn`` on) that meet ``[lo, hi)``, and ``inside`` says a tile
+    lies in ``[full_lo, full_hi)``, so that no key of it is checked."""
+    off = lk - lq
+    p_min = tile * bm // group
+    p_max = (min((tile + 1) * bm, rows) - 1) // group
+
+    def lo_of(p):
+        return max(0, off + p - window + 1) if window > 0 else 0
+
+    def hi_of(p):
+        return min(lk, off + p + 1) if causal else lk
+
+    lo, hi, full_lo, full_hi = lo_of(p_min), hi_of(p_max), lo_of(p_max), hi_of(p_min)
+    if hi <= lo:
+        return []
+    return [(t, t * bn >= full_lo and (t + 1) * bn <= full_hi)
+            for t in range(lo // bn, (hi - 1) // bn + 1)]
 
 
 def decode_layout(dh: int) -> Tuple[int, int, int]:
@@ -244,7 +310,9 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, dh,
             strides, int(causal), int(window), 1.0 / math.sqrt(dh)]
-    if route == "decode":
+    if route == "cuda_core":
+        args.append(tile_plan(b, hkv, h // hkv * lq, dh, _sm_count(q.device.index))[0])
+    elif route == "decode":
         row_tile, _, n_splits, chunk = decode_plan(b, hkv, h // hkv * lq, lk, dh,
                                                    _sm_count(q.device.index))
         scratch = [0, 0]

@@ -317,6 +317,59 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l_sum.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
+def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True, window: int = 0, *, bm: int, bn: int,
+                             rescale: bool = True) -> torch.Tensor:
+    """The float32 tile route's schedule in plain PyTorch, for the CPU
+    tests: what :func:`flash_attention_ref` computes, taken in the kernel's
+    steps. A kv head's ``group x Lq`` query rows are numbered
+    position-major (row ``g``: head ``g % group`` of the group, position
+    ``g // group``) and cut into tiles of ``bm``; each tile walks the key
+    tiles of ``bn`` keys that ``flash_attention.key_tiles`` lists, masking
+    key by key only in those not inside every row's keys, and folds each
+    into its rows' running ``(m, l, acc)``: the tile's max, the rescale of
+    ``l`` and ``acc`` by ``exp(m_old - m_new)``, then ``P`` and ``P V``; a
+    row that sees no key comes out 0. ``rescale=False`` leaves out the
+    rescale (a fault: tiles taken against different maxima are mixed), the
+    fault control of ``chip_smoke.py``."""
+    from .flash_attention import key_tiles  # the wrapper imports this module
+
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group, rows = h // hkv, h // hkv * lq
+    qf = q.float().reshape(b, hkv, group, lq, dh).transpose(2, 3).reshape(b, hkv, rows, dh)
+    kf, vf = k.float(), v.float()
+    q_pos = torch.arange(rows, device=q.device) // group + (lk - lq)
+    out = torch.zeros(b, hkv, rows, dh, device=q.device)
+    scale = 1.0 / math.sqrt(dh)
+    for tile in range(-(-rows // bm)):
+        r0, r1 = tile * bm, min((tile + 1) * bm, rows)
+        qt, qp = qf[:, :, r0:r1], q_pos[r0:r1, None]
+        m = torch.full((b, hkv, r1 - r0), float("-inf"), device=q.device)
+        l_sum = torch.zeros_like(m)
+        acc = torch.zeros(b, hkv, r1 - r0, dh, device=q.device)
+        for t, inside in key_tiles(tile, bm, bn, rows, group, lq, lk, causal, window):
+            k0, k1 = t * bn, min((t + 1) * bn, lk)
+            sc = torch.einsum("bhqd,bhkd->bhqk", qt, kf[:, :, k0:k1]) * scale
+            if not inside:
+                kp = torch.arange(k0, k1, device=q.device)[None, :]
+                ok = torch.ones(r1 - r0, k1 - k0, dtype=torch.bool, device=q.device)
+                if causal:
+                    ok &= kp <= qp
+                if window > 0:
+                    ok &= kp > qp - window
+                sc = sc.masked_fill(~ok, float("-inf"))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            m_use = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+            alpha = torch.exp(m - m_use) if rescale else torch.ones_like(m)
+            p = torch.exp(sc - m_use[..., None])
+            l_sum = l_sum * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, k0:k1])
+            m = m_new
+        out[:, :, r0:r1] = acc / l_sum.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hkv, lq, group, dh).transpose(2, 3).reshape(b, h, lq, dh).to(q.dtype)
+
+
 def moe_gather_ref(
     tokens: torch.Tensor,  # [G, T, D] token table of each group
     rows: Optional[torch.Tensor],  # [G, R] token row of each stream slot, or None

@@ -61,7 +61,9 @@ ALGORITHMS = {
 @pytest.fixture(scope="module")
 def graphs():
     g = ref_generators.power_law(200, 1400, seed=5, weighted=True)
-    return g, repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights)
+    return g, repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights,
+                                            n_vertices_logical=g.n_vertices_logical,
+                                            n_edges_logical=g.n_edges_logical)
 
 
 @pytest.fixture(scope="module")

@@ -47,7 +47,9 @@ CONFIGS = [
 @pytest.fixture(scope="module")
 def graphs():
     g = ref_generators.power_law(200, 1400, seed=5, weighted=True)
-    return g, repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights)
+    return g, repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights,
+                                            n_vertices_logical=g.n_vertices_logical,
+                                            n_edges_logical=g.n_edges_logical)
 
 
 def _targets(knob):
@@ -92,6 +94,59 @@ def _assert_parity(algo, want, got):
 def test_port_matches_reference(graphs, algo, passes, knob):
     want, got = _run_both(graphs, algo, passes, knob)
     _assert_parity(algo, want, got)
+
+
+PADDED_TARGETS = {
+    "default": lambda T: None, "baseline": lambda T: T.baseline(),
+    "partition_vertices=16": lambda T: T(partition_vertices=16),
+    "compact_frontier=False": lambda T: T(compact_frontier=False),
+    "cache=False": lambda T: T(cache=False),
+}
+
+
+@pytest.fixture(scope="module")
+def padded_graphs():
+    """A graph padded to a shape bucket (300 real vertices in 512, 2000 real
+    edges in 4096), carried across with its logical counts."""
+    g = ref_generators.power_law(300, 2000, seed=7).pad_to(512, 4096)
+    tg = repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights,
+                                       n_vertices_logical=g.n_vertices_logical,
+                                       n_edges_logical=g.n_edges_logical)
+    return g, tg
+
+
+@pytest.mark.parametrize("target", list(PADDED_TARGETS))
+@pytest.mark.parametrize("algo", ["pagerank", "ppr"])
+def test_padded_graph_keeps_its_logical_counts(padded_graphs, algo, target):
+    """PAGERANK and PPR normalise by ``vertices.size()``, the logical count:
+    on a padded graph carried across with its logical counts the port
+    matches the reference under every Target (it normalised by the padded
+    512 while ``graph_from_arrays`` dropped them)."""
+    g, tg = padded_graphs
+    assert (tg.n_vertices, tg.n_vertices_logical) == (512, 300)
+    assert (tg.n_edges, tg.n_edges_logical) == (g.n_edges, g.n_edges_logical)
+    name, params = ALGORITHMS[algo]
+    ref_target = PADDED_TARGETS[target](repro.Target)
+    ref_prog = repro.compile(getattr(ref_sources, name))
+    want = (ref_prog.bind(g) if ref_target is None else ref_prog.bind(g, target=ref_target)
+            ).run(**params)
+    got = repro_torch.compile(getattr(sources, name)).bind(
+        tg, target=PADDED_TARGETS[target](repro_torch.Target), device="cpu").run(**params)
+    assert set(got.properties) == set(want.properties)
+    for prop, a in want.properties.items():
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(got.properties[prop], a, rtol=1e-5, atol=1e-6,
+                                       err_msg=prop)
+        else:
+            np.testing.assert_array_equal(got.properties[prop], a, err_msg=prop)
+    assert got.host_env == want.host_env
+
+
+def test_graph_from_arrays_defaults_to_the_physical_counts(padded_graphs):
+    """Without the two counts a graph is its own logical graph, as before."""
+    g, _ = padded_graphs
+    tg = repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights)
+    assert (tg.n_vertices_logical, tg.n_edges_logical) == (g.n_vertices, g.n_edges) == (512, 4096)
 
 
 def test_session_reruns_are_identical(graphs):

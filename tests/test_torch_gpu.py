@@ -55,7 +55,10 @@ ALGORITHMS = {
 }
 FLOAT_SUMS = {"pagerank", "ppr", "cgaw"}
 FA_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 128, 64), (1, 4, 1, 1, 256, 64),
-             (1, 2, 2, 100, 100, 32), (2, 16, 2, 9, 300, 128), (1, 4, 4, 20, 10, 256)]
+             (1, 2, 2, 100, 100, 32), (2, 16, 2, 9, 300, 128), (1, 4, 4, 20, 10, 256),
+             # float32 tile route: the large tile (33 x 4 blocks fill the card) one row
+             # below and above its 128 rows, Lk > Lq; rows with no key (Lq > Lk)
+             (33, 4, 4, 127, 140, 64), (33, 4, 4, 129, 129, 128), (2, 8, 2, 40, 10, 256)]
 FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 SM90_LQ = (1, 63, 65, 100)  # ragged around the kernel's 64-row tiles
 SM90_LK = (0, 1, 127, 300)  # ... and its 64-key stages
@@ -686,6 +689,64 @@ def test_cuda_flash_attention_reads_the_cache_in_place(cuda):
     out = fa.flash_attention(q, k, k, causal=True)
     assert torch.equal(out[:, :, :3], torch.zeros_like(out[:, :, :3]))
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=2e-3, atol=2e-3)
+
+
+# the float32 tile route's masks: a window shorter than either key tile
+TILE_MASKS = [(True, 0), (False, 0), (True, 5), (False, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("small", [False, True])
+@pytest.mark.parametrize("causal,window", TILE_MASKS)
+def test_cuda_tile_route_matches_plain_at_both_tiles(cuda, dh, small, causal, window):
+    """The float32 tile route under its large and its small tile (the
+    shape picks it: 33 x 4 or 17 x 8 kv heads fill the card, 1 x 2 do
+    not), with the rows one below and one above two tiles, Lk > Lq, GQA,
+    and a window shorter than a key tile, q, k and v read in place from
+    [B, L, H, Dh] layouts: one tile-route launch a call, within 2e-3 of the
+    plain version, and the same bits on two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(dh + 2 * small)
+    bm = fa.tile_shape(dh, small)[0]
+    b, hkv = (1, 2) if small else (33, 4)
+    cases = [(b, hkv, 1, 2 * bm - 1, 2 * bm + 20), (b, hkv, 1, 2 * bm + 1, 2 * bm + 1),
+             (b if small else 17, hkv if small else 8, 4, 9 if small else 33, 40)]
+    for b, hkv, group, lq, lk in cases:
+        plan = fa.tile_plan(b, hkv, group * lq, dh, fa._sm_count(0))
+        assert plan[:2] == fa.tile_shape(dh, small), plan
+        x = torch.randn(b, lq, hkv * group, dh, generator=gen, device=cuda)
+        ck, cv = (torch.randn(b, lk + 3, hkv, dh, generator=gen, device=cuda) for _ in range(2))
+        q, k, v = x.transpose(1, 2), ck[:, :lk].transpose(1, 2), cv[:, :lk].transpose(1, 2)
+        before = fa_launches()
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        assert fa_launches() == (before[0] + 1, before[1], before[2])
+        assert got.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal, window),
+                                   rtol=2e-3, atol=2e-3,
+                                   msg=lambda m: f"{(b, hkv, group, lq, lk)}: {m}")
+        assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_cuda_tile_route_zeroes_rows_without_keys(cuda, dh):
+    """More queries than keys under causal: the first rows see no key and
+    come out exactly 0 (not NaN) on the tile route, the rest match the
+    plain version; no key at all gives zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(1, 8, 40, dh, generator=gen, device=cuda)
+    k, v = (torch.randn(1, 2, 10, dh, generator=gen, device=cuda) for _ in range(2))
+    assert fa._route(q, 4) == "cuda_core"
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert torch.equal(out[:, :, :30], torch.zeros_like(out[:, :, :30]))
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v), rtol=2e-3, atol=2e-3)
+    empty = torch.zeros(1, 2, 0, dh, device=cuda)
+    out = fa.flash_attention(q, empty, empty, causal=False)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def fa_launches():
+    return fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES
 
 
 DECODE_LK = (1, 2, 31, 32, 33, 4096)  # around the teams' rounds; the last split across blocks

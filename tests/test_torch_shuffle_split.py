@@ -347,7 +347,9 @@ def test_engine_hands_the_bind_list_and_keeps_the_launch_counts(name, monkeypatc
     """Every commit along the bind's full stream hands shuffle_reduce the
     bind's own work list, and the launch counters equal the reference's."""
     g = ref_generators.power_law(200, 1400, seed=5, weighted=True)
-    tg = repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights)
+    tg = repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights,
+                                       n_vertices_logical=g.n_vertices_logical,
+                                       n_edges_logical=g.n_edges_logical)
     want = repro.compile(getattr(ref_sources, name)).bind(g).run(**GRAPH_ALGORITHMS[name])
     sess = repro_torch.compile(getattr(sources, name)).bind(tg, device="cpu")
     gb = sess.engine.gb
