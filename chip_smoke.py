@@ -75,6 +75,25 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    MS-BFS's launches at most a quarter of the sequential ones; queries/s
    beside K x the sequential warm median, launches, edges, one profiled
    batch's busy and idle share, peak memory.
+   Then (4c, ``{"phase": "artifacts", ...}`` lines) the accelerator
+   artifacts: BFS_ECP, PAGERANK and SSSP through ``compile(src).lower(graph=
+   g)`` -> ``report()`` -> ``save`` -> ``load_accelerator`` (every kernel
+   ``aot-loaded``: the build phase built the libraries) -> ``bind(g)``, one
+   cold and five warm runs, each bit-identical to the main phase's warm run
+   (properties, host scalars, launch counts); lower, save, load and bind
+   seconds, the bind's allocated bytes beside the report's state and graph
+   plan. BFS_ECP's loaded accelerator is rebound to a twin graph of the
+   bucket (seed + 1): its first run equals the oracle and pays compile time
+   exactly when it touches a frontier pad that no earlier bind touched.
+   The script then runs itself with ``--load-artifact DIR`` as a fresh
+   process (load, bind, one BFS_ECP run; no ``nvcc``, the same levels'
+   hash). Last, under ``repro_torch.telemetry``, one traced run of each
+   program: span counts, host seconds per ``launch:<kernel>`` and of the
+   ``run`` span (every launch span descends from it, one per launch), a
+   Chrome trace that parses, traced against untraced warm runs
+   interleaved (the tracer's cost), and one traced run under the profiler
+   (its launch spans' host seconds beside its device busy time). Both
+   graph kernels' counters are set to 0 before the phase and read after.
    The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
@@ -101,13 +120,16 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1752,6 +1774,262 @@ def batch_phase(repro_torch, sources, sessions, g, oracle_of, sr, es, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# 4c. accelerator artifacts and tracing
+# ---------------------------------------------------------------------------
+
+
+def _identical(want, got) -> bool:
+    """Properties bit for bit, host scalars and launch counts equal."""
+    if set(want.properties) != set(got.properties) or want.host_env != got.host_env:
+        return False
+    for prop, x in want.properties.items():
+        y = got.properties[prop]
+        if x.dtype != y.dtype or not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+            return False
+    a, b = want.stats, got.stats
+    return (a.kernel_launches, a.full_launches, a.compacted_launches, a.fused_launches) == \
+        (b.kernel_launches, b.full_launches, b.compacted_launches, b.fused_launches)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def level_digest(levels: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(levels, dtype=np.int32).tobytes()).hexdigest()
+
+
+def artifact_child(path: str, scale: int, seed: int) -> int:
+    """``--load-artifact DIR``: a fresh process's warm start. Rebuilds the
+    graph from the seed (not timed), then ``load_accelerator`` -> ``bind``
+    -> one BFS_ECP run from root 0; prints one JSON line."""
+    t_start = time.perf_counter()
+    import repro_torch
+    from repro_torch.graph import generators
+
+    import_s = time.perf_counter() - t_start
+    g = generators.rmat(scale, EDGE_FACTOR, seed=seed, weighted=True)
+    t0 = time.perf_counter()
+    acc = repro_torch.load_accelerator(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess = acc.bind(g)
+    bind_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = sess.run(root=0)
+    run_s = time.perf_counter() - t0
+    log({"import_s": import_s, "load_s": load_s, "bind_s": bind_s, "first_run_s": run_s,
+         "first_answer_s": load_s + bind_s + run_s,
+         "compile_time_s": r.stats.compile_time_s,
+         "nvcc_cached": {n: info["cached"] for n, info in acc.library.builds.items()},
+         "modes": sorted({k.mode for k in acc.report().kernels}),
+         "old_level_sha256": level_digest(r.properties["old_level"])})
+    return 0
+
+
+def _launch_tree(spans, stats) -> dict:
+    """Span counts, and per ``launch:<kernel>`` host seconds, of one traced
+    run; asserts the launch spans number the run's launches and all
+    descend from its ``run`` span."""
+    counts: dict = {}
+    for sp in spans:
+        counts[sp.name] = counts.get(sp.name, 0) + 1
+    runs = [sp for sp in spans if sp.name == "run"]
+    assert len(runs) == 1, counts
+    launch = [sp for sp in spans if sp.name.startswith("launch:")]
+    assert len(launch) == stats.total_launches, (len(launch), stats.total_launches)
+    by_parent: dict = {}
+    for sp in spans:
+        by_parent.setdefault(sp.parent_id, []).append(sp)
+    below, stack = set(), [runs[0].span_id]
+    while stack:
+        for child in by_parent.get(stack.pop(), []):
+            below.add(child.span_id)
+            stack.append(child.span_id)
+    assert all(sp.span_id in below for sp in launch), "a launch span outside the run"
+    host_s, by_mode = {}, {}
+    for sp in launch:
+        host_s[sp.name] = host_s.get(sp.name, 0.0) + sp.duration_s
+        key = f"{sp.name} {sp.attrs.get('mode')}"
+        n, t = by_mode.get(key, (0, 0.0))
+        by_mode[key] = (n + 1, t + sp.duration_s)
+    return {"span_counts": counts, "launch_host_s": host_s,
+            "launch_host_s_by_mode": {k: {"launches": n, "host_s": t}
+                                      for k, (n, t) in by_mode.items()},
+            "launch_host_total_s": sum(host_s.values()), "run_span_s": runs[0].duration_s,
+            "frontier_masks": stats.frontier_masks, "frontier_mask_s": stats.frontier_mask_s}
+
+
+def artifact_phase(repro_torch, sources, generators, g, main_results, main_bind_s, params,
+                   sr, es, scale: int, seed: int, smi: str) -> tuple:
+    """Phase 4c: ``lower`` -> ``report`` -> ``save`` -> ``load_accelerator``
+    -> ``bind`` -> ``run`` for BFS_ECP, PAGERANK and SSSP on the resident
+    R19 graph, each run bit-identical to the main phase's warm run; a
+    rebind of BFS_ECP's loaded accelerator to a twin graph of the bucket;
+    a fresh process's warm start from the saved artifact (no ``nvcc``);
+    then one traced run of each program. Returns (rows, launches)."""
+    from repro_torch import telemetry
+
+    t_phase = time.perf_counter()
+    rows, accs = [], {}
+    sr.LAUNCHES = 0
+    es.LAUNCHES = 0
+    store = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    for name in ("BFS_ECP", "PAGERANK", "SSSP"):
+        prog = repro_torch.compile(getattr(sources, name))
+        t0 = time.perf_counter()
+        acc = prog.lower(graph=g)
+        lower_s = time.perf_counter() - t0
+        rep = acc.report()
+        t0 = time.perf_counter()
+        path = acc.save(os.path.join(store, name))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acc2 = repro_torch.load_accelerator(path)
+        load_s = time.perf_counter() - t0
+        modes = sorted({k.mode for k in acc2.report().kernels})
+        assert modes == ["aot-loaded"], f"{name}: kernel modes {modes} after the build phase"
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sess = acc2.bind(g)
+        torch.cuda.synchronize()
+        bind_s = time.perf_counter() - t0
+        bind_bytes = torch.cuda.memory_allocated() - mem0
+        t0 = time.perf_counter()
+        cold = sess.run(**params[name])
+        cold_s = time.perf_counter() - t0
+        warm_runs_s = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            warm = sess.run(**params[name])
+            warm_runs_s.append(time.perf_counter() - t0)
+        main_warm, main_warm_runs_s = main_results[name][1], main_results[name][3]
+        for got in (cold, warm):
+            assert _identical(main_warm, got), f"{name}: the artifact's run differs from bind(g)'s"
+        accs[name] = (acc2, sess, path)
+        rows.append({
+            "phase": "artifacts", "program": name, "params": params[name], "card": smi,
+            "lower_s": lower_s, "save_s": save_s, "artifact_bytes": _dir_bytes(path),
+            "load_s": load_s, "modes": modes, "bind_s": bind_s,
+            "main_bind_s": main_bind_s[name], "bind_allocated_bytes": bind_bytes,
+            "state_bytes": rep.state_bytes, "gb_bytes": rep.gb_bytes,
+            "state_plus_gb_bytes": rep.state_bytes + rep.gb_bytes,
+            "cold_s": cold_s, "cold_compile_time_s": cold.stats.compile_time_s,
+            "warm_s": statistics.median(warm_runs_s), "warm_runs_s": warm_runs_s,
+            "main_warm_s": statistics.median(main_warm_runs_s),
+            "identical_to_main": True, "determinism": rep.determinism,
+            "report": {"kernels": [{"name": k.name, "kind": k.kind, "stages": list(k.stages),
+                                    "direction": k.direction, "mode": k.mode}
+                                   for k in rep.kernels],
+                       "live_peak_bytes": rep.live_buffer_peak_bytes},
+        })
+
+    # -- rebind: BFS_ECP's loaded accelerator on a twin graph of the bucket
+    twin = generators.rmat(scale, EDGE_FACTOR, seed=seed + 1, weighted=True)
+    acc2 = accs["BFS_ECP"][0]
+    assert repro_torch.GraphShape.of(twin) == acc2.shape, "the twin left the bucket"
+    t0 = time.perf_counter()
+    twin_sess = acc2.bind(twin)
+    twin_bind_s = time.perf_counter() - t0
+    warmed = set(acc2.library.warm_keys)
+    t0 = time.perf_counter()
+    r = twin_sess.run(root=0)
+    twin_run_s = time.perf_counter() - t0
+    # the engines of one library share its warm keys: the twin pays compile
+    # time exactly for the frontier pads no earlier bind touched
+    new_keys = sorted(set(acc2.library.warm_keys) - warmed)
+    assert not any(k[0] == "full" for k in new_keys), new_keys
+    assert (r.stats.compile_time_s == 0.0) == (not new_keys), \
+        f"rebind compiled for {r.stats.compile_time_s} s, new keys {new_keys}"
+    want = bfs_levels(twin.n_vertices, twin.src, twin.dst, 0)
+    assert np.array_equal(r.properties["old_level"], want), "twin BFS differs from the oracle"
+    rows.append({"phase": "artifacts", "rebind": "BFS_ECP", "twin_seed": seed + 1,
+                 "bind_s": twin_bind_s, "first_run_s": twin_run_s,
+                 "compile_time_s": r.stats.compile_time_s, "new_keys": new_keys,
+                 "binds": acc2.binds,
+                 "oracle": {"exact": True, "reached": int((want != -1).sum())}})
+    del twin_sess, twin, r
+    gc.collect()
+
+    # -- warm start in a fresh process (graph generation left out of its times)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--load-artifact",
+                          accs["BFS_ECP"][2], "--scale", str(scale), "--seed", str(seed)],
+                         capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    assert out.returncode == 0, f"the fresh process failed:\n{out.stderr[-3000:]}"
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    assert child["nvcc_cached"] and all(child["nvcc_cached"].values()), child
+    assert child["modes"] == ["aot-loaded"], child
+    parent_digest = level_digest(main_results["BFS_ECP"][1].properties["old_level"])
+    assert child["old_level_sha256"] == parent_digest, "the fresh process's BFS differs"
+    rows.append({"phase": "artifacts", "fresh_process": "BFS_ECP", "process_s": child_s,
+                 **child, "matches_parent": True})
+
+    # -- tracing: one traced run of each program through its artifact session
+    tr = telemetry.enable()
+    try:
+        for name, (acc2, sess, _) in accs.items():
+            tr.reset()
+            t0 = time.perf_counter()
+            r = sess.run(**params[name])
+            traced_s = time.perf_counter() - t0
+            tree = _launch_tree(tr.spans(), r.stats)
+            assert r.trace is not None and acc2.report().profile["runs"] == 1, name
+            chrome = os.path.join(store, f"{name}.trace.json")
+            n_events = tr.export_chrome(chrome)
+            with open(chrome) as f:
+                doc = json.load(f)
+            assert sum(e["ph"] == "X" for e in doc["traceEvents"]) == n_events > 0
+            # the tracer's cost: untraced and traced warm runs, interleaved
+            plain_s, with_s = [], []
+            for _ in range(WARM_RUNS):
+                telemetry.disable()
+                t0 = time.perf_counter()
+                sess.run(**params[name])
+                plain_s.append(time.perf_counter() - t0)
+                tr = telemetry.enable()
+                t0 = time.perf_counter()
+                sess.run(**params[name])
+                with_s.append(time.perf_counter() - t0)
+            # host seconds per launch beside the device time of the same
+            # (profiled, traced) run
+            held = []
+
+            def traced_once(s=sess, n=name):
+                telemetry.get().reset()  # a window the profiler retries starts clean
+                held.append(s.run(**params[n]))
+
+            prof = profile_run(traced_once)
+            prof_tree = _launch_tree(telemetry.get().spans(), held[-1].stats)
+            rows.append({
+                "phase": "artifacts", "trace": name, "card": smi, "traced_s": traced_s,
+                "untraced_warm_median_s": statistics.median(plain_s),
+                "traced_warm_median_s": statistics.median(with_s),
+                "untraced_runs_s": plain_s, "traced_runs_s": with_s,
+                "overhead_share": statistics.median(with_s) / statistics.median(plain_s) - 1,
+                "launches": r.stats.total_launches, **tree, "chrome_events": n_events,
+                "profiled": {"wall_s": prof["wall_s"], "run_span_s": prof_tree["run_span_s"],
+                             "launch_host_s": prof_tree["launch_host_s"],
+                             "launch_host_s_by_mode": prof_tree["launch_host_s_by_mode"],
+                             "launch_host_total_s": prof_tree["launch_host_total_s"],
+                             "device_busy_s": prof["device_busy_s"],
+                             "device_idle_share": prof["device_idle_share"],
+                             "top_kernels_ms": prof["top_kernels_ms"]},
+            })
+    finally:
+        telemetry.disable()
+    launches = {"shuffle_reduce": sr.LAUNCHES, "edge_stream": es.LAUNCHES}
+    assert launches["shuffle_reduce"] > 0 and launches["edge_stream"] > 0, launches
+    del accs
+    shutil.rmtree(store)
+    rows.append({"phase": "artifacts", "launches": launches,
+                 "phase_s": time.perf_counter() - t_phase})
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 # oracles (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
 
@@ -1814,6 +2092,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=19, help="RMAT scale (19 = R19)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--load-artifact", metavar="DIR",
+                    help="phase 4c's fresh process: load DIR, bind the graph, one BFS_ECP run")
     args = ap.parse_args()
 
     # -- 1. device ----------------------------------------------------------
@@ -1822,6 +2102,8 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
+    if args.load_artifact:
+        return artifact_child(args.load_artifact, args.scale, args.seed)
     import repro_torch
     from repro_torch.algorithms import sources
     from repro_torch.graph import generators
@@ -2010,6 +2292,14 @@ def main() -> int:
     for name, n in batch_launches.items():
         launches[name] += n
     log({"phase": "batch", "launches": batch_launches})
+
+    # -- 4c. accelerator artifacts and tracing -------------------------------
+    art_rows, art_launches = artifact_phase(repro_torch, sources, generators, g, results,
+                                            bind_s, params, sr, es, args.scale, args.seed, smi)
+    for row in art_rows:
+        log(row)
+    for name, n in art_launches.items():
+        launches[name] += n
     del sessions, eng, results
     gc.collect()
     torch.cuda.empty_cache()

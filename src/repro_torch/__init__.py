@@ -8,20 +8,31 @@
     results = repro_torch.compile(sources.BFS_ECP).bind_batch(g).run_many(
         [{"root": r} for r in range(64)])   # one launch set for 64 queries
 
+    acc = repro_torch.compile(sources.BFS_ECP).lower(graph=g)  # once a bucket
+    acc2 = repro_torch.load_accelerator(acc.save("bfs-r19"))  # another process
+    acc2.bind(g).run(root=0)         # any graph of the bucket, kernels warm
+
+    repro_torch.telemetry.enable()   # spans: compile, lower, bind, run, launch:<k>
+
 ``bind`` places the program on ``"cuda"`` unless ``device="cpu"`` is
 given. On the GPU every reduction a program scatters commits through the
 hand-written CUDA kernels in :mod:`repro_torch.kernels`; on the CPU their
-plain PyTorch versions run.
+plain PyTorch versions run. ``lower`` and ``load_accelerator`` take the same
+``device=`` as ``bind``.
 """
 from .core import (  # noqa: F401
-    BatchSession, CompileOptions, EngineResult, Program, ProgramError, ServiceClosed, Session,
-    SessionError, SessionPool, Target, compile,
+    Accelerator, AcceleratorError, BatchSession, CompileOptions, EngineResult, GraphShape,
+    Program, ProgramError, ServiceClosed, Session, SessionError, SessionPool, Target, compile,
+    load_accelerator, load_or_lower, program_cache_info,
 )
+from . import telemetry  # noqa: F401
 from .graph import GraphData, generators, graph_from_arrays  # noqa: F401
 from .algorithms import sources  # noqa: F401
 
 __all__ = [
     "compile", "CompileOptions", "Target", "GraphData", "generators", "sources",
     "graph_from_arrays", "Program", "ProgramError", "Session", "SessionError",
-    "EngineResult", "BatchSession", "SessionPool", "ServiceClosed",
+    "EngineResult", "BatchSession", "SessionPool", "ServiceClosed", "GraphShape",
+    "Accelerator", "AcceleratorError", "load_accelerator", "load_or_lower",
+    "program_cache_info", "telemetry",
 ]

@@ -1,11 +1,13 @@
 """Scatter-write race analysis over analyzed MIR modules.
 
 A trimmed copy of the reference package's ``analysis/analyses.py`` (the
-race analysis and ``needs_shuffle``) with the two pieces of
-``analysis/diagnostics.py`` it needs. The engine consults
-:func:`needs_shuffle` to force the shuffle commit on for programs whose
-plain ``=`` scatter writes race (GT101): only the shuffle path's
-deterministic last-write-wins commit gives them a defined result.
+race analysis, ``needs_shuffle`` and the determinism certificate) with
+the two pieces of ``analysis/diagnostics.py`` it needs. The engine
+consults :func:`needs_shuffle` to force the shuffle commit on for
+programs whose plain ``=`` scatter writes race (GT101): only the shuffle
+path's deterministic last-write-wins commit gives them a defined result.
+Accelerator reports and artifact manifests carry
+:func:`determinism_certificate`.
 
 Nothing here mutates the module or its canonical serialization.
 """
@@ -19,6 +21,11 @@ from .core.semantic import _index_pattern
 
 _SCATTERED = (mir.IndexPattern.DST, mir.IndexPattern.NEIGHBOR,
               mir.IndexPattern.OTHER)
+
+# determinism certificate tiers (the reference's strings)
+DETERMINISTIC = "deterministic"
+REDUCTION_DETERMINISTIC = "reduction-deterministic"
+RACY = "racy"
 
 #: code -> severity of the two race diagnostics this module emits
 CODES: Dict[str, str] = {"GT101": "error", "GT102": "error"}
@@ -206,6 +213,33 @@ def race_analysis(module: mir.Module) -> Tuple[List[Diagnostic], Set[str]]:
                     kernel=k.name, prop=prop, line=line, col=col,
                 ))
     return diags, float_props
+
+
+def certificate_info(module: mir.Module) -> Tuple[str, str]:
+    """(tier, explanation) of the determinism certificate."""
+    race_diags, float_props = race_analysis(module)
+    if race_diags:
+        codes = sorted({d.code for d in race_diags})
+        return RACY, (
+            f"racy: unresolved scatter-write hazards ({', '.join(codes)}); "
+            f"results depend on commit order"
+        )
+    if float_props:
+        return REDUCTION_DETERMINISTIC, (
+            f"reduction-deterministic: float reductions into "
+            f"{sorted(float_props)} are value-correct under any reduction "
+            f"order but bitwise-sensitive to reassociation; the shuffle "
+            f"path's sorted segment reduce pins a canonical edge order"
+        )
+    return DETERMINISTIC, (
+        "deterministic: all scattered writes are order-insensitive "
+        "reductions (min/max or integer arithmetic)"
+    )
+
+
+def determinism_certificate(module: mir.Module) -> str:
+    """The certificate tier alone (what reports and manifests carry)."""
+    return certificate_info(module)[0]
 
 
 def needs_shuffle(module: mir.Module) -> bool:

@@ -42,6 +42,7 @@ import torch
 from ..core import fir, mir
 from ..core.backend import DTYPES, WEIGHT_KEY, combine
 from ..core.engine import Engine, EngineError, EngineResult, EngineStats, count_launch
+from .. import telemetry as tel
 
 
 class BatchError(Exception):
@@ -143,10 +144,23 @@ class BatchEngine:
         self.batch_size = k
         self.stats = EngineStats(batch_size=k)
         self._reset(param_sets)
-        self._run_host(keys, k)
+        tr = tel.get()
+        root_ctx = None
+        if tr.enabled:
+            with tr.span("run", engine=type(self).__name__, batch_size=k) as sp:
+                self._run_host(keys, k)
+                sp.set(launches=self.stats.total_launches,
+                       msbfs=self.MSBFS_NAME in self.stats.kernel_launches)
+            root_ctx = sp.context()
+        else:
+            self._run_host(keys, k)
         results = self._finalize()
         self.stats.wall_time_s = time.perf_counter() - t0
         self.stats.run_time_s = max(0.0, self.stats.wall_time_s - self.stats.compile_time_s)
+        if root_ctx is not None:
+            trace = tr.summarize(root=root_ctx)
+            for r in results:
+                r.trace = trace  # shared, like stats
         return results
 
     def _run_host(self, keys, k: int) -> None:
@@ -213,6 +227,15 @@ class BatchEngine:
         if kern is None:
             raise EngineError(f"{name!r} is not a device kernel")
         count_launch(self.stats, self.module, name)
+        tr = tel.get()
+        if not tr.enabled:
+            self._launch_inner(name, kern, mask)
+            return
+        with tr.span("launch:" + name, kernel=name, mode="batched",
+                     batch_size=self.batch_size, active_lanes=int(mask.sum())):
+            self._launch_inner(name, kern, mask)
+
+    def _launch_inner(self, name: str, kern, mask: np.ndarray) -> None:
         scalars = {s: self._lanes(self.host_env[s], DTYPES[self.module.scalars[s].scalar])[:, None]
                    for s in sorted(kern.scalar_reads)}
         # every batch size K is its own first touch; the inner engine's

@@ -1,7 +1,13 @@
-"""Compiler and single-device runtime: front end, passes, back end, engine."""
+"""Compiler and single-device runtime: front end, passes, back end, engine,
+and the accelerator artifacts."""
+from .accelerator import (  # noqa: F401
+    Accelerator, AcceleratorError, GraphShape, load_accelerator, load_or_lower,
+)
 from .engine import Engine, EngineResult, EngineStats  # noqa: F401
 from .options import CompileOptions  # noqa: F401
-from .program import Program, ProgramError, compile  # noqa: F401,A004
+from .program import (  # noqa: F401
+    Program, ProgramError, compile, program_cache_info,  # noqa: A004
+)
 from .session import (  # noqa: F401
     BatchSession, ServiceClosed, Session, SessionError, SessionPool, batch_eligible,
 )

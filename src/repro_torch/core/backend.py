@@ -899,52 +899,114 @@ def _exec_kernel_full(
     return ex.commit()
 
 
-def lower_pipeline(
+# ---------------------------------------------------------------------------
+# Shape-generic lowering (the Accelerator artifact's back end) and its
+# per-graph adapter
+# ---------------------------------------------------------------------------
+
+
+# graph-binding entries that are device arrays of the bucket's shape: the
+# Burst Read plan a bind uploads. All int32. Not listed:
+# ``es_split``, the full stream's work list, whose length follows the
+# graph's degree distribution rather than the bucket (it stays per bind),
+# and the host-side ints (counts, logical counts, device).
+GB_ARRAY_KEYS: Tuple[str, ...] = (
+    "order", "src", "dst", "dst_sort_perm", "dst_offsets", "es_src", "es_eid", "vids",
+    "csr_row_pos", "csr_indices", "csr_eids", "csr_indptr",
+    "csc_row_pos", "csc_indices", "csc_eids", "csc_indptr", "orig_id",
+)
+
+
+def gb_array_bytes(n_vertices: int, n_edges: int) -> int:
+    """Bytes of a bucket's :data:`GB_ARRAY_KEYS` arrays, ``es_split`` left
+    out (the counterpart of the reference's ``gb_array_specs``)."""
+    n = 0
+    for key in GB_ARRAY_KEYS:
+        if key in ("vids", "orig_id"):
+            n += n_vertices
+        elif key.endswith("indptr") or key == "dst_offsets":
+            n += n_vertices + 1
+        else:
+            n += n_edges
+    return 4 * n
+
+
+@dataclass
+class GenericLoweredKernel:
+    """A kernel lowered against a (target, shape bucket), graph-independent.
+
+    Unlike :class:`LoweredKernel`, the graph's binding arrays are an
+    *argument* (``gb``, one bind's :func:`_graph_bindings`) rather than
+    closed over: the software analogue of rebinding a synthesized
+    bitstream to a new graph. One object serves every graph of the bucket;
+    :meth:`bind` adapts it to one graph's bindings.
+    """
+
+    name: str
+    kind: mir.KernelKind
+    n_vertices: int
+    n_edges: int
+    run_full: Callable  # (gb, state, scalars) -> prop updates
+    run_subset: Optional[Callable] = None  # (gb, state, scalars, batch) -> updates
+    frontier: Optional[mir.FrontierInfo] = None
+
+    def bind(self, gb: Dict[str, Any]) -> LoweredKernel:
+        """This kernel over one graph's binding arrays."""
+        if (gb["n_vertices"], gb["n_edges"]) != (self.n_vertices, self.n_edges):
+            raise BackendError(
+                f"kernel {self.name!r} was lowered for |V|={self.n_vertices} "
+                f"|E|={self.n_edges}, bound to |V|={gb['n_vertices']} |E|={gb['n_edges']}"
+            )
+        full, subset = self.run_full, self.run_subset
+        return LoweredKernel(
+            self.name, self.kind,
+            run_full=lambda state, scalars: full(gb, state, scalars),
+            run_subset=None if subset is None else
+            (lambda state, scalars, batch: subset(gb, state, scalars, batch)),
+            frontier=self.frontier,
+        )
+
+
+def lower_kernel_generic(
     module: mir.Module,
-    pipeline: mir.PipelineKernel,
-    gb: Dict[str, Any],
-    options,
-) -> LoweredKernel:
-    """Lower a fused multi-stage launch (paper Fig. 4 single pipeline).
+    kernel,
+    n_vertices: int,
+    n_edges: int,
+    target,
+) -> GenericLoweredKernel:
+    """Lower one kernel with the graph's bindings as an argument.
 
-    Stage boundaries keep launch semantics: each stage's updates
-    (including scattered reduces) are committed into the running state
-    before the next stage runs, so results are identical to launching the
-    stages separately."""
-    stages = [(s, edge_stream_plan(module, s)) for s in pipeline.stages]
-
-    def run_full(state, scalars):
-        cur = dict(state)
-        out: Dict[str, torch.Tensor] = {}
-        for stage, plan in stages:
-            upd = _exec_kernel_full(module, stage, options, gb, cur, scalars, plan)
-            cur.update(upd)
-            out.update(upd)
-        return out
-
-    return LoweredKernel(pipeline.name, mir.KernelKind.PIPELINE, run_full=run_full)
-
-
-def lower_kernel(
-    module: mir.Module,
-    kernel: mir.Kernel,
-    gb: Dict[str, Any],
-    options,
-) -> LoweredKernel:
+    A fused pipeline (paper Fig. 4 single pipeline) keeps launch semantics
+    at its stage boundaries: each stage's updates, scattered reduces
+    included, are committed into the running state before the next stage
+    runs, so results equal launching the stages separately.
+    """
     if isinstance(kernel, mir.PipelineKernel):
-        return lower_pipeline(module, kernel, gb, options)
+        stages = [(st, edge_stream_plan(module, st)) for st in kernel.stages]
+
+        def run_full(gb, state, scalars):
+            cur = dict(state)
+            out: Dict[str, torch.Tensor] = {}
+            for stage, plan in stages:
+                upd = _exec_kernel_full(module, stage, target, gb, cur, scalars, plan)
+                cur.update(upd)
+                out.update(upd)
+            return out
+
+        return GenericLoweredKernel(kernel.name, mir.KernelKind.PIPELINE, n_vertices,
+                                    n_edges, run_full)
 
     if kernel.kind is mir.KernelKind.EDGE:
         plan = edge_stream_plan(module, kernel)
 
-        def run_full(state, scalars):
-            return _exec_kernel_full(module, kernel, options, gb, state, scalars, plan)
+        def run_full(gb, state, scalars):
+            return _exec_kernel_full(module, kernel, target, gb, state, scalars, plan)
 
-        def run_subset(state, scalars, batch):
+        def run_subset(gb, state, scalars, batch):
             src, dst, w, eid, valid = batch
             # subsets are unsorted: no static shuffle routing
             sub_gb = dict(gb, dst_sort_perm=None)
-            ex = KernelExec(module, kernel, options, state, scalars, sub_gb)
+            ex = KernelExec(module, kernel, target, state, scalars, sub_gb)
             bindings = {kernel.src_param: src, kernel.dst_param: dst, "edge": eid}
             if kernel.weight_param is not None:
                 bindings[kernel.weight_param] = w
@@ -957,22 +1019,22 @@ def lower_kernel(
                 out[WEIGHT_KEY] = _set(prev, eid, vals)
             return out
 
-        return LoweredKernel(kernel.name, kernel.kind, run_full=run_full,
-                             run_subset=run_subset, frontier=kernel.frontier)
+        return GenericLoweredKernel(kernel.name, kernel.kind, n_vertices, n_edges, run_full,
+                                    run_subset=run_subset, frontier=kernel.frontier)
 
     # vertex kernel
-    def run_full(state, scalars):
-        return _exec_kernel_full(module, kernel, options, gb, state, scalars)
+    def run_full(gb, state, scalars):
+        return _exec_kernel_full(module, kernel, target, gb, state, scalars)
 
-    def run_subset(state, scalars, batch):
+    def run_subset(gb, state, scalars, batch):
         vids, valid = batch
-        ex = KernelExec(module, kernel, options, state, scalars, gb)
+        ex = KernelExec(module, kernel, target, state, scalars, gb)
         lane = LaneCtx(n_lanes=vids.shape[0], bindings={kernel.vertex_param: vids}, valid=valid)
         ex.exec_block(kernel.func.body, lane, None)
         return ex.commit()
 
-    return LoweredKernel(
-        kernel.name, kernel.kind, run_full=run_full,
+    return GenericLoweredKernel(
+        kernel.name, kernel.kind, n_vertices, n_edges, run_full,
         run_subset=run_subset if not kernel.has_neighbor_loop else None,
         frontier=kernel.frontier,
     )

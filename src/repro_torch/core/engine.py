@@ -17,6 +17,14 @@ Engine-level optimizations:
   match). The frontier mask is evaluated on the host, which copies one
   property per such launch from the device. Large frontiers fall back to
   the full-edge stream — the direction-switching insight of paper Fig. 2.
+
+An engine launches the kernels of a shape-generic kernel library: the
+library of the :class:`~.accelerator.Accelerator` it was bound from
+(``library=``), whose warm-key registry it shares, or one of its own.
+Under :mod:`repro_torch.telemetry` a run opens the ``run`` span and each
+launch a ``launch:<kernel>`` span (host clocks, as the reference's;
+nothing synchronizes the device per launch), and the result carries the
+run's span summary in ``trace``.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 
 from . import backend, fir, mir, semantic
 from .backend import DTYPES, WEIGHT_KEY
+from .. import telemetry as tel
 from ..graph.storage import GraphData
 
 
@@ -97,15 +106,46 @@ class EngineResult:
     properties: Dict[str, np.ndarray]
     host_env: Dict[str, Any]
     stats: EngineStats
+    # per-run telemetry summary: the run's span tree aggregated by name when
+    # tracing was on, None otherwise. Batched runs share one summary across
+    # the K results, as they share ``stats``.
+    trace: Optional[Dict[str, Any]] = None
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(10, (max(1, n) - 1).bit_length())
 
 
+def race_safe_target(module: mir.Module, target):
+    """``(target, forced)``: a program whose static analysis found a true
+    scatter race (GT101) is only sequentially correct under the sorted
+    shuffle commit, so disabling shuffle on it is an ablation of
+    correctness, not of performance: the analysis verdict wins and
+    ``shuffle`` is forced on."""
+    if not target.shuffle:
+        from ..analysis import needs_shuffle
+
+        if needs_shuffle(module):
+            import dataclasses
+
+            return dataclasses.replace(target, shuffle=True), True
+    return target, False
+
+
+def _full_edges(graph: GraphData, kern) -> int:
+    """Edges one full-stream launch of ``kern`` traverses."""
+    if kern.kind is mir.KernelKind.EDGE:
+        return graph.n_edges
+    if isinstance(kern, mir.PipelineKernel):
+        return graph.n_edges * len(kern.edge_stages)
+    return 0
+
+
 class Engine:
     """Executes one compiled Graphitron module against one graph on one
-    device (``"cuda"`` or ``"cpu"``)."""
+    device (``"cuda"`` or ``"cpu"``); ``library`` is the kernel library of
+    the Accelerator it was bound from (the Accelerator checked the graph
+    against its bucket), else the engine lowers a library of its own."""
 
     def __init__(
         self,
@@ -114,26 +154,22 @@ class Engine:
         target,
         device: str,
         argv: Optional[List[str]] = None,
+        *,
+        library=None,
     ):
         self.module = module
-        self.target = target
         self.device = device
-        # Race-safety override: a program whose static analysis found a true
-        # scatter race (GT101) is only sequentially-correct under the sorted
-        # shuffle substrate — disabling shuffle on it is an ablation of
-        # correctness, not of performance, so the analysis verdict wins.
-        self.shuffle_forced = False
-        if not self.target.shuffle:
-            from ..analysis import needs_shuffle
-
-            if needs_shuffle(module):
-                import dataclasses as _dc
-
-                self.target = _dc.replace(self.target, shuffle=True)
-                self.shuffle_forced = True
+        self.target, self.shuffle_forced = race_safe_target(module, target)
         self.argv = argv or []
         self.stats = EngineStats()
-        self._warm_keys: set = set()
+        if library is None:
+            from .accelerator import GraphShape, KernelLibrary
+
+            library = KernelLibrary(module, self.target, GraphShape.of(graph), device)
+        self.library = library
+        # first-touch timing keys; an accelerator's engines share its
+        # library's registry, so a rebind starts warm where earlier binds were
+        self._warm_keys = library.warm_keys
 
         # ---- hub cache: degree relabeling (paper Fig. 7(b)) ----
         if self.target.cache:
@@ -206,10 +242,9 @@ class Engine:
     # ------------------------------------------------------------------
     def _kernel(self, name: str) -> backend.LoweredKernel:
         if name not in self._lowered:
-            k = self.module.kernels.get(name)
-            if k is None:
+            if name not in self.module.kernels:
                 raise EngineError(f"{name!r} is not a device kernel")
-            self._lowered[name] = backend.lower_kernel(self.module, k, self.gb, self.target)
+            self._lowered[name] = self.library.kernel_for(name, self.gb)
         return self._lowered[name]
 
     def _timed_call(self, key, fn, *args, stats: Optional[EngineStats] = None):
@@ -241,7 +276,16 @@ class Engine:
         if kern is None:
             raise EngineError(f"{name!r} is not a device kernel")
         count_launch(self.stats, self.module, name)
-        self._execute_kernel(name, kern)
+        tr = tel.get()
+        if not tr.enabled:  # hot path: one attribute check when untraced
+            self._execute_kernel(name, kern)
+            return
+        direction = getattr(kern, "direction", None)
+        with tr.span(
+            "launch:" + name, kernel=name, kind=kern.kind.name.lower(),
+            direction=direction.name.lower() if direction is not None else None,
+        ) as sp:
+            self._execute_kernel(name, kern, sp)
 
     def batched_runner(self, name: str) -> Callable:
         """The batch-axis launch of kernel ``name``, ``(state, scalars) ->
@@ -252,11 +296,7 @@ class Engine:
 
     def _full_stats_bump(self, kern) -> Callable[[EngineStats], None]:
         """Stats increment matching one full-stream launch of ``kern``."""
-        edges = 0
-        if kern.kind is mir.KernelKind.EDGE:
-            edges = self.graph.n_edges
-        elif isinstance(kern, mir.PipelineKernel):
-            edges = self.graph.n_edges * len(kern.edge_stages)
+        edges = _full_edges(self.graph, kern)
 
         def bump(stats: EngineStats) -> None:
             stats.full_launches += 1
@@ -264,7 +304,8 @@ class Engine:
 
         return bump
 
-    def _execute_kernel(self, name: str, kern):
+    def _execute_kernel(self, name: str, kern, sp=None):
+        """Launch ``kern``; ``sp`` is its launch span when tracing is on."""
         lk = self._kernel(name)
         scalars = self._kernel_scalars(name)
         if (
@@ -275,10 +316,12 @@ class Engine:
             and kern.direction is not mir.Direction.DENSE
             and lk.frontier is not None
             and lk.run_subset is not None
-            and self._launch_compacted_edge(lk, kern, scalars)
+            and self._launch_compacted_edge(lk, kern, scalars, sp)
         ):
             return
         self._full_stats_bump(kern)(self.stats)
+        if sp is not None:
+            sp.set(mode="full", edges=_full_edges(self.graph, kern))
         updates = self._timed_call(("full", name), lk.run_full, self.state, scalars)
         self.state.update(updates)
 
@@ -302,7 +345,8 @@ class Engine:
             self._build_batch = build
         return self._build_batch
 
-    def _launch_compacted_edge(self, lk, kern: mir.Kernel, scalars) -> bool:
+    def _launch_compacted_edge(self, lk, kern: mir.Kernel, scalars,
+                               sp=None) -> bool:
         t0 = time.perf_counter()
         mask = self._vertex_mask_host(kern, lk.frontier.cond)
         self.stats.frontier_masks += 1
@@ -319,6 +363,12 @@ class Engine:
         pad_e = _next_pow2(n_active_edges)
         if pad_e > self.graph.n_edges:
             return False
+        if sp is not None:
+            sp.set(
+                mode="compacted", edges=n_active_edges, frontier_size=n_active,
+                frontier_occupancy=round(n_active / max(1, self.graph.n_vertices), 6),
+                pad_v=pad_v, pad_e=pad_e,
+            )
         weights = self.state.get(WEIGHT_KEY)
         if weights is None:
             weights = torch.zeros(1, dtype=torch.float32, device=self.device)
@@ -385,7 +435,18 @@ class Engine:
         t0 = time.perf_counter()
         host = self.module.host
         assert host is not None
-        self._exec_host_block(host.main.body)
+        tr = tel.get()
+        root_ctx = None
+        if tr.enabled:
+            with tr.span("run", engine=type(self).__name__, target=self.target.kind,
+                         batch_size=1) as sp:
+                self._exec_host_block(host.main.body)
+                sp.set(launches=self.stats.total_launches,
+                       compacted=self.stats.compacted_launches,
+                       full=self.stats.full_launches, supersteps=0)
+            root_ctx = sp.context()
+        else:
+            self._exec_host_block(host.main.body)
         props = {}
         for p in self.module.properties.values():
             relabeled = (self.old2new is not None and not p.is_edge
@@ -396,7 +457,10 @@ class Engine:
             props["weight"] = self._host_copy(WEIGHT_KEY)
         self.stats.wall_time_s = time.perf_counter() - t0
         self.stats.run_time_s = max(0.0, self.stats.wall_time_s - self.stats.compile_time_s)
-        return EngineResult(properties=props, host_env=dict(self.host_env), stats=self.stats)
+        result = EngineResult(properties=props, host_env=dict(self.host_env), stats=self.stats)
+        if root_ctx is not None:
+            result.trace = tr.summarize(root=root_ctx)
+        return result
 
     def _host_copy(self, key: str, finish: Optional[Callable] = None) -> np.ndarray:
         """State entry ``key`` as a numpy array (``finish`` un-relabels it).

@@ -17,21 +17,34 @@ initializer are required at ``run()``.
 :meth:`Program.bind` places the program onto one graph on one device and
 returns a reusable :class:`~.session.Session`. The device defaults to
 ``"cuda"``; without a GPU the caller must ask for ``device="cpu"``.
+:meth:`Program.lower` instead makes an
+:class:`~.accelerator.Accelerator` for a shape bucket, which binds any
+graph of the bucket and saves to a directory artifact.
+
+:func:`compile` is keyed by a content hash of the canonical serialized
+MIR (:func:`~.mir.canonical_serialize`) and the options, in a bounded LRU
+cache: the same program compiled twice is one :class:`Program`, and two
+sources differing only in comments or whitespace share an entry.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import numbers
+import threading
+from collections import OrderedDict, namedtuple
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, TYPE_CHECKING
+from typing import Any, Dict, Optional, Tuple, TYPE_CHECKING
 
 from . import mir, passes, semantic
 from .lexer import LexError
 from .options import CompileOptions
 from .parser import ParseError, parse
+from .. import telemetry as tel
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from ..graph.storage import GraphData
+    from .accelerator import Accelerator, GraphShape
     from .session import BatchSession, Session, SessionPool
     from .target import Target
 
@@ -104,17 +117,29 @@ def _coerce_param(spec: ParamSpec, value: Any):
     )
 
 
+def program_fingerprint(mir_key: str, options: CompileOptions) -> str:
+    """Cache key of a compiled Program: canonical MIR hash + options."""
+    h = hashlib.sha256()
+    h.update(mir_key.encode("ascii"))
+    h.update(b"\x00")
+    h.update(repr(options).encode("utf-8"))
+    return h.hexdigest()
+
+
 class Program:
     """A compiled Graphitron program, independent of any graph.
 
     Holds the optimized MIR module, the compile options it was built with,
-    and the declared run-time parameters. Each :meth:`bind` returns an
-    isolated :class:`~.session.Session`.
+    its content fingerprint (:func:`program_fingerprint`) and the declared
+    run-time parameters. Each :meth:`bind` returns an isolated
+    :class:`~.session.Session`.
     """
 
-    def __init__(self, module: mir.Module, options: CompileOptions, source: str):
+    def __init__(self, module: mir.Module, options: CompileOptions, fingerprint: str,
+                 source: str):
         self.module = module
         self.options = options
+        self.fingerprint = fingerprint
         self.source = source
         self.params: Dict[str, ParamSpec] = {
             s.name: ParamSpec(s.name, s.scalar, required=s.init is None)
@@ -127,7 +152,7 @@ class Program:
 
     def __repr__(self) -> str:
         return (
-            f"Program(kernels={sorted(self.module.kernels)}, "
+            f"Program({self.fingerprint[:12]}, kernels={sorted(self.module.kernels)}, "
             f"params=[{', '.join(p.describe() for p in self.params.values())}])"
         )
 
@@ -155,6 +180,43 @@ class Program:
                     f"initializer); pass {name}=<{spec.scalar}> to run()"
                 )
         return out
+
+    def lower(self, target: "Optional[Target]" = None, shape: "Optional[GraphShape]" = None,
+              *, graph: "Optional[GraphData]" = None, bucket: bool = False,
+              device: Optional[str] = None) -> "Accelerator":
+        """Lower this program for a (target, shape bucket) on one device.
+
+        The returned :class:`~.accelerator.Accelerator` holds every kernel
+        lowered with the graph's binding arrays as arguments, so
+        ``accelerator.bind(g)`` is a shape check plus the graph's upload,
+        and any number of graphs of the bucket share the lowering. On
+        ``"cuda"`` lowering builds (or finds built) and loads the CUDA
+        libraries the graph path launches. Pass ``shape=GraphShape(...)``
+        or ``graph=`` to take the bucket from a concrete graph;
+        ``bucket=True`` (with ``graph=``) rounds its logical counts up to a
+        geometric bucket (:meth:`GraphShape.bucket_for`), and the caller
+        binds ``graph.pad_to(shape.n_vertices, shape.n_edges)``. ``target``
+        defaults to ``Target()``; ``device`` is as for :meth:`bind`:
+        ``None`` means ``"cuda"``, which raises without a GPU unless the
+        caller asks for ``device="cpu"``.
+        """
+        from .accelerator import Accelerator, GraphShape
+        from .target import Target
+
+        if shape is None:
+            if graph is None:
+                raise ProgramError(
+                    "Program.lower needs a shape bucket: pass "
+                    "shape=GraphShape(...) or graph=<GraphData>"
+                )
+            if bucket:
+                shape = GraphShape.bucket_for(graph.n_vertices_logical,
+                                              graph.n_edges_logical,
+                                              weighted=graph.weighted)
+            else:
+                shape = GraphShape.of(graph)
+        return Accelerator(self, target if target is not None else Target(), shape,
+                           device=device)
 
     def bind(self, graph: "GraphData", *, target: "Optional[Target]" = None,
              device: Optional[str] = None, argv: Optional[list] = None) -> "Session":
@@ -200,10 +262,111 @@ class Program:
                            batch=batch, batch_wait_s=batch_wait_s)
 
 
-def compile_program(src: str, options: Optional[CompileOptions] = None) -> Program:
-    """Compile a ``.gt`` source string into a :class:`Program`."""
-    if not isinstance(src, str):
-        raise ProgramError(f"expected DSL source text, got {type(src).__name__}")
+# ---------------------------------------------------------------------------
+# content-hashed program cache (bounded LRU)
+# ---------------------------------------------------------------------------
+
+
+class _LRU:
+    """A small LRU map with functools-style counters.
+
+    NOT internally locked: all access goes through ``_CACHE_LOCK`` below
+    (the caches cross-reference each other, so one lock is simplest).
+    """
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self._od: "OrderedDict[str, Any]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key):
+        if key is None or key not in self._od:
+            self.misses += 1
+            return None
+        self._od.move_to_end(key)
+        self.hits += 1
+        return self._od[key]
+
+    def setdefault(self, key, value):
+        cur = self._od.get(key)
+        if cur is not None:
+            self._od.move_to_end(key)
+            return cur
+        self._od[key] = value
+        self._evict()
+        return value
+
+    def put(self, key, value):
+        self._od[key] = value
+        self._od.move_to_end(key)
+        self._evict()
+
+    def _evict(self):
+        while len(self._od) > self.maxsize:
+            self._od.popitem(last=False)
+            self.evictions += 1
+
+    def resize(self, maxsize: int):
+        self.maxsize = maxsize
+        self._evict()
+
+    def clear(self):
+        self._od.clear()
+        self.hits = self.misses = self.evictions = 0
+
+    def __len__(self):
+        return len(self._od)
+
+    def __contains__(self, key):
+        return key in self._od
+
+
+#: Default Program cache bound: a long-lived process compiles many distinct
+#: programs; an unbounded dict is a slow leak.
+DEFAULT_PROGRAM_CACHE_SIZE = 64
+
+# keyed by program_fingerprint(mir_key, options)
+_PROGRAM_CACHE = _LRU(DEFAULT_PROGRAM_CACHE_SIZE)
+# the analyzed MIR module is options-independent: cached on the MIR
+# fingerprint alone, so sweeps over options do not re-run the analysis
+_MODULE_CACHE = _LRU(DEFAULT_PROGRAM_CACHE_SIZE)
+# sha256(raw text) -> MIR fingerprint: recompiling the same text skips the
+# lexer, parser and analyzer
+_TEXT_KEYS = _LRU(DEFAULT_PROGRAM_CACHE_SIZE)
+_CACHE_LOCK = threading.Lock()
+
+ProgramCacheInfo = namedtuple(
+    "ProgramCacheInfo", ["hits", "misses", "evictions", "maxsize", "currsize"]
+)
+
+
+def program_cache_info() -> ProgramCacheInfo:
+    """functools-style counters of the compiled-Program LRU cache."""
+    with _CACHE_LOCK:
+        c = _PROGRAM_CACHE
+        return ProgramCacheInfo(c.hits, c.misses, c.evictions, c.maxsize, len(c))
+
+
+def set_program_cache_limit(maxsize: int) -> None:
+    """Resize the Program cache (module/text memos track the same bound)."""
+    if maxsize < 1:
+        raise ValueError("program cache size must be >= 1")
+    with _CACHE_LOCK:
+        _PROGRAM_CACHE.resize(maxsize)
+        _MODULE_CACHE.resize(maxsize)
+        _TEXT_KEYS.resize(maxsize)
+
+
+def _analyze_text(src: str) -> Tuple[mir.Module, str]:
+    """Text front end: source -> (analyzed module, MIR fingerprint)."""
+    src_key = hashlib.sha256(src.encode("utf-8")).hexdigest()
+    with _CACHE_LOCK:
+        mir_key = _TEXT_KEYS.get(src_key)
+        module = _MODULE_CACHE.get(mir_key) if mir_key else None
+    if module is not None:
+        return module, mir_key
     try:
         fir_prog = parse(src)
     except (LexError, ParseError) as e:
@@ -212,8 +375,60 @@ def compile_program(src: str, options: Optional[CompileOptions] = None) -> Progr
         module = semantic.analyze(fir_prog)
     except semantic.SemanticError as e:
         raise _front_end_error(e, src) from e
+    mir_key = mir.fingerprint(module)
+    with _CACHE_LOCK:
+        # another thread may have raced us; keep the first base module
+        module = _MODULE_CACHE.setdefault(mir_key, module)
+        _TEXT_KEYS.put(src_key, mir_key)
+    return module, mir_key
+
+
+def compile_program(src: str, options: Optional[CompileOptions] = None) -> Program:
+    """Compile a ``.gt`` source string into a :class:`Program`.
+
+    The cache key is a content hash of the canonical serialized MIR plus
+    the options: the same program returns the same Program, and other
+    options compile anew. Under tracing this opens the ``compile`` span.
+    """
+    tr = tel.get()
+    if not tr.enabled:
+        return _compile_impl(src, options, tel.NULL_SPAN)
+    with tr.span("compile") as sp:
+        return _compile_impl(src, options, sp)
+
+
+def _compile_impl(src, options, sp) -> Program:
+    if not isinstance(src, str):
+        raise ProgramError(f"expected DSL source text, got {type(src).__name__}")
+    sp.set(frontend="text")
+    module, mir_key = _analyze_text(src)
     opts = options if options is not None else CompileOptions()
-    return Program(passes.run_pipeline(module, opts), opts, src)
+    key = program_fingerprint(mir_key, opts)
+    sp.set(fingerprint=key[:16])
+    with _CACHE_LOCK:
+        prog = _PROGRAM_CACHE.get(key)
+    if prog is not None:
+        sp.set(cache_hit=True)
+        return prog
+    sp.set(cache_hit=False)
+    # the pass pipeline works on a copy: the cached base module stays
+    # pristine for other option sets
+    prog = Program(passes.run_pipeline(module, opts), opts, key, src)
+    with _CACHE_LOCK:
+        return _PROGRAM_CACHE.setdefault(key, prog)
+
+
+def clear_program_cache() -> None:
+    """Drop all cached programs and modules (test isolation / memory)."""
+    with _CACHE_LOCK:
+        _PROGRAM_CACHE.clear()
+        _MODULE_CACHE.clear()
+        _TEXT_KEYS.clear()
+
+
+def program_cache_size() -> int:
+    with _CACHE_LOCK:
+        return len(_PROGRAM_CACHE)
 
 
 # `repro_torch.compile(src, options)` reads naturally at call sites; the

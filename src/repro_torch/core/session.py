@@ -16,6 +16,10 @@ sets with one set of launches; ``Session.run_many`` and
 :class:`SessionPool` (``program.pool``) serves concurrent queries, with an
 optional dynamic batcher. Every result is bit-identical to a sequential
 ``run`` of the same parameters.
+
+Sessions bound from an :class:`~.accelerator.Accelerator` (``library=``)
+launch its kernel library, and a traced run feeds the accelerator's
+profiling baseline (``Accelerator.record_profile``).
 """
 from __future__ import annotations
 
@@ -73,14 +77,17 @@ class Session:
     """One program bound to one graph on one device; run it many times."""
 
     def __init__(self, program: Program, graph, *, target: Optional[Target] = None,
-                 device: Optional[str] = None, argv: Optional[list] = None):
+                 device: Optional[str] = None, argv: Optional[list] = None, library=None):
         self.program = program
         self.graph = graph
         self.device = resolve_device(device)
         self.target = target if target is not None else Target()
         argv = list(argv) if argv is not None else ["prog", "<graph>"]
-        self.engine = Engine(program.module, graph, self.target, self.device, argv=argv)
+        self.engine = Engine(program.module, graph, self.target, self.device, argv=argv,
+                             library=library)
         self.runs = 0
+        # set by Accelerator.bind: traced runs feed its profiling baseline
+        self.accelerator = None
         self._lock = threading.Lock()
         self._batch_session: Optional["BatchSession"] = None
 
@@ -92,6 +99,8 @@ class Session:
             self.engine.host_env.update(coerced)
             result = self.engine.run()
             self.runs += 1
+        if result.trace is not None and self.accelerator is not None:
+            self.accelerator.record_profile(result.trace)
         return result
 
     def run_many(self, param_sets: Sequence[Dict[str, Any]],
@@ -158,7 +167,7 @@ class BatchSession:
     def __init__(self, program: Program, graph, *, target: Optional[Target] = None,
                  device: Optional[str] = None, argv: Optional[list] = None,
                  max_batch: Optional[int] = None, msbfs: bool = True,
-                 session: Optional[Session] = None):
+                 session: Optional[Session] = None, library=None):
         if max_batch is not None and max_batch < 1:
             raise SessionError("max_batch must be >= 1")
         from ..batch.engine import BatchEngine
@@ -172,12 +181,15 @@ class BatchSession:
             self.device = resolve_device(device)
             self.target = target if target is not None else Target()
             argv = list(argv) if argv is not None else ["prog", "<graph>"]
-            inner = Engine(program.module, graph, self.target, self.device, argv=argv)
+            inner = Engine(program.module, graph, self.target, self.device, argv=argv,
+                           library=library)
             self._lock = threading.Lock()
         self.engine = BatchEngine(inner, enable_msbfs=msbfs)
         self.max_batch = max_batch
         self.runs = 0
         self.queries = 0
+        # set by Accelerator.bind_batch: traced runs feed its profile
+        self.accelerator = None
 
     def run_many(self, param_sets: Sequence[Dict[str, Any]]) -> List[EngineResult]:
         """Answer every parameter set in one (or, past ``max_batch``, a few)
@@ -199,6 +211,10 @@ class BatchSession:
                 out.extend(self.engine.run_batch(chunk))
                 self.runs += 1
                 self.queries += len(chunk)
+        if self.accelerator is not None:
+            # one summary per chunk, shared by the chunk's results
+            for trace in {id(r.trace): r.trace for r in out if r.trace is not None}.values():
+                self.accelerator.record_profile(trace)
         return out
 
     def __enter__(self) -> "BatchSession":
@@ -232,7 +248,8 @@ class SessionPool:
 
     def __init__(self, program: Program, graph, size: int = 2, *,
                  target: Optional[Target] = None, device: Optional[str] = None,
-                 argv: Optional[list] = None, batch: int = 0, batch_wait_s: float = 0.002):
+                 argv: Optional[list] = None, batch: int = 0, batch_wait_s: float = 0.002,
+                 library=None):
         if size < 1:
             raise SessionError("SessionPool size must be >= 1")
         self.program = program
@@ -240,7 +257,8 @@ class SessionPool:
         self.size = size
         self.device = resolve_device(device)
         self.target = target
-        self._sessions = [Session(program, graph, target=target, device=self.device, argv=argv)
+        self._sessions = [Session(program, graph, target=target, device=self.device, argv=argv,
+                                  library=library)
                           for _ in range(size)]
         self._idle: List[Session] = list(self._sessions)
         self._idle_ready = threading.Condition(threading.Lock())

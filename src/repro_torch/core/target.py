@@ -22,7 +22,7 @@ scatters commits through the hand-written kernels.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 _KINDS = ("local",)
 
@@ -66,6 +66,18 @@ class Target:
         if opt not in ("burst", "cache", "shuffle"):
             raise ValueError(f"unknown ablation axis {opt!r}")
         return replace(Target.baseline(), **{opt: True})
+
+    # -- serialization (artifact manifests) ---------------------------------
+    def to_dict(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in fields(self)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Target":
+        known = {f.name for f in fields(Target)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise ValueError(f"unknown Target fields in artifact: {unknown}")
+        return Target(**d)
 
     def describe(self) -> str:
         opts = ",".join(

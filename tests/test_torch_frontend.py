@@ -109,6 +109,33 @@ def test_import_pulls_in_neither_jax_nor_reference():
     assert out.stdout.startswith("clean")
 
 
+def test_artifacts_and_tracing_import_neither_jax_nor_reference(tmp_path):
+    """The accelerator and telemetry modules alone, then the whole artifact
+    flow under tracing (whose deferred imports load the analysis, the
+    session and the kernel build modules), load no JAX and no reference."""
+    code = (
+        "import sys\n"
+        "import repro_torch.core.accelerator as acc_mod, repro_torch.telemetry as tel\n"
+        "from repro_torch import compile, generators, load_accelerator, sources\n"
+        "tel.enable()\n"
+        "g = generators.power_law(100, 600, seed=1, weighted=True)\n"
+        "acc = compile(sources.SSSP).lower(graph=g, device='cpu')\n"
+        "acc.report().describe()\n"
+        f"loaded = load_accelerator(acc.save({str(tmp_path / 'sssp')!r}), device='cpu')\n"
+        "assert loaded.bind(g).run(root=0).trace is not None\n"
+        "loaded.bind_batch(g).run_many([{'root': 0}, {'root': 1}])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(tel.get().spans()))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("clean") and int(out.stdout.split()[1]) > 0
+
+
 def test_lm_stack_imports_neither_jax_nor_reference():
     """The config registry imports its arch modules by name: the port's
     copy must load ``repro_torch.configs.*``, never ``repro.configs.*``."""

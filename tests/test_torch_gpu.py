@@ -350,6 +350,55 @@ def test_cuda_port_matches_cpu_port(cuda, algo):
     assert got.stats.kernel_launches == want.stats.kernel_launches
 
 
+ARTIFACT_PROGRAMS = [("BFS_ECP", {"root": 3}), ("SSSP", {"root": 3}), ("PAGERANK", {"iters": 5})]
+
+
+def _artifact_graph():
+    return generators.power_law(2000, 30000, seed=5, weighted=True)
+
+
+def _artifact_roundtrip(cuda, tmp_path, name, params):
+    """``lower`` -> ``save`` -> ``load_accelerator`` -> ``bind`` -> ``run`` on
+    the card beside ``bind(g).run`` on the card; returns (want, got,
+    loaded accelerator, launches of the loaded run)."""
+    g = _artifact_graph()
+    prog = repro_torch.compile(getattr(sources, name))
+    want = prog.bind(g).run(**params)
+    acc = prog.lower(graph=g)
+    loaded = repro_torch.load_accelerator(acc.save(str(tmp_path / name)))
+    before = (sr.LAUNCHES, es.LAUNCHES)
+    got = loaded.bind(g).run(**params)
+    return want, got, loaded, (sr.LAUNCHES - before[0], es.LAUNCHES - before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,params", ARTIFACT_PROGRAMS)
+def test_cuda_artifact_roundtrip_is_bit_identical_to_bind(cuda, tmp_path, name, params):
+    want, got, loaded, launches = _artifact_roundtrip(cuda, tmp_path, name, params)
+    for prop, a in want.properties.items():
+        b = got.properties[prop]
+        assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)), prop
+    assert got.host_env == want.host_env
+    assert got.stats.kernel_launches == want.stats.kernel_launches
+    assert sum(launches) > 0
+    # the libraries were built when the first lowering ran: no nvcc on load
+    assert {k.mode for k in loaded.report().kernels} == {"aot-loaded"}
+    assert all(info["cached"] for info in loaded.library.builds.values())
+    # a rebind reuses every key the first bind warmed: its run compiles nothing
+    again = loaded.bind(_artifact_graph()).run(**params)
+    assert again.stats.compile_time_s == 0.0
+    assert again.stats.run_time_s == again.stats.wall_time_s > 0
+
+
+@pytest.mark.gpu
+def test_cuda_artifact_path_launches_both_graph_kernels(cuda, tmp_path):
+    total = [0, 0]
+    for name, params in ARTIFACT_PROGRAMS:
+        _, _, _, launches = _artifact_roundtrip(cuda, tmp_path, name, params)
+        total = [total[0] + launches[0], total[1] + launches[1]]
+    assert total[0] > 0 and total[1] > 0, total
+
+
 # --------------------------------------------------------------------------
 # batched launches: K rows over one bin layout and work list
 # --------------------------------------------------------------------------
