@@ -94,6 +94,28 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    interleaved (the tracer's cost), and one traced run under the profiler
    (its launch spans' host seconds beside its device busy time). Both
    graph kernels' counters are set to 0 before the phase and read after.
+   Then (4d, ``{"phase": "streaming", ...}`` lines) streaming updates: the
+   R19 graph padded to its geometric bucket (661,395 x 19,719,866: the
+   padding edges are self-loops on one vertex) behind a
+   ``StreamingSession`` bound from ``program.lower(graph=g, bucket=True)``,
+   for BFS_ECP, SSSP, SSSP under ``Target(cache=False)``, WCC and
+   PAGERANK. One additions-only delta of 4,096 edges drawn from the seed
+   (SSSP's weights 1-63); the next query must be a host repair (PAGERANK:
+   a full run), bit-identical to a full run on the card at that version
+   (``ss.session.run``), equal to the oracle on the updated graph's real
+   edges (WCC's: scipy's weak components, each labelled by its smallest
+   lane id, the degree rank under the hub relabel), and a full run must
+   lower nothing (a new warm key only for a frontier pad touched first;
+   an unseen root as well). BFS_ECP then takes a removal delta of 64
+   real edges (a full run, equal to the oracle); BFS_ECP's and uncached
+   SSSP's refreshed bindings, the work list included, must equal those
+   of the accelerator bound to the updated graph afresh, tensor for
+   tensor, and its run theirs. Each line gives the bind, the update's
+   seconds (``apply_updates``, ``refresh_graph``, the rest), the query's
+   and the full runs' seconds (a first and five warm), a profiled full
+   run's device busy time before and after the update, the work list's
+   chunks, launches (both counters set to 0 before each program) and
+   peak memory.
    The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
@@ -165,6 +187,9 @@ BATCH_K = 16  # queries a batch (generic path) and rows of the batched kernel ch
 ROWS_PARTIAL = 13  # rows of the batched edge_stream check whose last group is partial
 BATCH_WARM_RUNS = 3  # warm batches per run; the median is kept
 BATCH_MSBFS = "__msbfs__"  # kernel_launches key of the multi-source BFS path
+STREAM_DELTA = 4096  # edges of each additions-only delta of the streaming phase
+STREAM_ADD_DELTAS = 1  # additions-only deltas a program (BFS_ECP's cut from 2 for time)
+STREAM_REMOVE = 64  # real edges of BFS_ECP's removal delta
 
 
 def log(obj) -> None:
@@ -1791,6 +1816,16 @@ def _identical(want, got) -> bool:
         (b.kernel_launches, b.full_launches, b.compacted_launches, b.fused_launches)
 
 
+def _identical_props(want, got) -> bool:
+    """Properties bit for bit and host scalars equal (a repair has no
+    launches to compare)."""
+    if set(want.properties) != set(got.properties) or want.host_env != got.host_env:
+        return False
+    return all(x.dtype == got.properties[p].dtype
+               and np.array_equal(x.view(np.uint8), got.properties[p].view(np.uint8))
+               for p, x in want.properties.items())
+
+
 def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
@@ -2029,6 +2064,243 @@ def artifact_phase(repro_torch, sources, generators, g, main_results, main_bind_
     return rows, launches
 
 
+def _same_bindings(engine, fresh) -> list:
+    """Keys of ``engine``'s graph bindings and degree/weight buffers that
+    differ from ``fresh``'s (tensors by ``torch.equal``, the work list's
+    tensors one by one); empty when the refresh matches a fresh bind."""
+    bad = []
+    for key, want in fresh.gb.items():
+        got = engine.gb[key]
+        if isinstance(want, torch.Tensor):
+            ok = got.dtype == want.dtype and torch.equal(got, want)
+        elif isinstance(want, tuple) and all(isinstance(t, torch.Tensor) for t in want):
+            ok = len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            ok = got == want
+        if not ok:
+            bad.append(key)
+    bad += [key for key, want in fresh._initial.items()
+            if not torch.equal(engine._initial[key], want)]
+    return bad
+
+
+def _busy(prof: dict) -> dict:
+    """The device-time part of a :func:`profile_run` reading."""
+    return {k: prof[k] for k in ("wall_s", "device_busy_s", "device_idle_share",
+                                 "top_kernels_ms")}
+
+
+def _real_edges(graph):
+    """The updated graph's real edges (its free padding slots left out)."""
+    real = ~graph._free_slot_mask()
+    w = graph.weights[real].astype(np.int64) if graph.weights is not None else None
+    return graph.src[real], graph.dst[real], w
+
+
+def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tuple:
+    """Phase 4d: ``StreamingSession`` over the R19 graph padded to its
+    geometric bucket, one session per program, each bound from
+    ``program.lower(graph=g, bucket=True)``. After every additions-only
+    delta the query is a host repair, held bit for bit to a full run on
+    the card at the same version (``ss.session.run``) and to the oracle on
+    the updated graph's real edges; an unseen root is a full run that
+    lowers nothing. BFS_ECP then takes a removal delta (a full run, equal
+    to the oracle), and its refreshed bindings, the work list included,
+    must equal a fresh bind's tensor for tensor, as must SSSP's under
+    ``Target(cache=False)``. PAGERANK is not monotone: every query after
+    an update is a full run. Logs a line per program as it ends; returns
+    the launches."""
+    from repro_torch import GraphDelta, StreamingSession, Target
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    launches = {"shuffle_reduce": 0, "edge_stream": 0}
+    plans = [  # (row name, program, target, params, a removal delta, a fresh bind)
+        ("BFS_ECP", "BFS_ECP", None, {"root": 0}, True, True),
+        ("SSSP", "SSSP", None, {"root": 0}, False, False),
+        ("SSSP_no_cache", "SSSP", Target(cache=False), {"root": 0}, False, True),
+        ("WCC", "WCC", None, {}, False, False),
+        ("PAGERANK", "PAGERANK", None, {"iters": 20}, False, False),
+    ]
+
+    def oracle(name, graph, params, relabel):
+        src, dst, w = _real_edges(graph)
+        n, lv = graph.n_vertices, graph.n_vertices_logical
+        if name == "BFS_ECP":
+            return "old_level", bfs_levels(n, src, dst, params["root"])
+        if name == "SSSP":
+            return "SP", sssp_dist(n, src, dst, w, params["root"])
+        if name == "WCC":
+            lane = degree_lanes(n, graph.src, graph.dst) if relabel else None
+            return "comp", wcc_labels(n, src, dst, lane)
+        return "rank", pagerank(lv, src, dst, params["iters"])
+
+    def check(name, graph, params, res, relabel) -> dict:
+        t0 = time.perf_counter()
+        prop, want = oracle(name, graph, params, relabel)
+        oracle_s.append(time.perf_counter() - t0)
+        got = res.properties[prop]
+        if name == "PAGERANK":
+            lv = graph.n_vertices_logical
+            got = got[:lv]
+            assert np.all(np.isfinite(got)), "PAGERANK: a rank is not finite"
+            rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+            assert np.allclose(got, want, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL), \
+                f"PAGERANK after an update: max rel err {rel.max():.3e}"
+            return {"rtol": PAGERANK_RTOL, "atol": PAGERANK_ATOL,
+                    "max_rel_err": float(rel.max())}
+        bad = int((got.astype(np.int64) != want).sum())
+        assert got.shape == want.shape and bad == 0, \
+            f"{name}: {bad} vertices differ from the oracle after an update"
+        return {"exact": True}
+
+    for row_name, name, target, params, removal, fresh_bind in plans:
+        t_prog = time.perf_counter()
+        oracle_s = []
+        prog = repro_torch.compile(getattr(sources, name))
+        relabel = (target or Target()).cache  # the hub relabel is on
+        acc = prog.lower(target, graph=g, bucket=True)
+        padded = g.pad_to(acc.shape.n_vertices, acc.shape.n_edges)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ss = StreamingSession(prog, padded, accelerator=acc)
+        torch.cuda.synchronize()
+        bind_s = time.perf_counter() - t0
+        sr.LAUNCHES = 0
+        es.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = ss.run(**params)
+        first_s = time.perf_counter() - t0
+        chunks = [int(ss.session.engine.gb["es_split"].chunks.shape[0])]
+        profile_v0 = _busy(profile_run(lambda: ss.session.run(**params)))
+        # the unseen roots' frontier pads, touched once before any update
+        unseen = ([{"root": 1 + i} for i in range(STREAM_ADD_DELTAS)] if "root" in params
+                  else [])
+        for p in unseen:
+            ss.session.run(**p)
+        steps = []
+        for i in range(STREAM_ADD_DELTAS):
+            edges = rng.integers(0, ss.graph.n_vertices_logical,
+                                 size=(STREAM_DELTA, 2)).astype(np.int32)
+            w = (rng.integers(1, 64, size=STREAM_DELTA).astype(np.float32)
+                 if name == "SSSP" else None)
+            version = ss.update(GraphDelta(added_edges=edges, added_weights=w))
+            inc_before, full_before = ss.incremental_runs, ss.full_runs
+            t0 = time.perf_counter()
+            res = ss.run(**params)
+            query_s = time.perf_counter() - t0
+            full_s, full_compile_s = [], []
+            warm = set(acc.library.warm_keys)
+            for _ in range(1 + WARM_RUNS):  # the first full run at this version, then warm
+                t0 = time.perf_counter()
+                full = ss.session.run(**params)
+                full_s.append(time.perf_counter() - t0)
+                full_compile_s.append(full.stats.compile_time_s)
+            new_keys = sorted(set(acc.library.warm_keys) - warm)
+            if name == "PAGERANK":  # not monotone: the query was a full run
+                assert ss.incremental_runs == 0 and ss.full_runs == full_before + 1
+                assert _identical(full, res), "PAGERANK: two full runs differ"
+            else:
+                assert ss.incremental_runs == inc_before + 1, f"{name}: not a repair"
+                assert _identical_props(full, res), f"{name}: repair differs from a full run"
+            assert res.version == version == ss.version
+            # nothing is lowered again: compile time only for a frontier pad
+            # no earlier run of the library touched
+            assert not any(k[0] == "full" for k in new_keys), new_keys
+            assert (full_compile_s[0] == 0.0) == (not new_keys), (full_compile_s, new_keys)
+            assert not any(full_compile_s[1:]), full_compile_s
+            step = {"version": version, "n_added": STREAM_DELTA,
+                    "update_apply_s": ss.update_apply_s[-1],
+                    "apply_updates_s": ss.update_graph_s[-1],
+                    "refresh_graph_s": ss.update_refresh_s[-1],
+                    "update_rest_s": ss.update_apply_s[-1] - ss.update_graph_s[-1]
+                    - ss.update_refresh_s[-1],
+                    "query": "full" if name == "PAGERANK" else "repair",
+                    "query_s": query_s, "host_iterations": res.stats.host_iterations,
+                    "full_run_s": full_s, "full_warm_s": statistics.median(full_s[1:]),
+                    "full_compile_time_s": full_compile_s,
+                    "profile": _busy(profile_run(lambda: ss.session.run(**params))),
+                    "new_warm_keys": [list(k) for k in new_keys],
+                    "oracle": check(name, ss.graph, params, full, relabel)}
+            if unseen:
+                warm = set(acc.library.warm_keys)
+                r = ss.run(**unseen[i])
+                new = sorted(set(acc.library.warm_keys) - warm)
+                assert ss.full_runs == full_before + 1, f"{name}: the unseen root was no full run"
+                assert not any(k[0] == "full" for k in new), new
+                assert (r.stats.compile_time_s == 0.0) == (not new), \
+                    f"{name}: unseen root compiled {r.stats.compile_time_s} s, keys {new}"
+                step["unseen"] = {**unseen[i], "compile_time_s": r.stats.compile_time_s,
+                                  "new_warm_keys": [list(k) for k in new]}
+            steps.append(step)
+            chunks.append(int(ss.session.engine.gb["es_split"].chunks.shape[0]))
+        if removal:
+            real = np.flatnonzero(~ss.graph._free_slot_mask())
+            pick = np.sort(rng.choice(real, size=STREAM_REMOVE, replace=False))
+            rem = np.stack([ss.graph.src[pick], ss.graph.dst[pick]], axis=1)
+            full_before = ss.full_runs
+            version = ss.update(GraphDelta(removed_edges=rem))
+            t0 = time.perf_counter()
+            res = ss.run(**params)
+            query_s = time.perf_counter() - t0
+            assert ss.full_runs == full_before + 1, f"{name}: a removal was repaired"
+            steps.append({"version": version, "n_removed": STREAM_REMOVE,
+                          "update_apply_s": ss.update_apply_s[-1],
+                          "apply_updates_s": ss.update_graph_s[-1],
+                          "refresh_graph_s": ss.update_refresh_s[-1],
+                          "query": "full", "query_s": query_s,
+                          "compile_time_s": res.stats.compile_time_s,
+                          "oracle": check(name, ss.graph, params, res, relabel)})
+        peak = torch.cuda.max_memory_allocated()
+        # WCC's edge kernel writes both endpoints: it commits through
+        # shuffle_reduce alone, and the phase as a whole launches both
+        phase_launches = {"shuffle_reduce": sr.LAUNCHES, "edge_stream": es.LAUNCHES}
+        assert sum(phase_launches.values()) > 0, (row_name, phase_launches)
+        fresh = None
+        if fresh_bind:
+            # the check that catches a stale binding: the accelerator bound
+            # to the updated graph afresh
+            last = ss.run(**params)
+            t0 = time.perf_counter()
+            sess = acc.bind(ss.graph)
+            torch.cuda.synchronize()
+            fresh_bind_s = time.perf_counter() - t0
+            again = sess.run(**params)
+            assert _identical_props(again, last), f"{name}: a fresh bind's run differs"
+            bad = _same_bindings(ss.session.engine, sess.engine)
+            assert not bad, f"{name}: refreshed bindings differ from a fresh bind's: {bad}"
+            fresh = {"bind_s": fresh_bind_s, "identical_run": True, "bindings_equal": True,
+                     "keys_compared": len(sess.engine.gb) + len(sess.engine._initial)}
+            del sess, again
+        for k, n in phase_launches.items():
+            launches[k] += n
+        log({
+            "phase": "streaming", "program": row_name, "params": params, "card": smi,
+            "target": (target or Target()).describe(),
+            "bucket": [acc.shape.n_vertices, acc.shape.n_edges],
+            "logical": [g.n_vertices_logical, g.n_edges_logical],
+            "bind_s": bind_s, "first_run_s": first_s, "profile_v0": profile_v0,
+            "steps": steps, "es_split_chunks": chunks, "fresh_bind": fresh,
+            "counters": {"version": ss.version, "updates": ss.updates,
+                         "incremental_runs": ss.incremental_runs, "full_runs": ss.full_runs,
+                         "cache_hits": ss.cache_hits, "rebuckets": ss.rebuckets},
+            "launches": phase_launches, "max_memory_allocated": peak, "oracle_s": oracle_s,
+            "program_s": time.perf_counter() - t_prog,
+            # each update costs a bind (~17 s at R19): BFS_ECP's second
+            # additions-only delta was cut to keep the phase near 300 s
+            "reduced": ({"additions_only_deltas": [2, STREAM_ADD_DELTAS]}
+                        if row_name == "BFS_ECP" else {}),
+        })
+        ss.close()
+        del ss, acc, padded, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert launches["shuffle_reduce"] > 0 and launches["edge_stream"] > 0, launches
+    log({"phase": "streaming", "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # oracles (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
@@ -2062,24 +2334,57 @@ def sssp_dist(n: int, src, dst, w, root: int) -> np.ndarray:
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
 
-    key = src.astype(np.int64) * n + dst
-    order = np.lexsort((w, key))
-    key, w_s = key[order], w[order]
+    # one sort orders the edges (src, dst) and each edge's weights: the
+    # weight sits in the key's low bits (weights are positive integers)
+    bits = max(1, int(w.max()).bit_length())
+    key = np.sort(((src.astype(np.int64) * n + dst) << bits) | w.astype(np.int64))
+    edge = key >> bits
     first = np.ones(key.shape[0], dtype=bool)
-    first[1:] = key[1:] != key[:-1]
-    key, w_min = key[first], w_s[first]
-    mat = csr_matrix((w_min.astype(np.float64), (key // n, key % n)), shape=(n, n))
+    first[1:] = edge[1:] != edge[:-1]
+    edge, w_min = edge[first], key[first] & ((1 << bits) - 1)
+    mat = csr_matrix((w_min.astype(np.float64), (edge // n, edge % n)), shape=(n, n))
     d = dijkstra(mat, directed=True, indices=root)
     return np.where(np.isinf(d), SSSP_INF, d).astype(np.int64)
 
 
+def wcc_labels(n: int, src, dst, lane=None) -> np.ndarray:
+    """WCC's comp: the smallest id of each weakly connected component
+    (scipy's labelling, then each component's minimum). The program labels
+    a vertex with its lane id (``comp[v] = v``), which under the hub
+    relabel is its degree rank: ``lane`` maps vertex -> lane id (None: the
+    vertex id)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    mat = csr_matrix((np.ones(src.shape[0], dtype=np.int8), (src, dst)), shape=(n, n))
+    _, labels = connected_components(mat, directed=True, connection="weak")
+    key = np.arange(n, dtype=np.int64) if lane is None else lane.astype(np.int64)
+    low = np.full(labels.max() + 1, n, dtype=np.int64)
+    np.minimum.at(low, labels, key)
+    return low[labels]
+
+
+def degree_lanes(n: int, src, dst) -> np.ndarray:
+    """Vertex -> lane id under the hub relabel: vertices by (in + out)
+    degree over every physical edge, descending, as the hub cache orders
+    them (numpy's default argsort of the negated degrees)."""
+    deg = np.bincount(src, minlength=n).astype(np.int64) + np.bincount(dst, minlength=n)
+    lane = np.empty(n, dtype=np.int64)
+    lane[np.argsort(-deg)] = np.arange(n, dtype=np.int64)
+    return lane
+
+
 def pagerank(n: int, src, dst, iters: int, damp: float = 0.85) -> np.ndarray:
-    """The PAGERANK program's iteration in float64 (dangling mass drops)."""
+    """The PAGERANK program's iteration in float64 (dangling mass drops):
+    each step's contributions are one sparse product over the edges."""
+    from scipy.sparse import csr_matrix
+
     deg = np.bincount(src, minlength=n).astype(np.float64)
+    inv = np.divide(1.0, deg, out=np.zeros(n), where=deg > 0)
+    edges = csr_matrix((np.ones(src.shape[0]), (dst, src)), shape=(n, n))
     rank = np.full(n, 1.0 / n)
     for _ in range(iters):
-        contrib = np.bincount(dst, weights=rank[src] / deg[src], minlength=n)
-        rank = (1.0 - damp) / n + damp * contrib
+        rank = (1.0 - damp) / n + damp * (edges @ (rank * inv))
     return rank
 
 
@@ -2095,6 +2400,7 @@ def main() -> int:
     ap.add_argument("--load-artifact", metavar="DIR",
                     help="phase 4c's fresh process: load DIR, bind the graph, one BFS_ECP run")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2300,6 +2606,11 @@ def main() -> int:
         log(row)
     for name, n in art_launches.items():
         launches[name] += n
+
+    # -- 4d. streaming updates ------------------------------------------------
+    stream_launches = streaming_phase(repro_torch, sources, g, sr, es, args.seed, smi)
+    for name, n in stream_launches.items():
+        launches[name] += n
     del sessions, eng, results
     gc.collect()
     torch.cuda.empty_cache()
@@ -2364,6 +2675,7 @@ def main() -> int:
                                 "library_ms": row["library_device_ms"],
                                 "host_paced_ms": row["kernel_ms"], "timing": "device",
                                 "splits": row["decode"]["splits"]})
+    log({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -12,7 +12,15 @@
     acc2 = repro_torch.load_accelerator(acc.save("bfs-r19"))  # another process
     acc2.bind(g).run(root=0)         # any graph of the bucket, kernels warm
 
-    repro_torch.telemetry.enable()   # spans: compile, lower, bind, run, launch:<k>
+    acc = repro_torch.compile(sources.BFS_ECP).lower(graph=g, bucket=True)  # with slack
+    ss = repro_torch.StreamingSession(
+        acc.program, g.pad_to(acc.shape.n_vertices, acc.shape.n_edges), accelerator=acc)
+    ss.run(root=0)
+    ss.update(repro_torch.GraphDelta(added_edges=[(0, 7)]))  # in place, version 1
+    ss.run(root=0)                   # a host repair of the cached answer
+
+    repro_torch.telemetry.enable()   # spans: compile, lower, bind, run, launch:<k>,
+                                     # update, repair
 
 ``bind`` places the program on ``"cuda"`` unless ``device="cpu"`` is
 given. On the GPU every reduction a program scatters commits through the
@@ -27,6 +35,8 @@ from .core import (  # noqa: F401
 )
 from . import telemetry  # noqa: F401
 from .graph import GraphData, generators, graph_from_arrays  # noqa: F401
+from .graph.storage import GraphDelta, GraphUpdateError  # noqa: F401
+from .streaming import StreamingSession  # noqa: F401
 from .algorithms import sources  # noqa: F401
 
 __all__ = [
@@ -34,5 +44,5 @@ __all__ = [
     "graph_from_arrays", "Program", "ProgramError", "Session", "SessionError",
     "EngineResult", "BatchSession", "SessionPool", "ServiceClosed", "GraphShape",
     "Accelerator", "AcceleratorError", "load_accelerator", "load_or_lower",
-    "program_cache_info", "telemetry",
+    "program_cache_info", "telemetry", "GraphDelta", "GraphUpdateError", "StreamingSession",
 ]

@@ -108,7 +108,6 @@ class BatchEngine:
     def __init__(self, engine: Engine, enable_msbfs: bool = True):
         self.engine = engine
         self.module = engine.module
-        self.graph = engine.graph  # already hub-relabeled by the engine
         self.argv = engine.argv
         self.device = engine.device
         self.enable_msbfs = enable_msbfs
@@ -118,8 +117,18 @@ class BatchEngine:
         self.batch_size = 0
         self._msbfs_plan: Any = False  # False = not yet matched
         self._writes_weights = writes_weights(self.module)
-        self._old2new = (None if engine.old2new is None else
-                         torch.from_numpy(np.asarray(engine.old2new, np.int64)).to(self.device))
+        self.refresh_graph()
+
+    def refresh_graph(self) -> None:
+        """Re-point at the inner engine's graph after its
+        :meth:`~repro_torch.core.engine.Engine.refresh_graph`: the
+        relabeled graph and its id map on the device are all this wrapper
+        keeps of the graph across runs (the launches read ``engine.gb``
+        each run, and the multi-source BFS plan is derived from the MIR)."""
+        eng = self.engine
+        self.graph = eng.graph  # already hub-relabeled by the engine
+        self._old2new = (None if eng.old2new is None else
+                         torch.from_numpy(np.asarray(eng.old2new, np.int64)).to(self.device))
 
     # ------------------------------------------------------------------
     # entry point

@@ -824,8 +824,8 @@ def _graph_bindings(
     dst_offsets = np.searchsorted(
         dst_sorted, np.arange(g.n_vertices + 1, dtype=np.int64)).astype(np.int32)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+    def dev(a):  # a copy on the CPU too: the graph's arrays change in place
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device, copy=True)
 
     dst_offsets_d = dev(dst_offsets)
     return {

@@ -106,6 +106,9 @@ class EngineResult:
     properties: Dict[str, np.ndarray]
     host_env: Dict[str, Any]
     stats: EngineStats
+    # graph version the query was answered against (streaming sessions pin
+    # every admitted query to one version; 0 = static/unversioned binding)
+    version: int = 0
     # per-run telemetry summary: the run's span tree aggregated by name when
     # tracing was on, None otherwise. Batched runs share one summary across
     # the K results, as they share ``stats``.
@@ -171,6 +174,29 @@ class Engine:
         # library's registry, so a rebind starts warm where earlier binds were
         self._warm_keys = library.warm_keys
 
+        # the graph as handed in (original vertex ids): refresh_graph
+        # re-derives every binding from it after an in-place mutation
+        self.source_graph = graph
+        # accumulator properties are NOT vertex-indexed (no id translation)
+        self.accumulator_props = set()
+        for k in module.kernels.values():
+            self.accumulator_props |= k.accumulators
+        self._bind_graph(graph)
+
+    def _bind_graph(self, graph: GraphData) -> None:
+        """Derive every graph-dependent binding from ``graph``: the hub
+        relabel, the device bindings, the degree and weight buffers, and
+        the caches over them; then reset the state."""
+        # a refresh drops the old bindings first (on the card, two sets of
+        # them would double the graph's footprint), with the kernels bound
+        # to them and the frontier builder's closure over the old CSR
+        self.gb: Dict[str, Any] = {}
+        self._lowered: Dict[str, backend.LoweredKernel] = {}
+        self._initial: Dict[str, torch.Tensor] = {}
+        self.state: Dict[str, torch.Tensor] = {}
+        self._host_cache: Dict[str, Tuple[torch.Tensor, np.ndarray]] = {}
+        for attr in ("_build_batch", "_deg_np"):
+            self.__dict__.pop(attr, None)
         # ---- hub cache: degree relabeling (paper Fig. 7(b)) ----
         if self.target.cache:
             self.graph, self.old2new = graph.relabel_by_degree()
@@ -178,19 +204,11 @@ class Engine:
         else:
             self.graph, self.old2new = graph, None
             new2old = None
-
+        module = self.module
         self.gb = backend._graph_bindings(self.graph, module, self.target,
-                                          new2old=new2old, device=device)
-        self._lowered: Dict[str, backend.LoweredKernel] = {}
-
-        # accumulator properties are NOT vertex-indexed (no id translation)
-        self.accumulator_props = set()
-        for k in module.kernels.values():
-            self.accumulator_props |= k.accumulators
-
+                                          new2old=new2old, device=self.device)
         # degree and weight buffers are uploaded once per bind; reset()
         # reuses them, since state tensors are never written in place
-        self._initial: Dict[str, torch.Tensor] = {}
         for name, direction in module.degree_props.items():
             deg = self.graph.out_degree if direction == "out" else self.graph.in_degree
             self._initial[name] = self._tensor(deg, DTYPES[module.properties[name].scalar])
@@ -199,13 +217,31 @@ class Engine:
                 raise EngineError("weighted edgeset but the loaded graph has no weights")
             wdt = DTYPES[module.graph.weight_scalar or "float"]
             self._initial[WEIGHT_KEY] = self._tensor(self.graph.weights, wdt)
-        self._host_cache: Dict[str, Tuple[torch.Tensor, np.ndarray]] = {}
-        self.state: Dict[str, torch.Tensor] = {}
-        self.host_env: Dict[str, Any] = {}
         self.reset()
 
+    def refresh_graph(self, graph: Optional[GraphData] = None) -> None:
+        """Re-derive every graph-dependent binding after an in-place update.
+
+        The streaming path mutates ``GraphData`` arrays in place
+        (:meth:`GraphData.apply_updates`), which invalidates the hub
+        relabel, the burst processing order, every CSR/CSC binding and the
+        degree and weight buffers this engine uploaded at bind. The graph
+        must stay in the library's bucket. The library's kernels are
+        shape-generic (they take the bindings as arguments), so nothing is
+        lowered again and the warm keys stay: an in-bucket refresh reports
+        no compile time, for a plain engine as for an accelerator's.
+        """
+        graph = graph if graph is not None else self.source_graph
+        self.library.shape.check_bucket(graph)
+        self.source_graph = graph
+        self._bind_graph(graph)
+
     def _tensor(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(dtype).to(self.device)
+        """A copy of ``arr`` on the device, on the CPU too: the buffer must
+        not share memory with the graph, which ``apply_updates`` mutates in
+        place."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=self.device, dtype=dtype, copy=True)
 
     def reset(self):
         """(Re)initialize device/host state, keeping lowered kernels — the

@@ -123,6 +123,26 @@ class Session:
             return self._ensure_batch_session().run_many(sets)
         return [self.run(**p) for p in sets]
 
+    def refresh_graph(self, graph=None) -> None:
+        """Rebind after an in-place graph mutation (the streaming update
+        path).
+
+        Re-derives the engine's graph-dependent bindings (hub relabel,
+        processing order, CSR/CSC device arrays, degree and weight
+        buffers) against the updated graph of the same bucket, and
+        re-points the batched twin, which shares the engine. The caller
+        must guarantee no query is in flight (the
+        :class:`~repro_torch.streaming.StreamingSession` write gate does);
+        the session lock is still taken as a second line of defense
+        against torn reads.
+        """
+        graph = graph if graph is not None else self.graph
+        with self._lock:
+            self.graph = graph
+            self.engine.refresh_graph(graph)
+            if self._batch_session is not None:
+                self._batch_session._follow(graph)
+
     def _ensure_batch_session(self) -> "BatchSession":
         """The batched twin of this session, built on first use over this
         session's engine (the graph stays bound on the device once)."""
@@ -174,6 +194,7 @@ class BatchSession:
 
         self.program = program
         self.graph = graph
+        self._session = session
         if session is not None:
             self.device, self.target = session.device, session.target
             inner, self._lock = session.engine, session._lock
@@ -216,6 +237,24 @@ class BatchSession:
             for trace in {id(r.trace): r.trace for r in out if r.trace is not None}.values():
                 self.accelerator.record_profile(trace)
         return out
+
+    def refresh_graph(self, graph=None) -> None:
+        """Rebind after an in-place graph mutation (see
+        :meth:`Session.refresh_graph`). A batch session over a session's
+        engine refreshes that session, which owns the engine."""
+        graph = graph if graph is not None else self.graph
+        if self._session is not None:
+            self._session.refresh_graph(graph)
+        with self._lock:
+            if self._session is None:
+                self.engine.engine.refresh_graph(graph)
+            self._follow(graph)
+
+    def _follow(self, graph) -> None:
+        """Re-point at the inner engine's refreshed graph (the caller holds
+        the lock)."""
+        self.graph = graph
+        self.engine.refresh_graph()
 
     def __enter__(self) -> "BatchSession":
         return self
@@ -339,6 +378,25 @@ class SessionPool:
             # close() raced this submit: the executor rejects with a raw
             # RuntimeError("cannot schedule new futures after shutdown")
             raise ServiceClosed("SessionPool is closed") from e
+
+    def refresh_graph(self, graph=None) -> None:
+        """Rebind every worker (and the shared BatchSession) after an
+        in-place graph mutation. The pool must be quiescent (no query in
+        flight): the dynamic batcher is drained first, and the streaming
+        layer's write gate keeps new queries out; callers driving the pool
+        directly must arrange the same.
+        """
+        if self._closed:
+            raise ServiceClosed("SessionPool is closed")
+        graph = graph if graph is not None else self.graph
+        self.graph = graph
+        if self._batcher is not None:
+            self._batcher.drain()
+        for s in self._sessions:
+            s.refresh_graph(graph)
+        if self._batch_session is not None:
+            with self._batch_session._lock:
+                self._batch_session._follow(graph)
 
     def run_batch(self, param_sets: Sequence[Dict[str, Any]],
                   batched: Optional[bool] = None) -> List[EngineResult]:

@@ -12,10 +12,12 @@ span            where                                          attrs
 ``bind``        ``Accelerator.bind``                           fingerprint, n_vertices, n_edges
 ``run``         one ``Engine``/``BatchEngine`` execution       launches, batch K
 ``launch:<k>``  one device-kernel launch                       mode, direction, frontier occupancy
+``update``      ``StreamingSession.update``                    n_added, program, version, rebucketed
+``repair``      incremental recomputation of a cached result   program, from/to version, added_edges
 =============== ============================================= =========
 
-The port emits these five; the reference's streaming, distributed and
-serving spans come with the modules that emit them.
+The port emits these seven; the reference's distributed and serving spans
+come with the modules that emit them.
 
 Usage::
 

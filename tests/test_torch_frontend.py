@@ -136,6 +136,35 @@ def test_artifacts_and_tracing_import_neither_jax_nor_reference(tmp_path):
     assert out.stdout.startswith("clean") and int(out.stdout.split()[1]) > 0
 
 
+def test_streaming_imports_neither_jax_nor_reference():
+    """A StreamingSession's update, repair and full run (its deferred
+    imports load the passes' analysis and the sessions) load no JAX and
+    no reference."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import repro_torch.streaming\n"
+        "from repro_torch import GraphDelta, GraphShape, StreamingSession, compile, generators\n"
+        "from repro_torch import sources\n"
+        "g = generators.power_law(100, 600, seed=1)\n"
+        "s = GraphShape.bucket_for(g.n_vertices, g.n_edges)\n"
+        "ss = StreamingSession(compile(sources.WCC), g.pad_to(s.n_vertices, s.n_edges),\n"
+        "                      device='cpu')\n"
+        "ss.run()\n"
+        "ss.update(GraphDelta(added_edges=np.array([[0, 5], [7, 9]])))\n"
+        "assert ss.run().version == 1 and ss.incremental_runs == 1\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("clean")
+
+
 def test_lm_stack_imports_neither_jax_nor_reference():
     """The config registry imports its arch modules by name: the port's
     copy must load ``repro_torch.configs.*``, never ``repro.configs.*``."""

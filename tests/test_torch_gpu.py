@@ -1049,3 +1049,123 @@ def test_cuda_generate_is_deterministic(cuda):
     assert torch.equal(a, b)
     assert serve.main(["--arch", "qwen3-0.6b", "--smoke", "--batch", "2", "--prompt-len", "4",
                        "--gen-len", "4"]) == 0
+
+
+# --------------------------------------------------------------------------
+# streaming updates: refreshed bindings on the card
+# --------------------------------------------------------------------------
+
+
+STREAM_PROGRAMS = [("BFS_ECP", {"root": 0}, False), ("SSSP", {"root": 0}, True),
+                   ("WCC", {}, False)]
+
+
+def _stream_graph(weighted: bool):
+    """A small skewed graph padded to its bucket plus 3 x SPLIT_LEN more
+    slots: the padding self-loops form one bin the work list splits, and
+    every delta moves it."""
+    g = generators.rmat(11, 16, seed=3, weighted=weighted)
+    shape = repro_torch.GraphShape.bucket_for(g.n_vertices, g.n_edges, weighted=weighted)
+    return g.pad_to(shape.n_vertices, shape.n_edges + 3 * L)
+
+
+def _equal_bindings(engine, fresh):
+    for key, want in fresh.gb.items():
+        got = engine.gb[key]
+        if isinstance(want, torch.Tensor):
+            assert torch.equal(got, want), key
+        elif isinstance(want, tuple) and all(isinstance(t, torch.Tensor) for t in want):
+            assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True)), key
+        else:
+            assert got == want, key
+    for key, want in fresh._initial.items():
+        assert torch.equal(engine._initial[key], want), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,params,weighted", STREAM_PROGRAMS)
+def test_cuda_streaming_repair_equals_a_full_run_on_the_card(cuda, name, params, weighted):
+    """Three additions-only deltas of 2 x SPLIT_LEN edges each: every query
+    is a host repair, equal bit for bit to a full run on the card through
+    the refreshed bindings (whose every tensor, the work list included,
+    equals a fresh bind's) and to the CPU's run on the same graph."""
+    g = _stream_graph(weighted)
+    prog = repro_torch.compile(getattr(sources, name))
+    acc = prog.lower(graph=g, device=cuda)
+    ss = repro_torch.StreamingSession(prog, g, accelerator=acc)
+    rng = np.random.default_rng(7)
+    try:
+        ss.run(**params)
+        splits = []
+        sr.LAUNCHES, es.LAUNCHES = 0, 0
+        for _ in range(3):
+            edges = rng.integers(0, g.n_vertices_logical, size=(2 * L, 2)).astype(np.int32)
+            w = rng.integers(1, 64, size=2 * L).astype(np.float32) if weighted else None
+            ss.update(repro_torch.GraphDelta(added_edges=edges, added_weights=w))
+            repaired = ss.run(**params)
+            warm = set(acc.library.warm_keys)
+            full = ss.session.run(**params)
+            new = set(acc.library.warm_keys) - warm  # a frontier pad touched first now
+            assert not any(k[0] == "full" for k in new), new
+            assert (full.stats.compile_time_s == 0.0) == (not new), new
+            for prop, a in full.properties.items():
+                b = repaired.properties[prop]
+                assert a.dtype == b.dtype and np.array_equal(a, b), prop
+            assert repaired.host_env == full.host_env and repaired.version == ss.version
+            cpu = prog.bind(ss.graph, device="cpu").run(**params)
+            for prop, a in cpu.properties.items():
+                assert np.array_equal(a, full.properties[prop]), prop
+            _equal_bindings(ss.session.engine, acc.bind(ss.graph).engine)
+            splits.append(int(ss.session.engine.gb["es_split"].chunks.shape[0]))
+        assert ss.incremental_runs == 3
+        # WCC's edge kernel writes both endpoints: it commits through
+        # shuffle_reduce alone
+        assert sr.LAUNCHES > 0 and (es.LAUNCHES > 0) == (name != "WCC"), \
+            (sr.LAUNCHES, es.LAUNCHES)
+        assert len(set(splits)) > 1, splits  # the padding bin's chunks moved
+    finally:
+        ss.close()
+
+
+@pytest.mark.gpu
+def test_cuda_streaming_pool_concurrent_updates(cuda):
+    """A pool of two sessions on the card answers queries while updates
+    land: every result is pinned to a version, and once quiet the current
+    answer equals a fresh bind's."""
+    import threading
+
+    g = _stream_graph(False)
+    prog = repro_torch.compile(sources.BFS_ECP)
+    ss = repro_torch.StreamingSession(prog, g, pool_size=2, compact_every=0, device=cuda)
+    rng = np.random.default_rng(3)
+    errors, done = [], threading.Event()
+    try:
+        ss.warmup(root=0)
+
+        def updater():
+            try:
+                for _ in range(4):
+                    e = rng.integers(0, g.n_vertices_logical, size=(64, 2)).astype(np.int32)
+                    ss.update(repro_torch.GraphDelta(added_edges=e))
+            except Exception as exc:  # pragma: no cover
+                errors.append(exc)
+            finally:
+                done.set()
+
+        t = threading.Thread(target=updater)
+        t.start()
+        futures = []
+        while not done.is_set():
+            futures.extend(ss.submit(root=r % 5) for r in range(4))
+            for f in futures[-4:]:
+                f.result()
+        t.join()
+        assert not errors, errors
+        assert {f.result().version for f in futures} <= set(range(ss.version + 1))
+        got = ss.run(root=1)
+        want = prog.bind(ss.graph, device=cuda).run(root=1)
+        for prop, a in want.properties.items():
+            assert np.array_equal(a, got.properties[prop]), prop
+        assert ss.updates == 4
+    finally:
+        ss.close()
