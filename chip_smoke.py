@@ -116,6 +116,26 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    run's device busy time before and after the update, the work list's
    chunks, launches (both counters set to 0 before each program) and
    peak memory.
+   Then (4e, ``{"phase": "serving", ...}`` lines) the served graph query:
+   ``repro_torch.analyze`` over the eight sources and the two embedded
+   twins (no error), a racy program refused by ``service.submit`` with
+   ``ProgramRejected`` before the registry sees it; a cold
+   ``repro_torch.serve(dir)`` (2 workers, ``max_batch=8``, tenants a:2,
+   b:1) answers 64 BFS_ECP, 16 SSSP and 4 PAGERANK requests submitted at
+   once, then the same requests again on the resident entries, every
+   answer bit for bit the main phase's session run of the same
+   parameters and four of them the oracles' (p50/p99 per program and
+   tenant, queries/s, each entry's bind seconds, the stats snapshot,
+   peak memory); ``BFS_ECP_EMBEDDED`` lands on the BFS entry; a second
+   service on the same store answers from the warm artifact (no
+   lowering, no ``nvcc``). ``AutoTuner`` (its defaults) searches BFS_ECP
+   and SSSP on rmat(16, 16) (a trial is a bind: not R19): trials, prune
+   notes, the winner, its speedup, its objective beside a profiled traced
+   run's device busy time; a fresh tuner makes no trial, ``lower(tuned=
+   True)`` stamps the manifest, and a service with the lookup on counts
+   ``tuned_hits`` and answers as the base target does. Last, ``python -m
+   repro_torch.launch.serve --graph bfs --queries 16 --pool 2`` runs as a
+   child. Both counters are set to 0 after the reference answers.
    The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
@@ -2302,6 +2322,315 @@ def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tup
 
 
 # ---------------------------------------------------------------------------
+# 4e. graph serving and autotune
+# ---------------------------------------------------------------------------
+
+# the reference tests' racy fixture: a plain `=` scatter whose value varies
+# per edge (GT101); admission must refuse it before the registry sees it
+RACY_GT = """
+element Vertex end
+const edges: edgeset{Vertex}(Vertex, Vertex) = load(argv(1));
+const vertices: vertexset{Vertex};
+const P: vector{Vertex}(int);
+func initP(v: Vertex)
+    P[v] = 0;
+end
+func upd(src: Vertex, dst: Vertex)
+    P[dst] = P[src] + 1;
+end
+func main()
+    vertices.init(initP);
+    edges.process(upd);
+end
+"""
+SERVE_BFS, SERVE_SSSP, SERVE_PAGERANK = 64, 16, 4  # requests of the cold service
+SERVE_TENANTS = {"a": 2.0, "b": 1.0}
+TUNE_SCALE = 16  # the autotune graph: rmat(16, 16), a trial is a bind
+
+
+def _submit_wave(svc, g, requests) -> tuple:
+    """Submit every ``(program, tenant, params)`` at once; returns the
+    results in order, each request's latency (submit to its future's
+    resolution, host clock) and the wave's seconds."""
+    t_done = [0.0] * len(requests)
+    futs = []
+    t0 = time.perf_counter()
+    for i, (name, tenant, p) in enumerate(requests):
+        fut = svc.submit(name, g, tenant=tenant, **p)
+        t_sub = time.perf_counter()
+        fut.add_done_callback(lambda f, i=i, t=t_sub: t_done.__setitem__(
+            i, time.perf_counter() - t))
+        futs.append(fut)
+    results = [f.result(timeout=600) for f in futs]
+    return results, t_done, time.perf_counter() - t0
+
+
+def _latency(requests, lat) -> dict:
+    """p50 and p99 (ms, exact over the wave) per program and per tenant."""
+    out: dict = {}
+    for key in ("program", "tenant"):
+        groups: dict = {}
+        for (name, tenant, _), s in zip(requests, lat):
+            groups.setdefault(name if key == "program" else tenant, []).append(s * 1e3)
+        out[key] = {k: {"n": len(v), "p50_ms": float(np.percentile(v, 50)),
+                        "p99_ms": float(np.percentile(v, 99))} for k, v in groups.items()}
+    return out
+
+
+def serving_phase(repro_torch, sources, generators, g, sessions, results, oracle_of, sr, es,
+                  seed: int, scale: int, smi: str, here: str) -> dict:
+    """Phase 4e: the served graph query, ``repro_torch.serve()`` ->
+    ``GraphService.submit`` -> scheduler batch -> ``ArtifactRegistry``
+    (load or lower, bind) -> ``run_many``, on the R19 graph of the main
+    phase. Analysis first (host only): the eight sources and the two
+    embedded twins give no error, and a racy program is refused at
+    admission with no registry entry and no bind. A cold service then
+    answers 64 BFS_ECP, 16 SSSP and 4 PAGERANK requests submitted at once
+    across two weighted tenants, every answer bit for bit the main phase's
+    session run of the same parameters (some roots also the oracles'), and
+    the same requests again on the resident entries; the embedded BFS twin
+    lands on the text program's entry. A second service on the same store
+    gives its first answer from the warm artifact. AutoTuner (its defaults)
+    searches BFS_ECP and SSSP on rmat(16, 16); a fresh tuner makes no
+    trial, ``lower(tuned=True)`` is a lookup that stamps the manifest, and
+    a service with the lookup on answers as the base target does. Last,
+    ``python -m repro_torch.launch.serve --graph bfs`` runs as a child.
+    Both graph kernels' counters are set to 0 after the reference answers
+    and read at the end; returns the launches."""
+    from repro_torch import ProgramRejected, Target, telemetry as tel
+    from repro_torch.algorithms import embedded
+    from repro_torch.autotune import AutoTuner, TuningCache, tuning_dir_for
+    from repro_torch.serving import NAMED_ALGORITHMS
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        # -- analysis (host only) -----------------------------------------
+        t0 = time.perf_counter()
+        analyzed = {}
+        for name in ("BFS_ECP", "BFS_HYBRID", "PAGERANK", "SSSP", "PPR", "CGAW", "WCC",
+                     "KCORE"):
+            res = repro_torch.analyze(getattr(sources, name))
+            assert res.ok, f"{name}: {res.render()}"
+            analyzed[name] = {"certificate": res.certificate, "codes": list(res.codes())}
+        for name in ("BFS_ECP_EMBEDDED", "PAGERANK_EMBEDDED"):
+            res = repro_torch.analyze(getattr(embedded, name))
+            assert res.ok, f"{name}: {res.render()}"
+            analyzed[name] = {"certificate": res.certificate, "codes": list(res.codes())}
+        analysis_s = time.perf_counter() - t0
+
+        # -- the main phase's session answers for the served parameters ---
+        rng = np.random.default_rng(seed + 4)
+        roots = [0] + [int(r) for r in rng.choice(np.arange(1, g.n_vertices),
+                                                  SERVE_BFS - 1, replace=False)]
+        requests = ([("bfs", "ab"[i % 2], {"root": r}) for i, r in enumerate(roots)]
+                    + [("sssp", "ab"[i % 2], {"root": r})
+                       for i, r in enumerate(roots[:SERVE_SSSP])]
+                    + [("pagerank", "ab"[i % 2], {"iters": 20}) for i in range(SERVE_PAGERANK)])
+        main_of = {"bfs": "BFS_ECP", "sssp": "SSSP", "pagerank": "PAGERANK"}
+        t0 = time.perf_counter()
+        want = []
+        for name, _, p in requests:
+            if name == "pagerank":
+                want.append(results["PAGERANK"][1])  # the main phase's warm run, iters 20
+            else:
+                want.append(sessions[main_of[name]].run(**p))
+        reference_s = time.perf_counter() - t0
+
+        # -- the cold service ------------------------------------------------
+        sr.LAUNCHES = 0
+        es.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        svc = repro_torch.serve(store, device="cuda", tenant_weights=SERVE_TENANTS)
+        before = svc.registry.info()
+        try:
+            svc.submit(RACY_GT, g, tenant="a", root=0)
+            raise AssertionError("the racy program was admitted")
+        except ProgramRejected as e:
+            rejected = [d.code for d in e.diagnostics]
+        assert rejected == ["GT101"], rejected
+        assert svc.registry.info() == before and before["resident"] == 0
+        assert svc.registry.lowerings == 0
+        waves = []
+        for wave in ("cold", "resident"):
+            n_sr, n_es = sr.LAUNCHES, es.LAUNCHES
+            got, lat, wave_s = _submit_wave(svc, g, requests)
+            for (name, tenant, p), a, b in zip(requests, want, got):
+                assert _identical_props(a, b), \
+                    f"served {name} {p} ({wave}) differs from the session's run"
+            waves.append({"wave": wave, "requests": len(requests), "wave_s": wave_s,
+                          "queries_per_s": len(requests) / wave_s,
+                          "latency": _latency(requests, lat),
+                          "launches": {"shuffle_reduce": sr.LAUNCHES - n_sr,
+                                       "edge_stream": es.LAUNCHES - n_es}})
+        cold_launches = waves[0]["launches"]
+        assert cold_launches["shuffle_reduce"] > 0, "shuffle_reduce never launched in 4e"
+        assert cold_launches["edge_stream"] > 0, "edge_stream never launched in 4e"
+        # a few answers against the oracles as well
+        checked = []
+        for i in (0, 1, SERVE_BFS, SERVE_BFS + SERVE_SSSP):
+            name, _, p = requests[i]
+            prop, oracle = oracle_of(main_of[name], p)
+            x = got[i].properties[prop]
+            if name == "pagerank":
+                assert np.allclose(x, oracle, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL), name
+            else:
+                assert np.array_equal(x.astype(np.int64), oracle), f"served {name} {p}: oracle"
+            checked.append({name: p})
+        # the embedded twin lands on the text program's resident entry
+        entries = {k[0][:12]: e for k, e in svc.registry._residents.items()}
+        binds = {k: e.accelerator.binds for k, e in entries.items()}
+        lowerings = svc.registry.lowerings
+        twin = svc.run(embedded.BFS_ECP_EMBEDDED, g, root=roots[0])
+        assert _identical_props(want[0], twin), "the embedded twin's answer differs"
+        assert svc.registry.lowerings == lowerings and len(svc.registry._residents) == 3
+        assert {k: e.accelerator.binds for k, e in
+                ((k[0][:12], e) for k, e in svc.registry._residents.items())} == binds
+        stats = svc.stats()
+        entry_rows = {e.accelerator.program.fingerprint[:12]: {
+            "bind_s": e.bind_s, "binds": e.accelerator.binds, "queries": e.queries,
+            "batched": (e.session._batch_session is not None
+                        and e.session._batch_session.engine.engine is e.session.engine)}
+            for e in svc.registry._residents.values()}
+        peak = torch.cuda.max_memory_allocated()
+        svc.close()
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+        log({"phase": "serving", "service": "cold", "card": smi, "analysis": analyzed,
+             "analysis_s": analysis_s, "rejected": {"program": "racy", "codes": rejected,
+                                                    "registry_unchanged": True},
+             "reference_s": reference_s, "waves": waves, "oracle_checked": checked,
+             "embedded_twin": {"same_entry": True, "lowerings": lowerings},
+             "entries": entry_rows, "max_memory_allocated": peak,
+             "stats": {"queries": stats["queries"], "tenants": stats["tenants"],
+                       "programs": stats["programs"], "batches": stats["batches"],
+                       "registry": stats["registry"], "tuning": stats["tuning"]}})
+
+        # -- the warm service: a second service on the same store ---------
+        t0 = time.perf_counter()
+        warm_svc = repro_torch.serve(store, device="cuda")
+        first = warm_svc.run("bfs", g, root=roots[0])
+        first_answer_s = time.perf_counter() - t0
+        reg = warm_svc.stats()["registry"]
+        (entry,) = warm_svc.registry._residents.values()
+        modes = sorted({k.mode for k in entry.accelerator.report().kernels})
+        nvcc_cached = {n: info["cached"] for n, info in entry.accelerator.library.builds.items()}
+        assert _identical_props(want[0], first), "the warm service's answer differs"
+        assert reg["artifact_hits"] == 1 and reg["cold_lowerings"] == 0, reg
+        assert warm_svc.registry.lowerings == 0 and modes == ["aot-loaded"], modes
+        assert all(nvcc_cached.values()), nvcc_cached
+        log({"phase": "serving", "service": "warm", "card": smi,
+             "first_answer_s": first_answer_s, "bind_s": entry.bind_s,
+             "compile_time_s": first.stats.compile_time_s, "modes": modes,
+             "nvcc_cached": nvcc_cached, "registry": reg,
+             "old_level_sha256": level_digest(first.properties["old_level"])})
+        warm_svc.close()
+        del warm_svc, entry, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- autotune on rmat(16, 16) ----------------------------------------
+        tune_scale = min(TUNE_SCALE, scale)
+        gt = generators.rmat(tune_scale, 16, seed=seed, weighted=True)
+        tune_store = os.path.join(store, "tuned")
+        tuned_rows = {}
+        for name, p in (("bfs", {"root": 0}), ("sssp", {"root": 0})):
+            prog = repro_torch.compile(NAMED_ALGORITHMS[name])
+            cache = TuningCache(tuning_dir_for(tune_store))
+            tuner = AutoTuner(cache, device="cuda")
+            t0 = time.perf_counter()
+            report = tuner.tune(prog, gt, params=p)
+            tune_s = time.perf_counter() - t0
+            assert not report.cache_hit and report.trials >= 2, report.describe()
+            assert report.config.objective_s <= report.config.baseline_s * 1.0001
+            # the winner's objective (launch spans, host clocks) beside the
+            # profiler's device busy time for the same traced run
+            sess = report.accelerator.bind(gt)
+            sess.run(**p)
+            holder = {}
+            tel.enable()
+            try:
+                prof = profile_run(lambda s=sess, p=p: holder.__setitem__("r", s.run(**p)))
+            finally:
+                tel.disable()
+            objective_s = AutoTuner._objective_from_trace(holder["r"].trace, prof["wall_s"])
+            del sess
+            fresh = AutoTuner(TuningCache(tuning_dir_for(tune_store)), device="cuda")
+            again = fresh.tune(prog, gt, params=p)
+            assert again.cache_hit and again.trials == 0 and again.config == report.config
+            t0 = time.perf_counter()
+            acc = prog.lower(graph=gt, tuned=True,
+                             tuning_cache=TuningCache(tuning_dir_for(tune_store)))
+            lookup_s = time.perf_counter() - t0
+            assert acc.tuned == report.config.to_dict() and acc.target == report.config.target
+            with open(os.path.join(acc.save(os.path.join(store, f"tuned-{name}")),
+                                   "manifest.json")) as f:
+                assert json.load(f)["tuned"] == acc.tuned, "the manifest lacks the stamp"
+            del acc
+            tuned_rows[name] = {
+                "graph": f"rmat-{tune_scale}-16", "vertices": gt.n_vertices, "edges": gt.n_edges,
+                "trials": report.trials, "candidates": report.candidates,
+                "pruned": list(report.pruned), "winner": report.config.target.describe(),
+                "objective_s": report.config.objective_s, "baseline_s": report.config.baseline_s,
+                "speedup": report.config.speedup, "tune_s": tune_s,
+                "measurements": report.measurements,
+                "winner_traced_run": {"objective_s": objective_s,
+                                      "device_busy_s": prof["device_busy_s"],
+                                      "wall_s": prof["wall_s"],
+                                      "device_idle_share": prof["device_idle_share"]},
+                "fresh_tuner_trials": again.trials, "lower_tuned_s": lookup_s,
+                "manifest_stamped": True}
+        # a service with the lookup on against one on the base target
+        base_target = Target()
+        sets = {"bfs": [{"root": r} for r in range(8)], "sssp": [{"root": r} for r in range(4)]}
+        answers = {}
+        for lookup in (True, False):
+            with repro_torch.serve(tune_store, device="cuda", autotune=lookup,
+                                   target=None if lookup else base_target) as tsvc:
+                futs = [(n, tsvc.submit(n, gt, **p)) for n in sets for p in sets[n]]
+                answers[lookup] = [(n, f.result(timeout=600)) for n, f in futs]
+                tstats = tsvc.stats()
+                targets = {e.accelerator.program.fingerprint[:12]: e.accelerator.target.describe()
+                           for e in tsvc.registry._residents.values()}
+            if lookup:
+                hits = tstats["queries"]["tuned_hits"]
+                assert hits >= 1, tstats["queries"]
+                tuned_targets = targets
+            else:
+                assert tstats["queries"]["tuned_hits"] == 0
+        for (n, a), (_, b) in zip(answers[True], answers[False]):
+            assert _identical_props(b, a), f"tuned {n} differs from the base target's"
+        log({"phase": "serving", "autotune": tuned_rows, "card": smi,
+             "tuned_service": {"tuned_hits": hits, "targets": tuned_targets,
+                               "answers_equal_base": len(answers[True])},
+             "reduced": {"autotune_graph": f"rmat-{tune_scale}-16 (a trial is a bind; "
+                                           f"not R19)"}})
+
+        # -- the CLI, as a child process ------------------------------------
+        env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--graph", "bfs",
+             "--queries", "16", "--pool", "2", "--artifact-dir", os.path.join(store, "cli")],
+            capture_output=True, text=True, env=env, cwd=here, timeout=600)
+        cli_s = time.perf_counter() - t0
+        assert out.returncode == 0, f"serve --graph bfs exited {out.returncode}: " \
+                                    f"{out.stderr[-2000:]}"
+        lines = out.stdout.splitlines()
+        assert any(line.startswith("answered 16 queries") for line in lines), lines[:8]
+        launches = {"shuffle_reduce": sr.LAUNCHES, "edge_stream": es.LAUNCHES}
+        log({"phase": "serving", "cli": "python -m repro_torch.launch.serve --graph bfs "
+                                        "--queries 16 --pool 2", "rc": out.returncode,
+             "process_s": cli_s, "head": lines[:5]})
+        log({"phase": "serving", "launches": launches,
+             "phase_s": time.perf_counter() - t_phase})
+        return launches
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # oracles (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
 
@@ -2610,6 +2939,12 @@ def main() -> int:
     # -- 4d. streaming updates ------------------------------------------------
     stream_launches = streaming_phase(repro_torch, sources, g, sr, es, args.seed, smi)
     for name, n in stream_launches.items():
+        launches[name] += n
+
+    # -- 4e. graph serving and autotune ---------------------------------------
+    serve_launches = serving_phase(repro_torch, sources, generators, g, sessions, results,
+                                   oracle_of, sr, es, args.seed, args.scale, smi, here)
+    for name, n in serve_launches.items():
         launches[name] += n
     del sessions, eng, results
     gc.collect()

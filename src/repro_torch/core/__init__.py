@@ -6,7 +6,8 @@ from .accelerator import (  # noqa: F401
 from .engine import Engine, EngineResult, EngineStats  # noqa: F401
 from .options import CompileOptions  # noqa: F401
 from .program import (  # noqa: F401
-    Program, ProgramError, compile, program_cache_info,  # noqa: A004
+    Program, ProgramError, compile, compile_program, program_cache_info,  # noqa: A004
+    set_program_cache_limit,
 )
 from .session import (  # noqa: F401
     BatchSession, ServiceClosed, Session, SessionError, SessionPool, batch_eligible,

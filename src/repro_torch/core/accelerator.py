@@ -388,7 +388,8 @@ class Accelerator:
     def __init__(self, program: "Program", target: Target, shape: GraphShape, *,
                  device: Optional[str] = None,
                  _libraries: Optional[Dict[str, str]] = None,
-                 _profile: Optional[Dict[str, Any]] = None):
+                 _profile: Optional[Dict[str, Any]] = None,
+                 _tuned: Optional[Dict[str, Any]] = None):
         module = program.module
         if module.graph.weighted and not shape.weighted:
             raise AcceleratorError(
@@ -405,6 +406,11 @@ class Accelerator:
         self._profile_lock = threading.Lock()
         self._profile: Dict[str, Dict[str, float]] = dict((_profile or {}).get("spans", {}))
         self.profile_runs = int((_profile or {}).get("runs", 0))
+        # provenance of an autotuned Target (a TunedConfig dict from
+        # repro_torch.autotune, stamped by the tuner or a tuned lowering);
+        # persisted in the manifest, so a process that loads the artifact
+        # knows it runs a tuned Target without searching again
+        self.tuned: Optional[Dict[str, Any]] = dict(_tuned) if _tuned else None
         tr = tel.get()
         sp = tr.span(
             "lower", fingerprint=self.fingerprint[:16], target=target.kind,
@@ -520,7 +526,8 @@ class Accelerator:
     def save(self, path: str) -> str:
         """Persist this accelerator to a directory artifact: the manifest
         (format, substrate, fingerprints, target, shape, options, pass
-        report, determinism, the CUDA libraries' build names, profile), the
+        report, determinism, the CUDA libraries' build names, profile, tuned
+        config), the
         ``.gt`` source and the canonical serialized MIR."""
         os.makedirs(path, exist_ok=True)
         opts = self.program.options
@@ -543,6 +550,7 @@ class Accelerator:
             "determinism": self._determinism(),
             "kernels": {p.name: {"mode": p.mode} for p in self._plans},
             "profile": self.profile(),
+            "tuned": self.tuned,
         }
         with open(os.path.join(path, "program.gt"), "w") as f:
             f.write(self.program.source)
@@ -645,7 +653,9 @@ def load_accelerator(path: str, *, device: Optional[str] = None) -> Accelerator:
         )
     profile = manifest.get("profile")
     libraries = manifest.get("libraries")
+    tuned = manifest.get("tuned")
     return Accelerator(program, Target.from_dict(manifest["target"]),
                        GraphShape(**manifest["shape"]), device=device,
                        _libraries=libraries if isinstance(libraries, dict) else {},
-                       _profile=profile if isinstance(profile, dict) else None)
+                       _profile=profile if isinstance(profile, dict) else None,
+                       _tuned=tuned if isinstance(tuned, dict) else None)

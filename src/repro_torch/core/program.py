@@ -1,18 +1,28 @@
-"""Compile-once / bind-many front door of the toolchain.
+"""Compile / bind / run: the public Program API.
 
     program = repro_torch.compile(src, options)     # compile once
     session = program.bind(graph)                   # bind to one graph + device
     result  = session.run(root=3, iters=20)         # parameterized execution
 
-:func:`compile` takes a ``.gt`` source string in the paper's Fig. 1 syntax,
-runs the front end (lexer, parser, semantic analysis) and the MIR pass
-pipeline selected by :class:`~.options.CompileOptions`, and returns a
-:class:`Program`. Front-end failures surface as :class:`ProgramError` with
-the 1-based line/column and a caret excerpt of the offending line.
+:func:`compile` accepts **two front ends for one compiler**:
 
-Every host scalar declared in the program (``const root: int = 0;``)
-becomes a declared run-time parameter; scalars declared without an
-initializer are required at ``run()``.
+* **Text**: a ``.gt`` source string in the paper's Fig. 1 syntax, run
+  through the lexer, parser and semantic analysis.
+* **Embedded**: a :class:`repro_torch.frontend.GraphProgram` built in
+  Python (typed property/scalar handles plus ``@vertex_kernel`` /
+  ``@edge_kernel`` functions whose bodies are lowered from the Python
+  AST).
+
+Both meet at the same MIR and run the MIR pass pipeline selected by
+:class:`~.options.CompileOptions`. Front-end failures surface as
+:class:`ProgramError`: text sources report the 1-based line/column and a
+caret excerpt of the offending line; embedded programs report the Python
+line of the offending decorated function.
+
+Every host scalar declared in the program (``const root: int = 0;`` /
+``GraphProgram.scalar("root", int, init=0)``) becomes a declared run-time
+parameter; scalars declared without an initializer are required at
+``run()``.
 
 :meth:`Program.bind` places the program onto one graph on one device and
 returns a reusable :class:`~.session.Session`. The device defaults to
@@ -23,8 +33,9 @@ graph of the bucket and saves to a directory artifact.
 
 :func:`compile` is keyed by a content hash of the canonical serialized
 MIR (:func:`~.mir.canonical_serialize`) and the options, in a bounded LRU
-cache: the same program compiled twice is one :class:`Program`, and two
-sources differing only in comments or whitespace share an entry.
+cache: the same program compiled twice is one :class:`Program`, an
+embedded program and its text twin resolve to one entry, and two sources
+differing only in comments or whitespace share an entry.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ from .parser import ParseError, parse
 from .. import telemetry as tel
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
+    from ..frontend import GraphProgram
     from ..graph.storage import GraphData
     from .accelerator import Accelerator, GraphShape
     from .session import BatchSession, Session, SessionPool
@@ -53,7 +65,9 @@ class ProgramError(Exception):
     """Raised for bad compile/bind/run usage at the public API layer.
 
     Compile-time front-end failures carry a source location: ``line`` and
-    ``col`` (1-based, 0 = unknown) point into the ``.gt`` text.
+    ``col`` (1-based, 0 = unknown) point into the ``.gt`` text for the
+    text front end, or into the decorated function's Python file (named in
+    the message) for the embedded front end.
     """
 
     def __init__(self, msg: str, line: int = 0, col: int = 0):
@@ -133,6 +147,10 @@ class Program:
     its content fingerprint (:func:`program_fingerprint`) and the declared
     run-time parameters. Each :meth:`bind` returns an isolated
     :class:`~.session.Session`.
+
+    ``source`` is always ``.gt`` text: for embedded programs it is the
+    :meth:`~repro_torch.frontend.GraphProgram.to_source` emission, so every
+    compiled program can be read again by the text front end.
     """
 
     def __init__(self, module: mir.Module, options: CompileOptions, fingerprint: str,
@@ -149,6 +167,29 @@ class Program:
     def describe(self) -> str:
         """Textual MIR dump (the analogue of the generated-OpenCL listing)."""
         return self.module.describe()
+
+    def diagnostics(self, shape=None):
+        """Static-analysis findings over this program's (optimized) module.
+
+        Returns an :class:`repro_torch.analysis.AnalysisResult`. The
+        shape-free result is computed once and cached on the Program; pass
+        a :class:`~.accelerator.GraphShape` to also run the dtype/overflow
+        analyses (GT5xx, computed fresh per shape).
+
+        The text and embedded front ends share one cached module per MIR
+        fingerprint, so line numbers here belong to whichever twin was
+        analyzed first. For provenance that matches a given source, call
+        ``repro_torch.analyze(src)`` on that source.
+        """
+        from ..analysis import analyze
+
+        if shape is not None:
+            return analyze(self, shape=shape)
+        cached = getattr(self, "_analysis", None)
+        if cached is None:
+            cached = analyze(self)
+            self._analysis = cached
+        return cached
 
     def __repr__(self) -> str:
         return (
@@ -183,6 +224,7 @@ class Program:
 
     def lower(self, target: "Optional[Target]" = None, shape: "Optional[GraphShape]" = None,
               *, graph: "Optional[GraphData]" = None, bucket: bool = False,
+              tuned: bool = False, tuning_cache=None,
               device: Optional[str] = None) -> "Accelerator":
         """Lower this program for a (target, shape bucket) on one device.
 
@@ -199,6 +241,15 @@ class Program:
         defaults to ``Target()``; ``device`` is as for :meth:`bind`:
         ``None`` means ``"cuda"``, which raises without a GPU unless the
         caller asks for ``device="cpu"``.
+
+        ``tuned=True`` consults the :mod:`repro_torch.autotune` TuningCache
+        for this program's (MIR fingerprint x shape bucket) and, on a hit,
+        lowers with the tuned Target instead, stamping the config into the
+        accelerator (``Accelerator.tuned``, saved in the manifest). It is a
+        lookup with zero search trials (``python -m repro_torch.autotune``
+        or :func:`repro_torch.autotune.autotune` fill the cache); on a miss
+        the given or default target is used unchanged. ``tuning_cache``
+        overrides the default cache (``<artifact store>/tuning``).
         """
         from .accelerator import Accelerator, GraphShape
         from .target import Target
@@ -215,8 +266,22 @@ class Program:
                                               weighted=graph.weighted)
             else:
                 shape = GraphShape.of(graph)
-        return Accelerator(self, target if target is not None else Target(), shape,
-                           device=device)
+        if target is None:
+            target = Target()
+        tuned_stamp = None
+        if tuned:
+            from ..autotune import (
+                TuningCache, default_tuning_dir, program_mir_fingerprint, shape_bucket,
+            )
+
+            cache = tuning_cache if tuning_cache is not None else \
+                TuningCache(default_tuning_dir())
+            cfg = cache.get(program_mir_fingerprint(self),
+                            shape_bucket(graph=graph, shape=shape), kind=target.kind)
+            if cfg is not None:
+                target = cfg.target
+                tuned_stamp = cfg.to_dict()
+        return Accelerator(self, target, shape, device=device, _tuned=tuned_stamp)
 
     def bind(self, graph: "GraphData", *, target: "Optional[Target]" = None,
              device: Optional[str] = None, argv: Optional[list] = None) -> "Session":
@@ -383,25 +448,81 @@ def _analyze_text(src: str) -> Tuple[mir.Module, str]:
     return module, mir_key
 
 
-def compile_program(src: str, options: Optional[CompileOptions] = None) -> Program:
-    """Compile a ``.gt`` source string into a :class:`Program`.
+def _analyze_embedded(gp: "GraphProgram") -> Tuple[mir.Module, str, str]:
+    """Embedded front end: GraphProgram -> (module, MIR key, .gt source).
 
-    The cache key is a content hash of the canonical serialized MIR plus
-    the options: the same program returns the same Program, and other
-    options compile anew. Under tracing this opens the ``compile`` span.
+    The (MIR key, source) pair is memoized on the GraphProgram itself
+    (``_identity``, invalidated by new declarations), so repeated compiles
+    of the same builder skip to_fir/analyze/dump: the embedded analogue of
+    the text path's ``_TEXT_KEYS`` memo.
+    """
+    ident = getattr(gp, "_identity", None)
+    if ident is not None:
+        mir_key, source_text = ident
+        with _CACHE_LOCK:
+            module = _MODULE_CACHE.get(mir_key)
+        if module is not None:
+            return module, mir_key, source_text
+    from ..frontend.lowering import FrontendError  # deferred: no cycle at load
+
+    try:
+        fir_prog = gp.to_fir()
+        source_text = gp.to_source()
+    except FrontendError as e:
+        raise ProgramError(f"embedded program {gp.name!r}: {e}") from e
+    try:
+        module = semantic.analyze(fir_prog)
+    except semantic.SemanticError as e:
+        line = getattr(e, "line", 0) or 0
+        raise ProgramError(
+            f"embedded program {gp.name!r}: {e}"
+            + (f" (Python source line {line})" if line else ""),
+            line,
+        ) from e
+    mir_key = mir.fingerprint(module)
+    with _CACHE_LOCK:
+        module = _MODULE_CACHE.setdefault(mir_key, module)
+    with contextlib.suppress(AttributeError):  # exotic duck types
+        gp._identity = (mir_key, source_text)
+    return module, mir_key, source_text
+
+
+def compile_program(src: "str | GraphProgram", options: Optional[CompileOptions] = None,
+                    *, strict: bool = False) -> Program:
+    """Compile DSL source, text or embedded, into a :class:`Program`.
+
+    ``src`` is a ``.gt`` source string or a
+    :class:`repro_torch.frontend.GraphProgram`. The cache key is a content
+    hash of the canonical serialized MIR plus the options: the same
+    program returns the same Program whichever front end authored it, and
+    other options compile anew. Under tracing this opens the ``compile``
+    span.
+
+    ``strict=True`` also runs the static analysis (:mod:`repro_torch.analysis`)
+    over the source: error-level diagnostics (e.g. GT101 scatter races)
+    raise :class:`ProgramError` with their provenance; warnings collect on
+    the returned Program (``program.diagnostics()``). Strictness is not
+    part of the cache key: it gates raising, not the compiled program.
     """
     tr = tel.get()
     if not tr.enabled:
-        return _compile_impl(src, options, tel.NULL_SPAN)
+        return _compile_impl(src, options, strict, tel.NULL_SPAN)
     with tr.span("compile") as sp:
-        return _compile_impl(src, options, sp)
+        return _compile_impl(src, options, strict, sp)
 
 
-def _compile_impl(src, options, sp) -> Program:
-    if not isinstance(src, str):
-        raise ProgramError(f"expected DSL source text, got {type(src).__name__}")
-    sp.set(frontend="text")
-    module, mir_key = _analyze_text(src)
+def _compile_impl(src, options, strict, sp) -> Program:
+    if isinstance(src, str):
+        sp.set(frontend="text")
+        module, mir_key = _analyze_text(src)
+        source_text = src
+    elif hasattr(src, "to_fir") and hasattr(src, "to_source"):
+        sp.set(frontend="embedded")
+        module, mir_key, source_text = _analyze_embedded(src)
+    else:
+        raise ProgramError(
+            f"expected DSL source text or a GraphProgram, got {type(src).__name__}"
+        )
     opts = options if options is not None else CompileOptions()
     key = program_fingerprint(mir_key, opts)
     sp.set(fingerprint=key[:16])
@@ -409,13 +530,39 @@ def _compile_impl(src, options, sp) -> Program:
         prog = _PROGRAM_CACHE.get(key)
     if prog is not None:
         sp.set(cache_hit=True)
+        if strict:
+            _check_strict(src, opts)
         return prog
     sp.set(cache_hit=False)
     # the pass pipeline works on a copy: the cached base module stays
     # pristine for other option sets
-    prog = Program(passes.run_pipeline(module, opts), opts, key, src)
+    prog = Program(passes.run_pipeline(module, opts), opts, key, source_text)
     with _CACHE_LOCK:
-        return _PROGRAM_CACHE.setdefault(key, prog)
+        prog = _PROGRAM_CACHE.setdefault(key, prog)
+    if strict:
+        _check_strict(src, opts)
+    return prog
+
+
+def _check_strict(src, opts: CompileOptions) -> None:
+    """Raise ProgramError on error-level analysis findings.
+
+    Runs the front end again through ``repro_torch.analyze`` so the
+    provenance in the message is that of THIS input (caret excerpts for
+    text, Python file:lineno for embedded): the shared module cache may
+    hold the other twin's line numbers.
+    """
+    from ..analysis import analyze as _analyze
+
+    result = _analyze(src, options=opts)
+    if result.errors:
+        first = result.errors[0]
+        detail = "\n".join(d.format() for d in result.errors)
+        raise ProgramError(
+            f"strict compile rejected the program "
+            f"({len(result.errors)} error-level diagnostic(s)):\n{detail}",
+            first.line, first.col,
+        )
 
 
 def clear_program_cache() -> None:

@@ -150,6 +150,8 @@ class Session:
             if self._batch_session is None:
                 self._batch_session = BatchSession(self.program, self.graph, session=self,
                                                    max_batch=AUTO_MAX_BATCH)
+                # traced batched runs feed the profile, as this session's do
+                self._batch_session.accelerator = self.accelerator
             return self._batch_session
 
     def __enter__(self) -> "Session":

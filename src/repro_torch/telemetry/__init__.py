@@ -14,10 +14,14 @@ span            where                                          attrs
 ``launch:<k>``  one device-kernel launch                       mode, direction, frontier occupancy
 ``update``      ``StreamingSession.update``                    n_added, program, version, rebucketed
 ``repair``      incremental recomputation of a cached result   program, from/to version, added_edges
+``schedule``    ``GraphService.submit`` admission              tenant, program, fingerprint, tuned
+``queue_wait``  submit -> scheduler pickup                     tenant, label
+``batch_form``  scheduler fill-wait while forming a batch      tenant, batch K
+``execute``     scheduler running a formed batch               tenant, label, batch K
+``autotune``    one ``AutoTuner.tune`` search                  fingerprint, bucket, candidates, trials
 =============== ============================================= =========
 
-The port emits these seven; the reference's distributed and serving spans
-come with the modules that emit them.
+The reference's ``superstep`` span comes with the distributed engine.
 
 Usage::
 

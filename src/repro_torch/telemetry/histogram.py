@@ -1,11 +1,11 @@
 """Fixed-bucket latency histogram behind the tracer's per-span-name
-durations.
+durations and the serving tier's latency percentiles
+(:mod:`repro_torch.serving.metrics` imports it from here).
 
-A copy of the reference's ``LatencyHistogram`` (its serving metrics
-module, which the port does not have yet): geometric buckets of 0.1 ms x
-1.35^i, 48 of them (~0.1 ms to ~180 s) plus an overflow bucket, so a
-long-lived traced process aggregates without per-sample storage. A
-reported percentile is the upper bound of its bucket.
+Geometric buckets of 0.1 ms x 1.35^i, 48 of them (~0.1 ms to ~180 s) plus
+an overflow bucket, so a long-lived traced process or service aggregates
+without per-sample storage. A reported percentile is the upper bound of
+its bucket.
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ _BOUNDS = _bucket_bounds()
 class LatencyHistogram:
     """Fixed-bucket latency histogram with percentile readout.
 
-    Not thread-safe on its own; the tracer serializes access.
+    Not thread-safe on its own; the tracer and ``ServeMetrics`` serialize
+    access.
     """
 
     def __init__(self) -> None:

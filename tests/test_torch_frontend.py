@@ -165,6 +165,38 @@ def test_streaming_imports_neither_jax_nor_reference():
     assert out.stdout.startswith("clean")
 
 
+def test_serving_analysis_and_autotune_import_neither_jax_nor_reference():
+    """The embedded front end, the analysis package, lint, the serving tier,
+    autotune and the algorithm helpers, imported alone and then driven (a
+    served query, an embedded compile, a lint run, a tuner's candidates),
+    load no JAX and no reference."""
+    code = (
+        "import sys\n"
+        "import repro_torch.frontend, repro_torch.analysis, repro_torch.lint\n"
+        "import repro_torch.serving, repro_torch.autotune, repro_torch.autotune.__main__\n"
+        "import repro_torch.algorithms.embedded, repro_torch.algorithms.runners\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch import analyze, compile, generators, serve\n"
+        "from repro_torch.algorithms.embedded import BFS_ECP_EMBEDDED\n"
+        "from repro_torch.autotune import AutoTuner, TuningCache\n"
+        "g = generators.power_law(100, 600, seed=1)\n"
+        "with serve(False, device='cpu') as svc:\n"
+        "    svc.run(BFS_ECP_EMBEDDED, g, root=0)\n"
+        "assert analyze(BFS_ECP_EMBEDDED).ok\n"
+        "assert repro_torch.lint.main(['--builtins']) == 0\n"
+        "AutoTuner(TuningCache()).candidates(compile(BFS_ECP_EMBEDDED), repro_torch.Target())\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.rstrip().endswith("clean")
+
+
 def test_lm_stack_imports_neither_jax_nor_reference():
     """The config registry imports its arch modules by name: the port's
     copy must load ``repro_torch.configs.*``, never ``repro.configs.*``."""

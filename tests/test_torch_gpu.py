@@ -1169,3 +1169,63 @@ def test_cuda_streaming_pool_concurrent_updates(cuda):
         assert ss.updates == 4
     finally:
         ss.close()
+
+
+# --------------------------------------------------------------------------
+# serving and autotune on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,params,weighted", [
+    ("bfs", [{"root": r} for r in range(12)], False),
+    ("sssp", [{"root": r} for r in range(6)], True),
+    ("pagerank", [{"iters": 5}, {"iters": 8}], False),
+])
+def test_cuda_served_batches_equal_a_session(cuda, tmp_path, name, params, weighted):
+    """A service on the card (two workers, batches of up to 8) answers as a
+    session of the same parameters does, bit for bit, through the graph
+    kernels; its entry binds the graph once for single and batched
+    requests."""
+    from repro_torch.serving import NAMED_ALGORITHMS
+
+    g = generators.rmat(11, 16, seed=5, weighted=weighted)
+    session = repro_torch.compile(NAMED_ALGORITHMS[name]).bind(g, device=cuda)
+    want = [session.run(**p) for p in params]
+    with repro_torch.serve(str(tmp_path), device=cuda, workers=2, max_batch=8) as svc:
+        svc.run(name, g, **params[0])  # lower and bind before counting
+        sr.LAUNCHES, es.LAUNCHES = 0, 0
+        futs = [svc.submit(name, g, tenant="ab"[i % 2], **p) for i, p in enumerate(params)]
+        got = [f.result(timeout=300) for f in futs]
+        launches = (sr.LAUNCHES, es.LAUNCHES)
+        (entry,) = svc.registry._residents.values()
+        assert entry.accelerator.binds == 1 and entry.session.device.startswith("cuda")
+        if len(params) > 2:
+            assert svc.stats()["batches"]["batches"] < len(params) + 1
+    assert launches[0] + launches[1] > 0 and launches[1] > 0, launches
+    for a, b in zip(want, got):
+        for prop, x in a.properties.items():
+            assert x.dtype == b.properties[prop].dtype and np.array_equal(x, b.properties[prop])
+
+
+@pytest.mark.gpu
+def test_cuda_autotune_small_search(cuda, tmp_path):
+    """A short search on the card: the winner is never slower than the
+    baseline referee, a fresh tuner on the same cache makes no trial, and
+    the tuned lowering answers as the default target does."""
+    from repro_torch.autotune import AutoTuner, TuningCache, tuning_dir_for
+
+    g = generators.rmat(11, 16, seed=5)
+    prog = repro_torch.compile(sources.BFS_ECP)
+    cache = TuningCache(tuning_dir_for(str(tmp_path)))
+    report = AutoTuner(cache, reps=2, max_candidates=3, device=cuda).tune(
+        prog, g, params={"root": 0})
+    assert not report.cache_hit and report.trials >= 2
+    assert report.config.objective_s <= report.config.baseline_s * 1.0001
+    again = AutoTuner(TuningCache(tuning_dir_for(str(tmp_path))), device=cuda).tune(
+        prog, g, params={"root": 0})
+    assert again.cache_hit and again.trials == 0
+    acc = prog.lower(graph=g, tuned=True, tuning_cache=cache, device=cuda)
+    assert acc.tuned == report.config.to_dict()
+    got = acc.bind(g).run(root=7).properties["old_level"]
+    assert np.array_equal(got, prog.bind(g, device=cuda).run(root=7).properties["old_level"])

@@ -297,9 +297,18 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "generated (2, 3) tokens on cpu" in capsys.readouterr().out
 
 
-def test_serve_cli_refuses_graph_and_a_missing_gpu():
+def test_serve_cli_refuses_graph_and_a_missing_gpu(tmp_path, capsys):
+    # graph serving is ported: the local backend serves, the distributed
+    # backend (not ported) is refused
+    assert serve.main(["--graph", "bfs", "--device", "cpu", "--queries", "2",
+                       "--vertices", "200", "--edges", "1000",
+                       "--artifact-dir", str(tmp_path)]) == 0
+    assert "answered 2 queries" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--graph", "bfs", "--device", "cpu"])
+        serve.main(["--graph", "bfs", "--device", "cpu", "--backend", "distributed"])
     if not torch.cuda.is_available():
         with pytest.raises(Exception, match="no CUDA device"):
             serve.main(["--smoke"])
+        with pytest.raises(Exception, match="no CUDA device"):
+            serve.main(["--graph", "bfs", "--queries", "1", "--vertices", "200",
+                        "--edges", "1000", "--artifact-dir", str(tmp_path)])
