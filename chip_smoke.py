@@ -136,6 +136,32 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    ``tuned_hits`` and answers as the base target does. Last, ``python -m
    repro_torch.launch.serve --graph bfs --queries 16 --pool 2`` runs as a
    child. Both counters are set to 0 after the reference answers.
+   Then (4f, ``{"phase": "distributed", ...}`` lines) the distributed
+   engine: ``Target(kind="distributed", n_devices=4)``, its four shards
+   on the one card (every shuffle copy stays on it; no link between cards
+   is measured). BFS_ECP, SSSP and PAGERANK (iters 20) on the R19 graph:
+   one bind, one cold run (it partitions the graph), five warm runs;
+   BFS_ECP and SSSP bit for bit the main phase's single-device runs,
+   PAGERANK within ``rtol=1e-5, atol=1e-6`` of it, within the oracle's
+   tolerance and the same bits on two runs; equal launches, one superstep
+   per launch of a distributable edge stage. Each line gives the
+   partition seconds, the edges per shard, the reference's padded slots
+   and bytes beside the stored ones, the warm median beside the main
+   phase's, ``shuffle_reduce`` launches beside supersteps x 4, a profiled
+   warm run, the device time of one superstep's stages (apply, the
+   shuffle's copies, the reduce) beside a single-device full launch of
+   the same kernel on the same state (its update equal to the
+   superstep's, and four ``shuffle_reduce`` launches a superstep), and
+   peak memory; one PAGERANK iteration runs under
+   ``torch.cuda.set_sync_debug_mode("error")``. BFS_ECP on one shard (bit
+   for bit), PAGERANK batched at K = 16 on the same engine (every lane a
+   sequential distributed run's bits, one superstep a round; queries/s
+   beside the batch phase's). On rmat(16, 16): a distributed
+   ``StreamingSession`` repair after a 4,096-edge addition equals a full
+   distributed run, ``repro_torch.serve(dir, backend="distributed")``
+   answers 16 BFS_ECP roots as a single-device session does, and the
+   serving CLI runs with ``--backend distributed`` as a child. Both
+   counters are set to 0 at its start.
    The graph sessions are freed after it.
 5. LM path: ``launch.serve.generate`` on Kimi-K2 at full width with its
    depth cut to 2 layers (1 dense + 1 MoE, random weights from the seed,
@@ -210,6 +236,12 @@ BATCH_MSBFS = "__msbfs__"  # kernel_launches key of the multi-source BFS path
 STREAM_DELTA = 4096  # edges of each additions-only delta of the streaming phase
 STREAM_ADD_DELTAS = 1  # additions-only deltas a program (BFS_ECP's cut from 2 for time)
 STREAM_REMOVE = 64  # real edges of BFS_ECP's removal delta
+DIST_DEVICES = 4  # shards of phase 4f's distributed target (on one card they share it)
+DIST_SMALL_SCALE = 16  # phase 4f's streaming, serving and CLI graph: rmat(16, 16)
+# a distributed float sum against the single-device one: PAGERANK's values
+# are about 1/V (1.9e-6 at R19), so atol stays three decades below them
+DIST_RTOL, DIST_ATOL = 1e-5, 1e-9
+PADDED_SLOT_BYTES = 13  # the reference's [D, D, Emax] buckets: src, dst, weight, valid
 
 
 def log(obj) -> None:
@@ -2631,6 +2663,336 @@ def serving_phase(repro_torch, sources, generators, g, sessions, results, oracle
 
 
 # ---------------------------------------------------------------------------
+# 4f. the distributed engine
+# ---------------------------------------------------------------------------
+
+
+def _dist_stages(eng, name: str) -> int:
+    """Supersteps one launch of kernel ``name`` runs on the distributed
+    engine ``eng``: its edge stages that distribute (the reference's rule)."""
+    from repro_torch.core import mir
+
+    kern = eng.module.kernels[name]
+    stages = kern.edge_stages if isinstance(kern, mir.PipelineKernel) else [kern]
+    return sum(1 for st in stages
+               if st.kind is mir.KernelKind.EDGE and eng._dist_kernel(st.name) is not None)
+
+
+def superstep_row(eng, main_eng, sr, dev: str) -> dict:
+    """The device time of one superstep of ``eng``'s distributed edge
+    kernel, stage by stage (apply, the shuffle's copies, the reduce), beside
+    one full launch of the same kernel by the single-device engine
+    ``main_eng``, both on ``main_eng``'s state: the superstep's combined
+    update must equal the full launch's (bit for bit for min and integer
+    results, within ``rtol=DIST_RTOL, atol=DIST_ATOL`` for a float sum); and one
+    superstep launches ``shuffle_reduce`` once per shard."""
+    from repro_torch.core import backend
+    from repro_torch.core.dist_engine import shuffle
+
+    kname, entry = next((k, e) for k, e in eng._dist_lowered.items() if e is not None)
+    step, out_prop, op, src_props = entry
+    dg = eng._dist_graph
+    props = {p: main_eng.state[p] for p in src_props}
+    scalars = main_eng._kernel_scalars(kname)
+    before = sr.LAUNCHES
+    red = step(props, scalars)
+    assert sr.LAUNCHES - before == dg.n_devices, (kname, sr.LAUNCHES - before)
+    cur = main_eng.state[out_prop]
+    got = backend.combine(op, cur, red[: main_eng.graph.n_vertices].to(cur.dtype))
+    lk = main_eng._kernel(kname)
+    want = lk.run_full(main_eng.state, scalars)[out_prop]
+    if got.dtype == torch.float32 and op == "+":
+        assert torch.allclose(got, want, rtol=DIST_RTOL, atol=DIST_ATOL), kname
+        agree = {"rtol": DIST_RTOL, "atol": DIST_ATOL,
+                 "max_abs_err": float((got - want).abs().max())}
+    else:
+        assert torch.equal(got, want), kname
+        agree = {"exact": True}
+    sent = step.apply(props, scalars)
+    recv = shuffle(dg, sent)
+    stages = {
+        "apply": device_ms(lambda: step.apply(props, scalars)),
+        "move": device_ms(lambda: shuffle(dg, sent)),
+        "reduce": device_ms(lambda: step.reduce(recv, dev), focus="shuffle_reduce"),
+        "superstep": device_ms(lambda: step(props, scalars)),
+        "single_device_full_launch": device_ms(lambda: lk.run_full(main_eng.state, scalars)),
+    }
+    return {"kernel": kname, "op": op, "agree": agree,
+            "device_ms": {k: v["ms"] for k, v in stages.items()},
+            "kernels_per_call": {k: v["kernels_per_call"] for k, v in stages.items()},
+            "reduce_shuffle_reduce_ms": stages["reduce"]["focus_ms"],
+            "shuffle_reduce_launches_per_superstep": dg.n_devices}
+
+
+def distributed_phase(repro_torch, sources, generators, g, sessions, results, params,
+                      batch_rows, sr, es, seed: int, smi: str, here: str) -> dict:
+    """Phase 4f: ``Target(kind="distributed", n_devices=4)`` on the main
+    phase's R19 graph, its four shards sharing the one card (every
+    shuffle copy stays on it; no link between cards is measured). For
+    BFS_ECP, SSSP and PAGERANK (iters 20): one bind, one cold run (it
+    partitions the graph) and five warm runs; BFS_ECP and SSSP bit for bit
+    the main phase's single-device runs, PAGERANK within ``rtol=DIST_RTOL,
+    atol=DIST_ATOL`` of it, within the oracle's tolerance and the same bits on
+    two runs; launches equal, one superstep per launch of a distributable
+    edge stage, at least one ``shuffle_reduce`` per shard and superstep.
+    Each line gives the partition (its seconds, the edges per shard, the
+    reference's padded slots and bytes beside the stored ones), the warm
+    median beside the main phase's, a profiled warm run, the superstep's
+    stages' device time beside a single-device full launch, and peak
+    memory; one PAGERANK iteration runs under
+    ``torch.cuda.set_sync_debug_mode("error")``. BFS_ECP bound again with
+    ``Target(kind="distributed", n_devices=1)`` (bit for bit). PAGERANK
+    batched at K = 16 (the batch phase's iters) on the same engine: every
+    lane a sequential distributed run's bits, one superstep a round. Then, on rmat(16, 16): a distributed
+    ``StreamingSession`` repairs BFS_ECP after a 4,096-edge addition (equal
+    to a full distributed run), ``repro_torch.serve(dir,
+    backend="distributed")`` answers 16 BFS_ECP roots as a single-device
+    session does, and the serving CLI runs with ``--backend distributed``
+    as a child. The launches returned are the distributed path's own: both
+    graph kernels' counters are set to 0 just before each group of
+    distributed runs and read just after it, so the profiles, the
+    superstep timings and the single-device comparisons count nothing."""
+    from repro_torch import GraphDelta, GraphShape, StreamingSession, Target
+    from repro_torch.core import DistEngine
+
+    t_phase = time.perf_counter()
+    target = Target(kind="distributed", n_devices=DIST_DEVICES)
+    mesh = target.mesh("cuda")
+    launches = {"shuffle_reduce": 0, "edge_stream": 0}
+
+    def counted(fn):
+        """``fn()`` with the counters set to 0 just before and read into
+        ``launches`` just after."""
+        sr.LAUNCHES = 0
+        es.LAUNCHES = 0
+        try:
+            return fn()
+        finally:
+            launches["shuffle_reduce"] += sr.LAUNCHES
+            launches["edge_stream"] += es.LAUNCHES
+
+    def runs(sess, p, n):
+        """One cold run and ``n`` warm ones: their seconds, the last run
+        and the ``shuffle_reduce``/``edge_stream`` launches per warm run."""
+        t0 = time.perf_counter()
+        cold = sess.run(**p)
+        cold_s = time.perf_counter() - t0
+        sr0, es0 = sr.LAUNCHES, es.LAUNCHES
+        warm_runs_s = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            warm = sess.run(**p)
+            warm_runs_s.append(time.perf_counter() - t0)
+        return cold, cold_s, warm, warm_runs_s, (sr.LAUNCHES - sr0) / n, (es.LAUNCHES - es0) / n
+
+    dist = {}
+    for name in ("BFS_ECP", "SSSP", "PAGERANK"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        prog = repro_torch.compile(getattr(sources, name))
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sess = prog.bind(g, target=target)
+        bind_s = time.perf_counter() - t0
+        eng = sess.engine
+        assert isinstance(eng, DistEngine) and eng.mesh == mesh, (type(eng), eng.mesh)
+        cold, cold_s, warm, warm_runs_s, sr_per_run, es_per_run = counted(
+            lambda: runs(sess, params[name], WARM_RUNS))
+        dg = eng._dist_graph
+        assert dg is not None and dg.n_devices == DIST_DEVICES
+        peak = torch.cuda.max_memory_allocated()
+        _, main_warm, _, main_runs_s = results[name]
+        st = warm.stats
+        assert st.kernel_launches == main_warm.stats.kernel_launches, name
+        supersteps = sum(n * _dist_stages(eng, k) for k, n in st.kernel_launches.items())
+        assert st.dist_supersteps == supersteps > 0, (name, st.dist_supersteps, supersteps)
+        assert sr_per_run >= supersteps * DIST_DEVICES, (name, sr_per_run, supersteps)
+        assert _identical_props(cold, warm) and cold.host_env == warm.host_env, \
+            f"{name}: two distributed runs differ"
+        if name == "PAGERANK":
+            got, want = warm.properties["rank"], main_warm.properties["rank"]
+            assert np.allclose(got, want, rtol=DIST_RTOL, atol=DIST_ATOL), name
+            oracle = pagerank(g.n_vertices, g.src, g.dst, params[name]["iters"])
+            assert np.allclose(got, oracle, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL), name
+            agree = {"single_device": {"rtol": DIST_RTOL, "atol": DIST_ATOL,
+                                       "max_abs_err": float(np.abs(got - want).max())},
+                     "oracle": {"rtol": PAGERANK_RTOL, "atol": PAGERANK_ATOL},
+                     "two_runs_same_bits": True}
+        else:
+            assert _identical_props(main_warm, warm) and warm.host_env == main_warm.host_env, \
+                f"{name}: the distributed run differs from the single-device run"
+            agree = {"single_device_bits": True}
+        prof = profile_run(lambda s=sess, n=name: s.run(**params[n]))
+        step = superstep_row(eng, sessions[name].engine, sr, eng.device)
+        row = {
+            "phase": "distributed", "program": name, "params": params[name], "card": smi,
+            "devices": DIST_DEVICES, "mesh": mesh, "bind_s": bind_s,
+            "partition_s": dg.partition_s, "cold_s": cold_s,
+            "warm_s": statistics.median(warm_runs_s), "warm_runs_s": warm_runs_s,
+            "single_device_warm_s": statistics.median(main_runs_s),
+            "shard_edges": dg.shard_edges, "received_edges": dg.recv_len,
+            "slots": {"padded": dg.padded_slots, "emax": dg.emax, "stored": g.n_edges,
+                      "padded_bytes": dg.padded_slots * PADDED_SLOT_BYTES,
+                      "stored_bytes": dg.stored_bytes},
+            "supersteps": st.dist_supersteps, "kernel_launches": st.total_launches,
+            "full_launches": st.full_launches, "compacted_launches": st.compacted_launches,
+            "shuffle_reduce_per_run": sr_per_run,
+            "supersteps_x_devices": supersteps * DIST_DEVICES,
+            "edge_stream_per_run": es_per_run, "edges_traversed": st.edges_traversed,
+            "oracle_or_single_device": agree, "superstep": step, **_busy(prof),
+            "resident_bytes_before": resident, "max_memory_allocated": peak,
+        }
+        if name == "PAGERANK":
+            # one warm iteration (the fused pipeline: a superstep and the
+            # vertex stage) must read nothing back to the host
+            pipe = next(k for k in st.kernel_launches if "__" in k)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                counted(lambda: eng.launch(pipe))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            row["sync_free_iteration"] = pipe
+        log(row)
+        dist[name] = (sess, warm)
+
+    # -- one shard: BFS_ECP bound again with n_devices=1 ---------------------
+    del dist["BFS_ECP"], dist["SSSP"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sess = repro_torch.compile(sources.BFS_ECP).bind(
+        g, target=Target(kind="distributed", n_devices=1))
+    bind_s = time.perf_counter() - t0
+    assert sess.engine.mesh == mesh[:1], sess.engine.mesh
+    t0 = time.perf_counter()
+    one = counted(lambda: sess.run(**params["BFS_ECP"]))
+    one_s = time.perf_counter() - t0
+    assert sess.engine._dist_graph.n_devices == 1
+    assert _identical_props(results["BFS_ECP"][1], one) and \
+        one.host_env == results["BFS_ECP"][1].host_env, "BFS_ECP on one shard"
+    log({"phase": "distributed", "program": "BFS_ECP", "devices": 1, "card": smi,
+         "bind_s": bind_s, "run_s": one_s,
+         "partition_s": sess.engine._dist_graph.partition_s,
+         "supersteps": one.stats.dist_supersteps, "single_device_bits": True})
+    del sess, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- PAGERANK batched on the same engine (the batch phase's iters) -------
+    rng = np.random.default_rng(seed)
+    rng.choice(np.arange(1, g.n_vertices), 63, replace=False)  # the batch phase's roots
+    sets = [{"iters": int(i)} for i in rng.integers(16, 21, BATCH_K)]
+    sess, _ = dist["PAGERANK"]
+    torch.cuda.reset_peak_memory_stats()
+
+    def batches():
+        t0 = time.perf_counter()
+        cold = sess.run_many(sets, batched=True)
+        cold_s = time.perf_counter() - t0
+        warm_s = []
+        for _ in range(BATCH_WARM_RUNS):
+            t0 = time.perf_counter()
+            warm = sess.run_many(sets, batched=True)
+            warm_s.append(time.perf_counter() - t0)
+        return cold, cold_s, warm, warm_s, sr.LAUNCHES
+
+    cold, cold_s, warm, warm_s, sr_batches = counted(batches)
+    st = warm[0].stats
+    rounds = max(p["iters"] for p in sets)
+    assert st.batch_size == BATCH_K and st.dist_supersteps == rounds, \
+        (st.batch_size, st.dist_supersteps, rounds)
+    assert sr_batches >= (1 + BATCH_WARM_RUNS) * rounds * DIST_DEVICES, sr_batches
+    for p, a, c in zip(sets, warm, cold):
+        want = counted(lambda p=p: sess.run(**p))
+        assert _identical_props(want, a) and _identical_props(want, c) and \
+            a.host_env == want.host_env, f"batched PAGERANK {p}"
+    med = statistics.median(warm_s)
+    single = next(r for r in batch_rows if r["program"] == "PAGERANK")
+    prof = profile_run(lambda: sess.run_many(sets, batched=True))
+    log({"phase": "distributed", "program": "PAGERANK", "batched": BATCH_K, "card": smi,
+         "iters": [p["iters"] for p in sets], "cold_s": cold_s, "warm_s": med,
+         "warm_runs_s": warm_s, "queries_per_s": BATCH_K / med,
+         "single_device_batch_queries_per_s": single["queries_per_s"],
+         "supersteps_per_batch": st.dist_supersteps, "launches_per_batch": st.total_launches,
+         "lanes_bit_identical": BATCH_K, **_busy(prof),
+         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del dist, sess, cold, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the other surfaces, on rmat(16, 16) --------------------------------
+    small = generators.rmat(DIST_SMALL_SCALE, 16, seed=seed)
+    prog = repro_torch.compile(sources.BFS_ECP)
+    shape = GraphShape.bucket_for(small.n_vertices, small.n_edges)
+    t0 = time.perf_counter()
+    ss = StreamingSession(prog, small.pad_to(shape.n_vertices, shape.n_edges),
+                          backend="distributed", target=target)
+    try:
+        def stream():
+            ss.run(root=0)
+            rng = np.random.default_rng(seed + 1)
+            lv = ss.graph.n_vertices_logical
+            ss.update(GraphDelta(
+                added_edges=rng.integers(0, lv, (STREAM_DELTA, 2)).astype(np.int32)))
+            return ss.run(root=0), ss.session.run(root=0)
+
+        repaired, full = counted(stream)
+        assert ss.incremental_runs == 1 and isinstance(ss.session.engine, DistEngine)
+        assert full.stats.dist_supersteps > 0
+        assert _identical_props(full, repaired), "distributed streaming repair"
+        stream_s = time.perf_counter() - t0
+    finally:
+        ss.close()
+    store = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    try:
+        roots = list(range(16))
+        alone = prog.bind(small)
+        want = [alone.run(root=r) for r in roots]
+        t0 = time.perf_counter()
+
+        def served():
+            with repro_torch.serve(store, backend="distributed", workers=2, max_batch=8) as svc:
+                got = [f.result(timeout=600) for f in
+                       [svc.submit("bfs", small, root=r) for r in roots]]
+                return got, sorted({k[1].kind for k in svc.registry._residents})
+
+        got, kinds = counted(served)
+        serve_s = time.perf_counter() - t0
+        assert kinds == ["distributed"], kinds
+        for r, a, b in zip(roots, want, got):
+            assert _identical_props(a, b), f"served distributed BFS_ECP root {r}"
+        env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--graph", "bfs",
+             "--queries", "8", "--backend", "distributed",
+             "--artifact-dir", os.path.join(store, "cli")],
+            capture_output=True, text=True, env=env, cwd=here, timeout=600)
+        cli_s = time.perf_counter() - t0
+        assert out.returncode == 0, f"serve --backend distributed exited {out.returncode}: " \
+                                    f"{out.stderr[-2000:]}"
+        lines = out.stdout.splitlines()
+        assert any(line.startswith("answered 8 queries") for line in lines), lines[:8]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    assert launches["shuffle_reduce"] > 0, "shuffle_reduce never launched in 4f"
+    log({"phase": "distributed", "graph": f"rmat-{DIST_SMALL_SCALE}-16", "card": smi,
+         "streaming": {"repair_equals_full_distributed_run": True, "seconds": stream_s},
+         "served": {"answers": len(roots), "single_device_bits": True, "seconds": serve_s},
+         "cli": {"command": "python -m repro_torch.launch.serve --graph bfs --queries 8 "
+                            "--backend distributed", "rc": out.returncode,
+                 "process_s": cli_s, "head": lines[:4]},
+         "reduced": {"surfaces_graph": f"rmat-{DIST_SMALL_SCALE}-16 (each surface is a "
+                                       f"further bind; not R19)"}})
+    log({"phase": "distributed", "launches": launches,
+         "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # oracles (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
 
@@ -2945,6 +3307,12 @@ def main() -> int:
     serve_launches = serving_phase(repro_torch, sources, generators, g, sessions, results,
                                    oracle_of, sr, es, args.seed, args.scale, smi, here)
     for name, n in serve_launches.items():
+        launches[name] += n
+
+    # -- 4f. the distributed engine --------------------------------------------
+    dist_launches = distributed_phase(repro_torch, sources, generators, g, sessions, results,
+                                      params, batch_rows, sr, es, args.seed, smi, here)
+    for name, n in dist_launches.items():
         launches[name] += n
     del sessions, eng, results
     gc.collect()

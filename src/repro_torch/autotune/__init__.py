@@ -635,7 +635,8 @@ class AutoTuner:
                     best_s, best_target, best_acc = obj_s, cand, acc
             # the baseline referee: measured when not already among the
             # trials, so every TunedConfig records a like-for-like speedup
-            baseline = replace(Target.baseline(), kind=base.kind)
+            baseline = replace(Target.baseline(), kind=base.kind, n_devices=base.n_devices,
+                               axis=base.axis)
             baseline_s = next(
                 (m["objective_s"] for m, t in zip(measurements, [base] + rest)
                  if t == baseline and not m["dominated"]),

@@ -249,10 +249,10 @@ class BatchEngine:
                    for s in sorted(kern.scalar_reads)}
         # every batch size K is its own first touch; the inner engine's
         # warm-key registry keeps the cold/warm split across run modes
-        updates = self.engine._timed_call(("batched", name, self.batch_size),
-                                          self.engine.batched_runner(name),
+        bl = self.engine.batched_runner(name)
+        updates = self.engine._timed_call(("batched", name, self.batch_size), bl.fn,
                                           self.state, scalars, stats=self.stats)
-        self.engine._full_stats_bump(kern)(self.stats)  # one batched launch counts once
+        bl.bump_stats(self.stats)  # one batched launch counts once
         self._merge(updates, mask)
 
     def _merge(self, updates: Dict[str, torch.Tensor], mask: np.ndarray) -> None:

@@ -30,6 +30,10 @@ bitstreams rebound per graph). The port's pipeline, as the reference's:
   executables to serialize, so loading always lowers again; a kernel is
   ``"aot-loaded"`` when its libraries were found built at the manifest's
   source hash (no ``nvcc`` ran), else ``"aot"``.
+
+Distributed targets lower lazily at bind (each bind partitions its graph
+over the target's shard devices, :mod:`.dist_engine`), but carry the same
+artifact metadata, report and persistence, as the reference's do.
 """
 from __future__ import annotations
 
@@ -263,7 +267,7 @@ class KernelPlan:
     kind: str  # 'vertex' | 'edge' | 'pipeline'
     stages: Tuple[str, ...]  # fused stage names (pipelines), else ()
     direction: str  # compile-time push/pull verdict ('auto' pre-pass)
-    mode: str  # 'aot' | 'aot-loaded'
+    mode: str  # 'aot' | 'aot-loaded' | 'lazy' (a distributed target's)
     flops: Optional[float] = None  # per full-stream launch
     bytes_accessed: Optional[float] = None
     arg_bytes: Optional[int] = None
@@ -419,8 +423,16 @@ class Accelerator:
         ) if tr.enabled else tel.NULL_SPAN
         t0 = time.perf_counter()
         with sp:
-            self.library = KernelLibrary(module, target, shape, self.device)
-            self._plans = self.library.compile_all(_libraries)
+            if target.kind == "distributed":
+                # each bind partitions its graph over the target's shards and
+                # lowers its supersteps then, as the reference's distributed
+                # accelerator does: the kernels are "lazy", the report holds
+                self.library: Optional[KernelLibrary] = None
+                self._plans = tuple(_kernel_plan(module, k, "lazy", 0.0, shape)
+                                    for k in module.kernels.values())
+            else:
+                self.library = KernelLibrary(module, target, shape, self.device)
+                self._plans = self.library.compile_all(_libraries)
         self.lower_time_s = time.perf_counter() - t0
         self.binds = 0
 

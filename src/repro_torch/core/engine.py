@@ -60,6 +60,8 @@ class EngineStats:
     kernel_launches: Dict[str, int] = field(default_factory=dict)
     compacted_launches: int = 0
     full_launches: int = 0
+    # shuffle supersteps of the distributed engine (core/dist_engine.py)
+    dist_supersteps: int = 0
     edges_traversed: int = 0
     host_iterations: int = 0
     wall_time_s: float = 0.0
@@ -113,6 +115,20 @@ class EngineResult:
     # tracing was on, None otherwise. Batched runs share one summary across
     # the K results, as they share ``stats``.
     trace: Optional[Dict[str, Any]] = None
+
+
+@dataclass
+class BatchedLaunch:
+    """One kernel launch over a leading batch (query) axis.
+
+    ``fn(state, scalars) -> updates`` with every state tensor ``[K, n]``
+    and every scalar ``[K, 1]``; ``bump_stats`` applies the counter
+    increments ONE sequential launch of the kernel records (the batch
+    engine counts a batched launch once; ``EngineStats.batch_size`` holds
+    the amortization)."""
+
+    fn: Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
+    bump_stats: Callable[["EngineStats"], None]
 
 
 def _next_pow2(n: int) -> int:
@@ -311,7 +327,7 @@ class Engine:
         kern = self.module.kernels.get(name)
         if kern is None:
             raise EngineError(f"{name!r} is not a device kernel")
-        count_launch(self.stats, self.module, name)
+        self._count_launch(name)
         tr = tel.get()
         if not tr.enabled:  # hot path: one attribute check when untraced
             self._execute_kernel(name, kern)
@@ -323,12 +339,20 @@ class Engine:
         ) as sp:
             self._execute_kernel(name, kern, sp)
 
-    def batched_runner(self, name: str) -> Callable:
-        """The batch-axis launch of kernel ``name``, ``(state, scalars) ->
-        updates``: its full stream over ``[K, n]`` state and ``[K, 1]``
-        scalars, with per-row results bit-identical to K sequential launches
-        (the shared graph bindings are walked once for all K rows)."""
-        return self._kernel(name).run_batched
+    def _count_launch(self, name: str) -> None:
+        """One logical launch (a fused kernel counts once, not per stage)."""
+        count_launch(self.stats, self.module, name)
+
+    def batched_runner(self, name: str) -> BatchedLaunch:
+        """The batch-axis launch of kernel ``name``: its full stream over
+        ``[K, n]`` state and ``[K, 1]`` scalars, with per-row results
+        bit-identical to K sequential launches (the shared graph bindings
+        are walked once for all K rows), and the stats of one full launch.
+        Subclasses (:class:`~.dist_engine.DistEngine`) batch their own
+        launch strategy behind the same contract."""
+        lk = self._kernel(name)
+        return BatchedLaunch(fn=lk.run_batched,
+                             bump_stats=self._full_stats_bump(self.module.kernels[name]))
 
     def _full_stats_bump(self, kern) -> Callable[[EngineStats], None]:
         """Stats increment matching one full-stream launch of ``kern``."""
@@ -479,7 +503,8 @@ class Engine:
                 self._exec_host_block(host.main.body)
                 sp.set(launches=self.stats.total_launches,
                        compacted=self.stats.compacted_launches,
-                       full=self.stats.full_launches, supersteps=0)
+                       full=self.stats.full_launches,
+                       supersteps=self.stats.dist_supersteps)
             root_ctx = sp.context()
         else:
             self._exec_host_block(host.main.body)

@@ -63,6 +63,18 @@ def resolve_device(device: Optional[str]) -> str:
     return "cpu"
 
 
+def make_engine(program: Program, graph, target: Target, device: str,
+                argv: Optional[list], library=None) -> Engine:
+    """The engine a target places a program on: the multi-device
+    :class:`~.dist_engine.DistEngine` for ``kind == "distributed"``, the
+    one-device :class:`~.engine.Engine` otherwise."""
+    if target.kind == "distributed":
+        from .dist_engine import DistEngine
+
+        return DistEngine(program.module, graph, target, device, argv=argv, library=library)
+    return Engine(program.module, graph, target, device, argv=argv, library=library)
+
+
 def batch_eligible(coerced_sets: Sequence[Dict[str, Any]]) -> bool:
     """True when a list of validated parameter sets can share one batch:
     every set binds the SAME parameter names (the values are scalars by
@@ -74,7 +86,9 @@ def batch_eligible(coerced_sets: Sequence[Dict[str, Any]]) -> bool:
 
 
 class Session:
-    """One program bound to one graph on one device; run it many times."""
+    """One program bound to one graph on one device; run it many times.
+    A distributed ``target`` binds the multi-device engine, its shards on
+    ``target.mesh(device)``."""
 
     def __init__(self, program: Program, graph, *, target: Optional[Target] = None,
                  device: Optional[str] = None, argv: Optional[list] = None, library=None):
@@ -83,8 +97,7 @@ class Session:
         self.device = resolve_device(device)
         self.target = target if target is not None else Target()
         argv = list(argv) if argv is not None else ["prog", "<graph>"]
-        self.engine = Engine(program.module, graph, self.target, self.device, argv=argv,
-                             library=library)
+        self.engine = make_engine(program, graph, self.target, self.device, argv, library)
         self.runs = 0
         # set by Accelerator.bind: traced runs feed its profiling baseline
         self.accelerator = None
@@ -204,8 +217,7 @@ class BatchSession:
             self.device = resolve_device(device)
             self.target = target if target is not None else Target()
             argv = list(argv) if argv is not None else ["prog", "<graph>"]
-            inner = Engine(program.module, graph, self.target, self.device, argv=argv,
-                           library=library)
+            inner = make_engine(program, graph, self.target, self.device, argv, library)
             self._lock = threading.Lock()
         self.engine = BatchEngine(inner, enable_msbfs=msbfs)
         self.max_batch = max_batch

@@ -423,8 +423,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.graph is not None:
-        if args.backend != "local":
-            ap.error("--backend distributed is not ported yet (ROADMAP slice A6)")
         if args.batch is None:
             args.batch = 0  # graph path: dynamic batching off by default
         if args.updates:

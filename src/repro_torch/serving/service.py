@@ -115,8 +115,9 @@ class GraphService:
         ``$REPRO_TORCH_ARTIFACT_DIR`` / ``~/.cache/repro-torch-artifacts``; pass
         ``registry_dir=False`` for a memory-only registry.
     backend / target
-        ``backend`` is the substrate kind; only ``"local"`` (one device)
-        is ported, and ``"distributed"`` raises (ROADMAP slice A6). An
+        ``backend`` is the substrate kind: ``"local"`` (one device) or
+        ``"distributed"`` (``Target(kind="distributed")``: shuffle
+        supersteps across every visible device of ``device``'s type). An
         explicit ``target`` pins one
         :class:`~repro_torch.core.target.Target` for every submission.
     device
@@ -157,11 +158,7 @@ class GraphService:
     ) -> None:
         from ..autotune import TuningCache, tuning_dir_for
 
-        if backend != "local":
-            raise ValueError(
-                f"GraphService backend {backend!r} is not ported; only 'local' "
-                "runs (the distributed backend is ROADMAP slice A6)"
-            )
+        Target(kind=backend)  # an unknown backend fails here, not at a submission
 
         if registry_dir is None:
             store: Optional[str] = default_artifact_dir()

@@ -28,6 +28,7 @@ rebuilt from the updated dst offsets); a repair is numpy on the host.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from collections import OrderedDict, deque
@@ -101,8 +102,10 @@ class StreamingSession:
         must carry padding slack (``pad_to`` a bucket, e.g. via
         ``GraphShape.bucket_for``) for in-place updates to land in.
     backend
-        Only ``"local"`` (one device); the distributed backend is ROADMAP
-        slice A6.
+        ``"local"`` (one device) or ``"distributed"``: the latter binds
+        ``Target(kind="distributed")`` (or the given ``target`` with that
+        kind), whose engine runs edge kernels as shuffle supersteps across
+        the target's shard devices.
     accelerator
         Optional :class:`Accelerator` to bind instead of binding through
         ``program``; in-bucket updates keep its kernels warm
@@ -133,14 +136,14 @@ class StreamingSession:
         target: Optional[Target] = None,
         device: Optional[str] = None,
     ) -> None:
-        if backend != "local":
-            raise ValueError(
-                f"StreamingSession backend {backend!r} is not ported; only "
-                "'local' runs (the distributed backend is ROADMAP slice A6)"
-            )
+        if backend not in ("local", "distributed"):
+            raise ValueError(f"unknown StreamingSession backend {backend!r}; "
+                             "expected 'local' or 'distributed'")
         if accelerator is not None:
             program = accelerator.program
             target, device = accelerator.target, accelerator.device
+        elif backend == "distributed" and (target is None or target.kind != "distributed"):
+            target = dataclasses.replace(target or Target(), kind="distributed")
         self.program = program
         self.graph = graph
         self.backend = backend if accelerator is None else accelerator.target.kind

@@ -12,6 +12,7 @@ span            where                                          attrs
 ``bind``        ``Accelerator.bind``                           fingerprint, n_vertices, n_edges
 ``run``         one ``Engine``/``BatchEngine`` execution       launches, batch K
 ``launch:<k>``  one device-kernel launch                       mode, direction, frontier occupancy
+``superstep``   one distributed shuffle superstep              kernel, devices, shuffle elements, edges
 ``update``      ``StreamingSession.update``                    n_added, program, version, rebucketed
 ``repair``      incremental recomputation of a cached result   program, from/to version, added_edges
 ``schedule``    ``GraphService.submit`` admission              tenant, program, fingerprint, tuned
@@ -20,8 +21,6 @@ span            where                                          attrs
 ``execute``     scheduler running a formed batch               tenant, label, batch K
 ``autotune``    one ``AutoTuner.tune`` search                  fingerprint, bucket, candidates, trials
 =============== ============================================= =========
-
-The reference's ``superstep`` span comes with the distributed engine.
 
 Usage::
 

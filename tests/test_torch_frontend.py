@@ -285,7 +285,8 @@ def test_target_validates_and_has_no_kernel_knob():
     assert hash(t) == hash(repro_torch.Target())
     assert not hasattr(t, "pallas") and not hasattr(t, "kernels")
     with pytest.raises(ValueError, match="kind"):
-        repro_torch.Target(kind="distributed")
+        repro_torch.Target(kind="mesh")
+    assert repro_torch.Target(kind="distributed").kind == "distributed"
     with pytest.raises(ValueError, match="ablation"):
         repro_torch.Target.with_only("pallas")
     base = repro_torch.Target.baseline()

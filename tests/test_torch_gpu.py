@@ -1229,3 +1229,117 @@ def test_cuda_autotune_small_search(cuda, tmp_path):
     assert acc.tuned == report.config.to_dict()
     got = acc.bind(g).run(root=7).properties["old_level"]
     assert np.array_equal(got, prog.bind(g, device=cuda).run(root=7).properties["old_level"])
+
+
+# ---------------------------------------------------------------------------
+# the distributed engine: shards on the card
+# ---------------------------------------------------------------------------
+
+
+def _dist_target(n):
+    return repro_torch.Target(kind="distributed", n_devices=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_cuda_superstep_matches_plain_on_the_cpu(cuda, dtype):
+    """A superstep at D = 4 on the card equals the same superstep on the
+    CPU (the plain shuffle_reduce): bit for bit for min, and for + on
+    integer-valued inputs, whose every summation order is exact."""
+    from repro_torch.core.dist_engine import make_push_step, partition_graph
+
+    g = generators.rmat(12, 16, seed=3, weighted=True)
+    mesh = _dist_target(4).mesh(cuda)
+    on_card, on_cpu = partition_graph(g, mesh), partition_graph(g, ["cpu"] * 4)
+    gen = np.random.default_rng(1)
+    prop = torch.from_numpy(gen.integers(0, 50, g.n_vertices)).to(dtype)
+    for op, fn in (("min", lambda sv, w: sv + w.to(sv.dtype)), ("+", lambda sv, w: sv)):
+        before = sr.LAUNCHES
+        got = make_push_step(on_card, fn, op)(prop.to(cuda))
+        assert sr.LAUNCHES == before + 4  # one shuffle_reduce per destination owner
+        want = make_push_step(on_cpu, fn, op)(prop)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want), op
+
+
+@pytest.mark.gpu
+def test_cuda_superstep_launches_shuffle_reduce_once_per_shard(cuda):
+    """Distributed PAGERANK on the card: every superstep launches
+    shuffle_reduce once per shard and edge_stream never (its only edge
+    kernel distributes); its ranks meet the single-device run's."""
+    g = generators.rmat(12, 16, seed=3)
+    prog = repro_torch.compile(sources.PAGERANK)
+    want = prog.bind(g, device=cuda).run(iters=3)
+    for d in (1, 4):
+        sess = prog.bind(g, device=cuda, target=_dist_target(d))
+        sess.run(iters=3)
+        sr.LAUNCHES, es.LAUNCHES = 0, 0
+        got = sess.run(iters=3)
+        assert got.stats.dist_supersteps == 3
+        assert (sr.LAUNCHES, es.LAUNCHES) == (3 * d, 0), (d, sr.LAUNCHES, es.LAUNCHES)
+        np.testing.assert_allclose(got.properties["rank"], want.properties["rank"],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_shards_are_placed_by_the_modulo(cuda):
+    """Twice as many shards as cards: shard k lives on cuda:{k % count},
+    and BFS_ECP and SSSP are the single-device run's bits."""
+    count = torch.cuda.device_count()
+    target = _dist_target(2 * count)
+    mesh = target.mesh(cuda)
+    assert mesh == [f"cuda:{k % count}" for k in range(2 * count)]
+    g = generators.rmat(12, 16, seed=3, weighted=True)
+    for name, prop in (("BFS_ECP", "old_level"), ("SSSP", "SP")):
+        prog = repro_torch.compile(getattr(sources, name))
+        sess = prog.bind(g, device=cuda, target=target)
+        got = sess.run(root=0)
+        dg = sess.engine._dist_graph
+        for k, dev in enumerate(mesh):
+            assert dg.src_local[k].device == torch.device(dev)
+            assert dg.recv_perm[k].device == torch.device(dev)
+        want = prog.bind(g, device=cuda).run(root=0)
+        assert got.stats.dist_supersteps > 0
+        assert np.array_equal(got.properties[prop], want.properties[prop]), name
+
+
+@pytest.mark.gpu
+def test_cuda_warm_pagerank_iteration_reads_nothing_back(cuda):
+    """One warm distributed PAGERANK iteration (a superstep and the vertex
+    stage) under ``set_sync_debug_mode("error")``: the segment sizes are
+    known at partition time, so nothing is read back to the host."""
+    g = generators.rmat(12, 16, seed=3)
+    sess = repro_torch.compile(sources.PAGERANK).bind(g, device=cuda, target=_dist_target(4))
+    sess.run(iters=2)
+    eng = sess.engine
+    pipe = next(k for k in eng.module.kernels if "__" in k)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.launch(pipe)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eng.stats.dist_supersteps >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", sorted(ALGORITHMS))
+def test_cuda_distributed_programs_match_cpu(cuda, algo):
+    """Every program on the distributed target at D = 4 on the card meets
+    the parity contract against the same target on the CPU; supersteps
+    and launches are equal."""
+    name, params = ALGORITHMS[algo]
+    g = generators.power_law(400, 3000, seed=5, weighted=True)
+    prog = repro_torch.compile(getattr(sources, name))
+    target = _dist_target(4)
+    got = prog.bind(g, device=cuda, target=target).run(**params)
+    want = prog.bind(g, device="cpu", target=target).run(**params)
+    for prop, a in want.properties.items():
+        b = got.properties[prop]
+        if algo in FLOAT_SUMS and a.dtype == np.float32:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6, err_msg=prop)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=prop)
+    assert got.host_env == want.host_env
+    assert got.stats.kernel_launches == want.stats.kernel_launches
+    assert got.stats.dist_supersteps == want.stats.dist_supersteps

@@ -298,14 +298,16 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_serve_cli_refuses_graph_and_a_missing_gpu(tmp_path, capsys):
-    # graph serving is ported: the local backend serves, the distributed
-    # backend (not ported) is refused
-    assert serve.main(["--graph", "bfs", "--device", "cpu", "--queries", "2",
-                       "--vertices", "200", "--edges", "1000",
-                       "--artifact-dir", str(tmp_path)]) == 0
-    assert "answered 2 queries" in capsys.readouterr().out
+    # graph serving: the local and the distributed backend serve, an
+    # unknown backend is refused
+    for backend in ("local", "distributed"):
+        assert serve.main(["--graph", "bfs", "--device", "cpu", "--queries", "2",
+                           "--vertices", "200", "--edges", "1000", "--backend", backend,
+                           "--artifact-dir", str(tmp_path)]) == 0
+        out = capsys.readouterr().out
+        assert "answered 2 queries" in out and f"{backend} backend" in out
     with pytest.raises(SystemExit):
-        serve.main(["--graph", "bfs", "--device", "cpu", "--backend", "distributed"])
+        serve.main(["--graph", "bfs", "--device", "cpu", "--backend", "mesh"])
     if not torch.cuda.is_available():
         with pytest.raises(Exception, match="no CUDA device"):
             serve.main(["--smoke"])

@@ -369,9 +369,19 @@ def test_submit_validates_params_on_caller(graph):
         NAMED_ALGORITHMS["not_an_algorithm_name"]
 
 
-def test_distributed_backend_is_not_ported():
-    with pytest.raises(ValueError, match="A6"):
-        repro_torch.serve(False, backend="distributed", device="cpu")
+def test_distributed_backend_is_not_ported(graph):
+    """The distributed backend serves: its registry keys on the distributed
+    Target and its answers are a local service's; an unknown backend is
+    refused when the service is made."""
+    with pytest.raises(ValueError, match="Target.kind"):
+        repro_torch.serve(False, backend="mesh", device="cpu")
+    with _serve(backend="distributed", workers=1) as svc:
+        assert svc.backend == "distributed"
+        got = svc.submit("bfs", graph, root=3).result(timeout=TIMEOUT)
+        assert [k[1].kind for k in svc.registry._residents] == ["distributed"]
+    want = compile_program(sources.BFS_ECP).bind(graph, device="cpu").run(root=3)
+    np.testing.assert_array_equal(_levels(got), _levels(want))
+    assert got.stats.dist_supersteps > 0
 
 
 def test_service_without_a_device_needs_a_gpu(graph):

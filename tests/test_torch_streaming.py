@@ -4,8 +4,8 @@
 ``analyze_incremental``, ``refresh_graph`` on every serving surface and
 ``StreamingSession`` (update, version-pinned cache, host repair, full runs,
 re-bucketing, the pool's concurrent queries), each case the port's twin of
-one in ``tests/test_streaming.py`` (the subprocess distributed case is
-ROADMAP slice A6 and has none). The port runs on the CPU, where its kernel
+one in ``tests/test_streaming.py`` (the subprocess distributed case has
+its twin in ``tests/test_torch_distributed.py``). The port runs on the CPU, where its kernel
 wrappers take their plain versions; graphs are made from numpy seeds by the
 reference's generators and carried across with ``graph_from_arrays``.
 
@@ -457,9 +457,27 @@ def test_same_version_cache_hit_and_repair_reuse():
 
 
 def test_non_local_backend_is_not_ported():
+    """``backend="distributed"`` streams on the distributed engine, its
+    repairs equal to the local session's; an unknown backend is refused."""
     _, prog = _programs("BFS_ECP")
-    with pytest.raises(ValueError, match="A6"):
-        StreamingSession(prog, _bucketed()[1], backend="distributed", device="cpu")
+    with pytest.raises(ValueError, match="unknown StreamingSession backend"):
+        StreamingSession(prog, _bucketed()[1], backend="mesh", device="cpu")
+    local = StreamingSession(prog, _bucketed()[1], device="cpu")
+    dist = StreamingSession(prog, _bucketed()[1], backend="distributed", device="cpu")
+    try:
+        assert dist.target.kind == "distributed" and dist.backend == "distributed"
+        delta = _deltas(np.random.default_rng(1), dist.graph, 8)[1]
+        for ss in (local, dist):
+            ss.run(root=3)
+            ss.update(delta)
+        got, want = dist.run(root=3), local.run(root=3)
+        assert dist.incremental_runs == local.incremental_runs == 1
+        for p in want.properties:
+            np.testing.assert_array_equal(got.properties[p], want.properties[p], err_msg=p)
+        assert got.host_env == want.host_env
+    finally:
+        local.close()
+        dist.close()
 
 
 # ---------------------------------------------------------------------------
