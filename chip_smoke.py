@@ -181,6 +181,27 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    tile route held to its plain version at that attention shape, the same
    bits on two calls, its share of the forward's device time beside the
    attention's bound.
+   Then (4g, ``{"phase": "lm_families", ...}`` lines) the attention
+   families beyond the dense and GQA-MoE ones, every model with random
+   weights from the seed and the LM counters set to 0 just before it and
+   read just after. First the tensor-core kernel at their widths, each row
+   held to its plain version and timed beside its bound and SDPA (same
+   scale): h2o-danube's windowed prefill (Dh 120), hubert's bidirectional
+   frames (Dh 80), deepseek-v2's MLA prefill ((Dqk, Dv) = (192, 128)) and
+   its absorbed decode over 32 and 4,096 latent slots ((576, 512), the
+   values a view of the keys). Then deepseek-v2 at full width, depth cut
+   to 2 (1 dense + 1 MoE layer), bf16: ``generate`` twice (the same
+   tokens), a forward over 1 x 2048 tokens, sm90 and MoE gather launches;
+   one MLA layer at full width in float32, its forward against 64
+   absorbed decode steps. h2o-danube-3 at its full config: ``generate``
+   twice in bf16; in float32, its depth cut to 4 layers, a teacher-forced
+   decode of 4,160 tokens into an 8,192-token cache (a 4,096-slot ring
+   that wraps) against one windowed forward, every step within ``2e-3 *
+   max(1, |logits|)``.
+   qwen2-vl at its full config on seeded patch embeddings: a bf16 forward
+   over [4, 2048, 1536]; in float32, 16 decode steps on embeddings against
+   the forward. hubert-xlarge at its full config: a bidirectional bf16
+   forward over [4, 1000, 1280] frame embeddings, twice, the same bits.
 6. The last line is ``{"ok": true, "device": {...}}``.
 
 """
@@ -242,6 +263,16 @@ DIST_SMALL_SCALE = 16  # phase 4f's streaming, serving and CLI graph: rmat(16, 1
 # are about 1/V (1.9e-6 at R19), so atol stays three decades below them
 DIST_RTOL, DIST_ATOL = 1e-5, 1e-9
 PADDED_SLOT_BYTES = 13  # the reference's [D, D, Emax] buckets: src, dst, weight, valid
+# phase 4g: the attention families beyond the dense and GQA-MoE ones
+DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-v2-236b", 2  # full width, 1 dense + 1 MoE layer
+H2O, QWEN2VL, HUBERT = "h2o-danube-3-4b", "qwen2-vl-2b", "hubert-xlarge"
+FAMILY_PREFILL = 2048  # tokens of deepseek-v2's forward, patches of qwen2-vl's
+HUBERT_FRAMES = 1000  # frames of hubert's forward (20 s of audio at 50 frames a second)
+MLA_CHECK_POSITIONS = 64  # positions of the f32 MLA layer's decode-vs-forward check
+WRAP_TOKENS, WRAP_CACHE = 4160, 8192  # h2o-danube's f32 ring run: 64 steps past the wrap
+# its depth, cut from 24: at 31 ms a step (the host's launches, ~1.2 ms a
+# layer) the full depth took 129 s of the phase's 150 on the H100
+WRAP_LAYERS = 4
 
 
 def log(obj) -> None:
@@ -1000,51 +1031,82 @@ def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((g - w).abs().amax(dim=-1) / rms).max())
 
 
-def attention_control(q, k, v, causal: bool, p_dtype=torch.bfloat16,
-                      tile_weight: float = 1.0) -> torch.Tensor:
-    """The tensor-core kernel's arithmetic in plain PyTorch, with a fault
-    to show what the row-relative check catches: float32 scores, max and
-    sum, P rounded to ``p_dtype`` before P.V (the kernel rounds it to bf16),
-    and the keys of CONTROL_KEYS counted ``tile_weight`` times (0: a key
-    tile skipped, 2: one taken twice); output in q's dtype."""
-    b, h, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
-    k, v = (t.float().repeat_interleave(h // hkv, dim=1) for t in (k, v))
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / math.sqrt(dh)
-    k_pos = torch.arange(lk, device=q.device)
+def visible_keys(lq: int, lk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """``[Lq, Lk]`` bool, True where query ``i`` (at position ``Lk - Lq +
+    i``) sees key ``j``: the kernels' and the plain version's mask."""
+    q_pos = torch.arange(lq, device=device)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=device)[None, :]
+    seen = torch.ones(lq, lk, dtype=torch.bool, device=device)
     if causal:
-        q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-        logits.masked_fill_(k_pos[None, :] > q_pos, float("-inf"))
+        seen &= k_pos <= q_pos
+    if window > 0:
+        seen &= k_pos > q_pos - window
+    return seen
+
+
+def control_keys(lk: int) -> tuple:
+    """The keys ``[lo, hi)`` a control drops or doubles: CONTROL_KEYS where
+    the keys reach past them, else ``min(64, Lk // 2)`` keys from the
+    middle on, ``lo`` a multiple of their count (1,000 frames: 448 to 512;
+    32 slots: 16 to 32)."""
+    if lk > CONTROL_KEYS[1]:
+        return CONTROL_KEYS
+    width = min(64, lk // 2)
+    lo = lk // 2 // width * width
+    return lo, lo + width
+
+
+def attention_control(q, k, v, causal: bool, window: int, scale: float, keys: tuple,
+                      p_dtype=torch.bfloat16, tile_weight: float = 1.0) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain PyTorch, with a fault
+    to show what the row-relative check catches: float32 scores times
+    ``scale`` under the causal and window masks, max and sum, P rounded to
+    ``p_dtype`` before P.V (the kernel rounds it to bf16), and the keys
+    ``[lo, hi) = keys`` counted ``tile_weight`` times (0: a key tile
+    skipped, 2: one taken twice); output in q's dtype. A kv head's query
+    heads are folded into its rows, so K and V are read once, not
+    repeated."""
+    b, h, lq, dqk = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, h // hkv, lq, dqk)
+    logits = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) * scale
+    del qg
+    logits.masked_fill_(~visible_keys(lq, lk, causal, window, q.device), float("-inf"))
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     del logits
-    lo, hi = CONTROL_KEYS
+    lo, hi = keys
     p[..., lo:hi] *= tile_weight
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(p_dtype).float(), v) / denom
-    return out.to(q.dtype)
+    out = torch.einsum("bngqk,bnkd->bngqd", p.to(p_dtype).float(), v.float()) / denom
+    return out.reshape(b, h, lq, v.shape[3]).to(q.dtype)
 
 
-def check_row_rel(name: str, got: torch.Tensor, q, k, v, causal: bool, ref) -> dict:
+def check_row_rel(name: str, got: torch.Tensor, q, k, v, causal: bool, ref, window: int = 0,
+                  scale: float = None) -> dict:
     """The bf16 kernel's output against the plain version in float32 on
-    the same inputs, by :func:`row_rel_err`, within ROW_REL_TOL; and three
-    controls, each of which must fall outside it, so that the check is
-    shown able to fail at this shape in this run."""
-    assert q.shape[2] > CONTROL_KEYS[1] and k.shape[2] > CONTROL_KEYS[1], name
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal)
+    the same inputs (same mask and scale), by :func:`row_rel_err`, within
+    ROW_REL_TOL; and three controls over the keys of :func:`control_keys`,
+    each of which must fall outside it, so that the check is shown able to
+    fail at this shape in this run."""
+    lq, lk = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+    keys = control_keys(lk)
+    assert bool(visible_keys(lq, lk, causal, window, q.device)[:, keys[0]:keys[1]].any()), \
+        f"{name}: no query sees the control keys {keys}"
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal, window, scale)
     err = row_rel_err(got, want)
+    args = (q, k, v, causal, window, scale, keys)
     controls = {
-        "p_fp8_e4m3": row_rel_err(attention_control(q, k, v, causal, torch.float8_e4m3fn), want),
-        "key_tile_dropped": row_rel_err(attention_control(q, k, v, causal, tile_weight=0.0),
-                                        want),
-        "key_tile_doubled": row_rel_err(attention_control(q, k, v, causal, tile_weight=2.0),
-                                        want),
+        "p_fp8_e4m3": row_rel_err(attention_control(*args, torch.float8_e4m3fn), want),
+        "key_tile_dropped": row_rel_err(attention_control(*args, tile_weight=0.0), want),
+        "key_tile_doubled": row_rel_err(attention_control(*args, tile_weight=2.0), want),
     }
     del want
     caught = {c: r > ROW_REL_TOL for c, r in controls.items()}
     assert all(caught.values()), f"{name}: a control passes the row-relative check: {controls}"
     assert err <= ROW_REL_TOL, f"{name}: row-relative error {err} outside {ROW_REL_TOL}"
     return {"row_rel_err": err, "row_rel_tol": ROW_REL_TOL, "controls": controls,
-            "control_keys": list(CONTROL_KEYS)}
+            "control_keys": list(keys)}
 
 
 def took_route(fa, before) -> str:
@@ -1109,62 +1171,90 @@ def lm_kernel_tests(fa, md, ref, dev: str) -> dict:
 
 
 def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
-                   device_side: bool = False) -> dict:
+                   device_side: bool = False, window: int = 0, scale: float = None) -> dict:
     """Kernel vs plain at one shape, timed beside the library call that
-    computes the same function (SDPA with GQA; at Lq = 1 over the whole
-    cache every key is visible, so it is called without a causal mask,
-    whose alignment differs). ``pairs`` is the unmasked (query, key)
-    pairs of each head: 4 * Dh FLOPs each (two products), bounded at the
-    peak rate of the dtype (bf16 tensor cores, float32 CUDA cores).
-    ``device_side`` adds the device time of kernel and library call from
-    profiler events (the host-paced loop times the wrapper's Python at
-    decode size), and on the float32 decode route that of the tile route
-    on the same inputs."""
+    computes the same function: SDPA with GQA and the same scale, with no
+    mask where every key is visible (Lq = 1 over the whole cache), its
+    causal mask where that is ours (Lq = Lk and no window hides a key), else
+    our mask as a boolean ``attn_mask`` built outside the timed call (a
+    sliding window that hides keys). Every bf16 row also takes
+    :func:`check_row_rel` with its fault controls. ``pairs`` is the
+    unmasked (query, key) pairs of each head: 2 * (Dqk + Dv) FLOPs each
+    (two products), bounded at the peak rate of the dtype (bf16 tensor
+    cores, float32 CUDA cores); the bytes read each input once (values that
+    are a view of the keys, MLA's latent, are the keys' bytes) and write
+    the output once. ``device_side`` adds the device time of kernel and
+    library call from profiler events (the host-paced loop times the
+    wrapper's Python at decode size), and on the float32 decode route that
+    of the tile route on the same inputs."""
     b, h, lq, dh = q.shape
+    lk, dv = k.shape[2], v.shape[3]
     route = fa._route(q, h // k.shape[1])
+
+    def kernel():
+        return fa.flash_attention(q, k, v, causal, window, scale)
+
     before = fa_counters(fa)
-    got = fa.flash_attention(q, k, v, causal)
+    got = kernel()
     assert took_route(fa, before) == route, route
-    err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)} {q.dtype}",
-                      got, ref.flash_attention_ref(q, k, v, causal))
+    err = check_close(f"flash_attention {tuple(q.shape)} over {tuple(k.shape)}, "
+                      f"{tuple(v.shape)} {q.dtype}",
+                      got, ref.flash_attention_ref(q, k, v, causal, window, scale))
     rel = None
-    if q.dtype == torch.bfloat16 and lq > CONTROL_KEYS[1]:
-        rel = check_row_rel(f"flash_attention_sm90 {tuple(q.shape)}", got, q, k, v, causal, ref)
-    lib_causal = causal and lq > 1
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=lib_causal, enable_gqa=True)
+    if q.dtype == torch.bfloat16:
+        rel = check_row_rel(f"flash_attention_sm90 {tuple(q.shape)}", got, q, k, v, causal, ref,
+                            window, scale)
+    seen = visible_keys(lq, lk, causal, window, q.device)
+    if bool(seen.all()):
+        lib_mask = {}
+    elif lq == lk and torch.equal(seen, torch.ones_like(seen).tril()):
+        lib_mask = {"is_causal": True}
+    else:
+        lib_mask = {"attn_mask": seen}
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, scale=scale, **lib_mask)
+
+    lib = library()
     lib_diff = float((lib.float() - got.float()).abs().max())
     if q.dtype == torch.bfloat16:
         check_close("scaled_dot_product_attention", lib, got)
-    n_bytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
+    del lib
+    shared = v.untyped_storage().data_ptr() == k.untyped_storage().data_ptr()
+    n_bytes = ((q.numel() + got.numel()) * q.element_size()
+               + (k.numel() + (0 if shared else v.numel())) * k.element_size())
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * dh, rate)
+    b_ms, b_by = bound(n_bytes, 2 * b * h * pairs * (dh + dv), rate)
     row = {
         "route": route,
-        "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, causal)),
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
+        "kernel_ms": time_ms(kernel),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal, window, scale),
                             iters=plain_iters, warmup=1),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=lib_causal, enable_gqa=True)),
-        "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True)",
+        "library_ms": time_ms(library),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True"
+                        + "".join(f", {key}=" + ("True" if key == "is_causal" else "window mask")
+                                  for key in lib_mask) + ")",
         "library_max_abs_diff": lib_diff,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "shape": {"q": list(q.shape), "kv": list(k.shape), "q_strides": list(q.stride()),
-                  "kv_strides": list(k.stride()), "dtype": str(q.dtype), "causal": causal},
+        "shape": {"q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
+                  "q_strides": list(q.stride()), "k_strides": list(k.stride()),
+                  "v_strides": list(v.stride()), "values_view_keys": shared,
+                  "dtype": str(q.dtype), "causal": causal, "window": window,
+                  "scale": scale if scale is not None else 1.0 / math.sqrt(dh)},
     }
     if rel is not None:
         row["row_rel_check"] = rel
     if route == "decode":
-        r, tiles, n, chunk = fa.decode_plan(b, k.shape[1], h // k.shape[1] * lq, k.shape[2], dh,
-                                            fa._sm_count(0))
+        r, tiles, n, chunk = fa.decode_plan(b, k.shape[1], h // k.shape[1] * lq, k.shape[2],
+                                            fa.kernel_widths(route, dh, dv)[0], fa._sm_count(0))
         row["decode"] = {"row_tile": r, "row_tiles": tiles, "splits": n, "chunk": chunk,
                          "blocks": b * k.shape[1] * tiles * n,
                          "kernels_per_call": 1 if n == 1 else 2}
     row["bound_share"] = b_ms / row["kernel_ms"]
     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
     if device_side:
-        kd = device_ms(lambda: fa.flash_attention(q, k, v, causal))
-        ld = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=lib_causal, enable_gqa=True))
+        kd = device_ms(kernel)
+        ld = device_ms(library)
         row.update({"kernel_device_ms": kd["ms"], "kernel_device_kernels": kd["kernels"],
                     "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"],
                     "device_bound_share": b_ms / kd["ms"],
@@ -1272,8 +1362,8 @@ def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
 
 def decode_resources(ptxas: list, dh: int, rows: int) -> dict:
     """``ptxas`` registers and spills of the float32 decode route's kernels
-    at head dim ``dh`` and row tile ``rows`` (the decode kernel's template
-    arguments) and of its combine."""
+    at widths ``dh`` (keys and values) and row tile ``rows`` (the decode
+    kernel's template arguments) and of its combine."""
     if not ptxas:  # a cached build prints no ptxas log
         return {"registers": "not measured: the build was cached"}
 
@@ -1288,7 +1378,7 @@ def decode_resources(ptxas: list, dh: int, rows: int) -> dict:
                 if "registers" in r else None}
 
     return {"decode_kernel": pick(lambda e: "flash_decode_kernel" in e
-                                  and f"ILi{dh}ELi{rows}EE" in e),
+                                  and f"ILi{dh}ELi{dh}ELi{rows}EE" in e),
             "combine_kernel": pick(lambda e: "flash_decode_combine_kernel" in e)}
 
 
@@ -1302,8 +1392,9 @@ def split_rescale_control(fa, ref, q, k, v) -> dict:
     able to fail at this shape in this run."""
     b, h, lq, dh = q.shape
     hkv, lk = k.shape[1], k.shape[2]
-    _, _, n, chunk = fa.decode_plan(b, hkv, h // hkv * lq, lk, dh, fa._sm_count(0))
-    _, teams, unit = fa.decode_layout(dh)
+    dk = fa.kernel_widths("decode", dh, v.shape[3])[0]
+    _, _, n, chunk = fa.decode_plan(b, hkv, h // hkv * lq, lk, dk, fa._sm_count(0))
+    _, teams, unit = fa.decode_layout(dk)
     assert n > 1, "the control needs a shape the wrapper cuts into splits"
     want = ref.flash_attention_ref(q, k, v, True)
     tol = FA_TOL[torch.float32]
@@ -1320,34 +1411,38 @@ def split_rescale_control(fa, ref, q, k, v) -> dict:
 
 def tile_resources(ptxas: list, fa) -> list:
     """``ptxas`` registers and spills of every instantiation of the float32
-    tile route (head dim, large or small tile), with the dynamic shared
-    memory its launch asks for (the wrapper's count, which a CPU test holds
-    to the source's ``Tile`` constants). A spill at Dh <= 128 fails the
-    run."""
+    tile route (widths DK and DV, large or small tile), with the dynamic
+    shared memory its launch asks for (the wrapper's count, which a CPU
+    test holds to the source's ``Tile`` constants). A spill where both
+    widths are at most 128 fails the run."""
     rows = [r for r in ptxas if "flash_attention_kernel" in r["entry"]]
     if not rows:  # a cached build prints no ptxas log
         return [{"registers": "not measured: the build was cached"}]
     out = []
     for r in rows:
-        small = re.search(r"Lb([01])E", r["entry"]).group(1) == "1"
-        bm, bn = fa.tile_shape(r["dh"], small)
-        smem = fa.tile_smem_bytes(r["dh"], small)
+        dqk, dv, small = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", r["entry"]).groups()
+        dqk, dv, small = int(dqk), int(dv), small == "1"
+        bm, bn = fa.tile_shape(dqk, small)
+        smem = fa.tile_smem_bytes(dqk, small, dv)
         spills = r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
-        assert r["dh"] > 128 or spills == 0, f"tile route spills at Dh {r['dh']}: {r}"
-        out.append({"dh": r["dh"], "row_tile": bm, "key_tile": bn, "registers": r.get("registers"),
+        assert max(dqk, dv) > 128 or spills == 0, f"tile route spills at {dqk, dv}: {r}"
+        out.append({"dh": dqk, "dv": dv, "row_tile": bm, "key_tile": bn,
+                    "registers": r.get("registers"),
                     "spill_store_bytes": r.get("spill_store_bytes"),
                     "spill_load_bytes": r.get("spill_load_bytes"), "dynamic_smem_bytes": smem})
-    return sorted(out, key=lambda x: (x["dh"], -x["row_tile"]))
+    return sorted(out, key=lambda x: (x["dh"], x["dv"], -x["row_tile"]))
 
 
 def tile_facts(fa, q, k) -> dict:
-    """The tile route's plan for q over k: rows a block holds, keys a tile,
-    tiles a kv head, blocks, and the block's shared memory."""
+    """The tile route's plan for q over k (values as wide as the keys):
+    rows a block holds, keys a tile, tiles a kv head, blocks, and the
+    block's shared memory."""
     b, h, lq, dh = q.shape
     hkv = k.shape[1]
-    bm, bn, tiles = fa.tile_plan(b, hkv, h // hkv * lq, dh, fa._sm_count(0))
+    dk, dv = fa.kernel_widths("cuda_core", dh, dh)
+    bm, bn, tiles = fa.tile_plan(b, hkv, h // hkv * lq, dk, fa._sm_count(0))
     return {"row_tile": bm, "key_tile": bn, "tiles": tiles, "blocks": b * hkv * tiles,
-            "smem_bytes": fa.tile_smem_bytes(dh, (bm, bn) != fa.tile_shape(dh, False))}
+            "smem_bytes": fa.tile_smem_bytes(dk, (bm, bn) != fa.tile_shape(dk, False), dv)}
 
 
 def tile_rescale_control(fa, ref, q, k, v) -> dict:
@@ -1451,6 +1546,21 @@ def route_sweep(fa, ref, dev: str) -> list:
     return out
 
 
+def _reset_lm_counters(fa, md) -> None:
+    """Set the LM kernels' launch counters to 0."""
+    fa.LAUNCHES = 0
+    fa.SM90_LAUNCHES = 0
+    fa.DECODE_LAUNCHES = 0
+    md.LAUNCHES = 0
+
+
+def _lm_counters(fa, md) -> dict:
+    """The LM kernels' launches since :func:`_reset_lm_counters`, by route."""
+    return {"flash_attention_sm90": fa.SM90_LAUNCHES,
+            "flash_attention_tile": fa.LAUNCHES - fa.SM90_LAUNCHES - fa.DECODE_LAUNCHES,
+            "flash_attention_decode": fa.DECODE_LAUNCHES, "moe_gather": md.LAUNCHES}
+
+
 def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     """Kimi-K2 at full width, depth cut to 2 layers, bf16: ``generate``
     twice (batch 4, prompt 16, generate 16) plus one ``forward`` over the
@@ -1467,10 +1577,7 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     prompts = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
 
-    fa.LAUNCHES = 0
-    fa.SM90_LAUNCHES = 0
-    fa.DECODE_LAUNCHES = 0
-    md.LAUNCHES = 0
+    _reset_lm_counters(fa, md)
     step_s: list = []
     t0 = time.perf_counter()
     first = serve.generate(model, prompts, LM_GEN, step_s=step_s).cpu()
@@ -1482,9 +1589,7 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     step_logits, _ = model.decode_step(model.init_cache(LM_BATCH, 1), prompts[:, :1])
     decode_aux = dict(model.last_aux)
     torch.cuda.synchronize()
-    launches = {"flash_attention_sm90": fa.SM90_LAUNCHES,
-                "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES,
-                "flash_attention_decode": fa.DECODE_LAUNCHES, "moe_gather": md.LAUNCHES}
+    launches = _lm_counters(fa, md)
 
     assert torch.equal(first, second), "Kimi-K2: two generate runs gave different tokens"
     assert first.shape == (LM_BATCH, LM_GEN)
@@ -1494,7 +1599,7 @@ def lm_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         "Kimi-K2: non-finite logits"
     assert launches["flash_attention_sm90"] > 0, \
         "the tensor-core flash kernel never launched on the bf16 LM path"
-    assert launches["flash_attention"] == launches["flash_attention_decode"] == 0, \
+    assert launches["flash_attention_tile"] == launches["flash_attention_decode"] == 0, \
         "a bf16 attention took the CUDA-core kernel"
     assert launches["moe_gather"] > 0, "moe_gather never launched on the LM path"
     embed_bytes = model.embed.numel() * model.embed.element_size()
@@ -1549,9 +1654,7 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
     model.init(torch.Generator(device=dev).manual_seed(seed))
     rng = np.random.default_rng(seed + 1)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
-    fa.LAUNCHES = 0
-    fa.SM90_LAUNCHES = 0
-    fa.DECODE_LAUNCHES = 0
+    _reset_lm_counters(fa, md)
     step_s: list = []
     serve.generate(model, prompts, LM_GEN, step_s=step_s)
     t0 = time.perf_counter()
@@ -1568,10 +1671,7 @@ def qwen_phase(repro_torch_mods, dev: str, seed: int) -> dict:
         assert err < DECODE_RTOL * scale, f"{QWEN} t={t}: decode vs forward {err} (scale {scale})"
         worst = max(worst, err / scale)
     assert torch.isfinite(full).all()
-    launches = {"flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES,
-                "flash_attention_decode": fa.DECODE_LAUNCHES,
-                "flash_attention_tile": fa.LAUNCHES - fa.SM90_LAUNCHES - fa.DECODE_LAUNCHES,
-                "flash_attention_sm90": fa.SM90_LAUNCHES}
+    launches = _lm_counters(fa, md)
     # one query a step: two generate runs (prompt + generated steps) and the
     # decode_step loop take the decode route; the one 16-token forward the tile route
     steps = 2 * (LM_PROMPT + LM_GEN) + LM_PROMPT
@@ -1629,15 +1729,12 @@ def qwen_prefill_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
     model.init(torch.Generator(device=dev).manual_seed(seed))
     tokens = torch.from_numpy(np.random.default_rng(seed + 2).integers(
         0, cfg.vocab_size, (LM_BATCH, PREFILL_LEN))).to(dev)
-    fa.LAUNCHES = 0
-    fa.SM90_LAUNCHES = 0
-    fa.DECODE_LAUNCHES = 0
+    _reset_lm_counters(fa, md)
     logits, _ = model.forward(tokens)
     torch.cuda.synchronize()
-    launches = {"flash_attention_sm90": fa.SM90_LAUNCHES,
-                "flash_attention": fa.LAUNCHES - fa.SM90_LAUNCHES}
-    assert launches == {"flash_attention_sm90": cfg.n_layers, "flash_attention": 0}, launches
-    assert fa.DECODE_LAUNCHES == 0
+    launches = _lm_counters(fa, md)
+    assert launches == {"flash_attention_sm90": cfg.n_layers, "flash_attention_tile": 0,
+                        "flash_attention_decode": 0, "moe_gather": 0}, launches
     assert logits.shape == (LM_BATCH, PREFILL_LEN, cfg.vocab_size)
     assert torch.isfinite(logits).all(), f"{QWEN} bf16 forward: non-finite logits"
     del logits
@@ -1701,16 +1798,12 @@ def qwen_prefill_f32_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
     model.init(torch.Generator(device=dev).manual_seed(seed))
     tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
         0, cfg.vocab_size, (LM_BATCH, PREFILL_LEN))).to(dev)
-    fa.LAUNCHES = 0
-    fa.SM90_LAUNCHES = 0
-    fa.DECODE_LAUNCHES = 0
+    _reset_lm_counters(fa, md)
     logits, _ = model.forward(tokens)
     torch.cuda.synchronize()
-    launches = {"flash_attention_tile": fa.LAUNCHES - fa.SM90_LAUNCHES - fa.DECODE_LAUNCHES,
-                "flash_attention_decode": fa.DECODE_LAUNCHES,
-                "flash_attention_sm90": fa.SM90_LAUNCHES}
+    launches = _lm_counters(fa, md)
     assert launches == {"flash_attention_tile": cfg.n_layers, "flash_attention_decode": 0,
-                        "flash_attention_sm90": 0}, launches
+                        "flash_attention_sm90": 0, "moe_gather": 0}, launches
     assert logits.shape == (LM_BATCH, PREFILL_LEN, cfg.vocab_size)
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all(), \
         f"{QWEN} f32 forward: non-finite logits"
@@ -1738,6 +1831,342 @@ def qwen_prefill_f32_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
     }
     del model
     return row
+
+
+# -- phase 4g: the attention families beyond the dense and GQA-MoE ones -----
+
+
+def family_kernel_rows(fa, ref, dev: str, seed: int) -> dict:
+    """The tensor-core kernel at the new families' widths, bf16, each held
+    to its plain version and timed beside it, its bound and SDPA (same
+    scale): h2o-danube's prefill ([1, 32, 4096, 120] over 8 kv heads,
+    window 4096, which hides no key at 4,096 tokens, so SDPA's causal mask
+    is the same function), hubert's bidirectional frames ([4, 16, 1000,
+    80]), deepseek-v2's MLA prefill ([1, 128, 2048] at (Dqk, Dv) = (192,
+    128), scale 1/sqrt(192)) and its absorbed decode (128 heads, one query,
+    over one latent kv head of 32 and 4,096 slots at (576, 512), the values
+    a view of the keys' first 512 columns; device times from profiler
+    events). Then the float32 routes at the shapes phase 4g runs them:
+    h2o-danube's ring forward on the tile route ([1, 32, 4160, 120], its
+    window of 4,096 hiding keys: SDPA takes it as a mask) and its decode step
+    over the full ring ([1, 32, 1, 120] over 4,096 slots), MLA's layer
+    forward ([1, 128, 64] at (192, 128)) and its absorbed decode step over
+    64 latent slots, each with its route read from the counters."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    mla_scale = 1.0 / math.sqrt(192)
+    rows = {}
+    s = 4096
+    rows["flash_attention_sm90_h2o_prefill"] = _attention_row(
+        fa, ref, rnd(1, 32, s, 120), rnd(1, 8, s, 120), rnd(1, 8, s, 120), True,
+        s * (s + 1) // 2, 3, window=4096)
+    s = HUBERT_FRAMES
+    rows["flash_attention_sm90_hubert"] = _attention_row(
+        fa, ref, rnd(4, 16, s, 80), rnd(4, 16, s, 80), rnd(4, 16, s, 80), False, s * s, 3)
+    s = FAMILY_PREFILL
+    rows["flash_attention_sm90_mla_prefill"] = _attention_row(
+        fa, ref, rnd(1, 128, s, 192), rnd(1, 128, s, 192), rnd(1, 128, s, 128), True,
+        s * (s + 1) // 2, 3, scale=mla_scale)
+    for n in (LM_PROMPT + LM_GEN, LONG_CACHE):
+        keys = rnd(LM_BATCH, n, 576)[:, None]  # the latent [B, 1, n, 576]
+        row = _attention_row(fa, ref, rnd(LM_BATCH, 128, 1, 576), keys, keys[..., :512], True,
+                             n, 20, device_side=True, scale=mla_scale)
+        assert row["shape"]["values_view_keys"]
+        rows[f"flash_attention_sm90_mla_decode_{n}"] = row
+        del keys
+
+    def rnd32(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    s = WRAP_TOKENS
+    row = _attention_row(fa, ref, rnd32(1, 32, s, 120), rnd32(1, 8, s, 120), rnd32(1, 8, s, 120),
+                         True, sum(min(p + 1, 4096) for p in range(s)), 2, device_side=True,
+                         window=4096)
+    assert row["route"] == "cuda_core", row["route"]
+    rows["flash_attention_tile_h2o_ring_forward"] = row
+    # the ring's K and V, [B, buf, Hkv, Dh] each, read in place
+    ck, cv = (rnd32(1, 4096, 8, 120).transpose(1, 2) for _ in range(2))
+    row = _attention_row(fa, ref, rnd32(1, 1, 32, 120).transpose(1, 2), ck, cv, True, 4096, 20,
+                         device_side=True)
+    assert row["route"] == "decode", row["route"]
+    rows["flash_attention_decode_h2o_ring"] = row
+    n = MLA_CHECK_POSITIONS
+    row = _attention_row(fa, ref, rnd32(1, 128, n, 192), rnd32(1, 128, n, 192),
+                         rnd32(1, 128, n, 128), True, n * (n + 1) // 2, 20, device_side=True,
+                         scale=mla_scale)
+    assert row["route"] == "cuda_core", row["route"]
+    rows["flash_attention_tile_mla_forward"] = row
+    keys = rnd32(1, n, 576)[:, None]
+    row = _attention_row(fa, ref, rnd32(1, 128, 1, 576), keys, keys[..., :512], True, n, 20,
+                         device_side=True, scale=mla_scale)
+    assert row["route"] == "decode", row["route"]
+    rows["flash_attention_decode_mla"] = row
+    return rows
+
+
+def _init_params(params, gen) -> None:
+    """Draw a parameter dict as ``Model.init`` draws its weights."""
+    from repro_torch.models.layers import init_normal_
+
+    for p in params.values():
+        if p.init_scale is not None:
+            init_normal_(p, p.init_scale, gen)
+
+
+def _relative_errors(got, want) -> torch.Tensor:
+    """max |got - want| / max(1, max |want|) over the last dim, for each
+    row, on the device (no synchronise)."""
+    return (got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1).clamp_min(1.0)
+
+
+def deepseek_phase(mods, dev: str, seed: int, smi: str) -> dict:
+    """deepseek-v2-236b at full width, depth cut to 2 (1 dense + 1 MoE
+    layer, as the Kimi phase cuts), bf16: ``generate`` twice (batch 4,
+    prompt 16, generate 16), the same tokens and finite logits, one
+    forward over 1 x 2048 tokens; the sm90 kernel and the MoE gather both
+    launched. Then one MLA layer at full width in float32: ``mla_forward``
+    (the tile route at (192, 128)) against 64 absorbed ``mla_decode`` steps
+    (the decode route at (576, 512), 128 heads over one latent kv head)
+    within DECODE_RTOL x max(1, |out|)."""
+    from repro_torch.models import attention as attn_mod
+
+    fa, md, get_config, Model, serve = mods
+    full = get_config(DEEPSEEK)
+    cfg = full.scaled(n_layers=DEEPSEEK_LAYERS)
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed + 5)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, FAMILY_PREFILL))).to(dev)
+    _reset_lm_counters(fa, md)
+    step_s: list = []
+    first = serve.generate(model, prompts, LM_GEN, step_s=step_s).cpu()
+    second = serve.generate(model, prompts, LM_GEN).cpu()
+    logits, aux = model.forward(tokens)
+    finite = bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    launches = _lm_counters(fa, md)
+    assert torch.equal(first, second), f"{DEEPSEEK}: two generate runs gave different tokens"
+    assert first.shape == (LM_BATCH, LM_GEN) and finite, f"{DEEPSEEK}: tokens or logits"
+    assert launches["flash_attention_sm90"] > 0 and launches["moe_gather"] > 0, launches
+    assert launches["flash_attention_tile"] == launches["flash_attention_decode"] == 0, launches
+    row = {"phase": "lm_families", "model": DEEPSEEK, "dtype": "bfloat16", "card": smi,
+           "config": {key: getattr(cfg, key) for key in (
+               "d_model", "n_layers", "first_dense_layers", "n_heads", "kv_lora_rank",
+               "q_lora_rank", "rope_head_dim", "v_head_dim", "n_experts", "top_k",
+               "vocab_size")},
+           "reduced": {"n_layers": [full.n_layers, DEEPSEEK_LAYERS]},
+           "param_bytes": model.param_bytes(), "tokens_identical": True,
+           "tokens": first[:2].tolist(), "median_step_ms": statistics.median(step_s) * 1e3,
+           "forward_tokens": FAMILY_PREFILL, "forward_drop_fraction": float(aux["drop_fraction"]),
+           "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    p = attn_mod.mla_init(full, torch.float32, dev)
+    _init_params(p, gen)
+    n = MLA_CHECK_POSITIONS
+    x = torch.randn(1, n, full.d_model, generator=gen, device=dev)
+    _reset_lm_counters(fa, md)
+    out = attn_mod.mla_forward(p, full, x, torch.arange(n, device=dev)[None])
+    cache = attn_mod.mla_init_cache(full, 1, n, torch.float32, dev)
+    steps = torch.cat([attn_mod.mla_decode(p, full, cache, x[:, t:t + 1], t)[0]
+                       for t in range(n)], dim=1)
+    worst = float(_relative_errors(steps, out).max())
+    mla = _lm_counters(fa, md)
+    assert worst <= DECODE_RTOL, f"{DEEPSEEK} MLA layer: decode vs forward {worst}"
+    assert mla["flash_attention_tile"] == 1 and mla["flash_attention_decode"] == n, mla
+    row["mla_layer_f32"] = {"positions": n, "max_err_over_scale": worst, "rtol": DECODE_RTOL,
+                            "launches": mla, "out_scale": float(out.abs().max())}
+    row["seconds"] = time.perf_counter() - t_model
+    del p, cache, out, steps
+    return row
+
+
+def h2o_phase(mods, dev: str, seed: int, smi: str) -> dict:
+    """h2o-danube-3-4b at its full config: ``generate`` twice in bf16 (the
+    same tokens, finite logits, sm90 launches); then the ring wrap in
+    float32, batch 1, at WRAP_LAYERS layers: a teacher-forced decode of
+    WRAP_TOKENS tokens into
+    ``init_cache(1, WRAP_CACHE)`` (a ring of 4,096 slots that wraps at step
+    4,096; the decode route at Dh 120) against one forward over the same
+    tokens (the tile route, whose window of 4,096 hides keys past it):
+    every step's logits within DECODE_RTOL x max(1, |logits|), the last 64
+    past the wrap among them."""
+    fa, md, get_config, Model, serve = mods
+    cfg = get_config(H2O)
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed + 8)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    _reset_lm_counters(fa, md)
+    step_s: list = []
+    first = serve.generate(model, prompts, LM_GEN, step_s=step_s).cpu()
+    second = serve.generate(model, prompts, LM_GEN).cpu()
+    torch.cuda.synchronize()
+    launches = _lm_counters(fa, md)
+    assert torch.equal(first, second), f"{H2O}: two generate runs gave different tokens"
+    assert launches["flash_attention_sm90"] == 2 * (LM_PROMPT + LM_GEN) * cfg.n_layers, launches
+    row = {"phase": "lm_families", "model": H2O, "dtype": "bfloat16", "card": smi,
+           "config": {key: getattr(cfg, key) for key in (
+               "d_model", "n_layers", "n_heads", "n_kv_heads", "head_dim", "sliding_window",
+               "d_ff", "vocab_size")},
+           "reduced": {}, "param_bytes": model.param_bytes(), "tokens_identical": True,
+           "tokens": first[:2].tolist(), "median_step_ms": statistics.median(step_s) * 1e3,
+           "launches": launches}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wrap_cfg = cfg.scaled(n_layers=WRAP_LAYERS)
+    model = Model(wrap_cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, WRAP_TOKENS))).to(dev)
+    _reset_lm_counters(fa, md)
+    t0 = time.perf_counter()
+    full, _ = model.forward(toks)
+    cache = model.init_cache(1, WRAP_CACHE)
+    ring = cache["kv"][0]["k"].shape[1]
+    errs = torch.empty(WRAP_TOKENS, device=dev)
+    for t in range(WRAP_TOKENS):
+        step, cache = model.decode_step(cache, toks[:, t:t + 1])
+        errs[t] = _relative_errors(step[0], full[0, t:t + 1]).max()
+    errs = errs.cpu()
+    wrap_s = time.perf_counter() - t0
+    wrap = _lm_counters(fa, md)
+    assert ring == cfg.sliding_window < WRAP_TOKENS, ring
+    worst_tail, worst = float(errs[-64:].max()), float(errs.max())
+    assert worst <= DECODE_RTOL, f"{H2O} ring: decode vs forward {worst} at step " \
+                                 f"{int(errs.argmax())}"
+    assert wrap["flash_attention_tile"] == wrap_cfg.n_layers, wrap
+    assert wrap["flash_attention_decode"] == WRAP_TOKENS * wrap_cfg.n_layers, wrap
+    row["ring_wrap_f32"] = {
+        "tokens": WRAP_TOKENS, "cache_len": WRAP_CACHE, "ring_slots": ring,
+        "steps_past_wrap": WRAP_TOKENS - ring, "max_err_over_scale_last_64": worst_tail,
+        "max_err_over_scale": worst, "rtol": DECODE_RTOL, "seconds": wrap_s,
+        "reduced": ({"n_layers": [cfg.n_layers, WRAP_LAYERS]} if WRAP_LAYERS != cfg.n_layers
+                    else {}),
+        "launches": wrap, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    row["seconds"] = time.perf_counter() - t_model
+    del model, full, cache
+    return row
+
+
+def qwen2vl_phase(mods, dev: str, seed: int, smi: str) -> dict:
+    """qwen2-vl-2b at its full config, from seeded patch embeddings: a bf16
+    forward over [4, 2048, 1536] (finite, one sm90 launch a layer); then in
+    float32, 16 teacher-forced ``decode_step``s on embeddings against an f32
+    forward's first 16 positions, within DECODE_RTOL x max(1, |logits|)."""
+    fa, md, get_config, Model, serve = mods
+    cfg = get_config(QWEN2VL)
+    t_model = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    embeds = torch.randn(LM_BATCH, FAMILY_PREFILL, cfg.d_model, generator=gen,
+                         device=dev).bfloat16()
+    _reset_lm_counters(fa, md)
+    logits, _ = model.forward(embeds=embeds)
+    finite = bool(torch.isfinite(logits).all())
+    launches = _lm_counters(fa, md)
+    assert finite and logits.shape == (LM_BATCH, FAMILY_PREFILL, cfg.vocab_size)
+    assert launches["flash_attention_sm90"] == cfg.n_layers, launches
+    row = {"phase": "lm_families", "model": QWEN2VL, "dtype": "bfloat16", "card": smi,
+           "config": {key: getattr(cfg, key) for key in (
+               "d_model", "n_layers", "n_heads", "n_kv_heads", "head_dim", "mrope", "frontend",
+               "vocab_size")},
+           "reduced": {}, "param_bytes": model.param_bytes(),
+           "forward_embeds": [LM_BATCH, FAMILY_PREFILL, cfg.d_model], "launches": launches}
+    del model, logits, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    embeds = torch.randn(2, LM_PROMPT, cfg.d_model, generator=gen, device=dev)
+    _reset_lm_counters(fa, md)
+    full, _ = model.forward(embeds=embeds)
+    cache = model.init_cache(2, LM_PROMPT)
+    steps = []
+    for t in range(LM_PROMPT):
+        step, cache = model.decode_step(cache, embeds[:, t:t + 1])
+        steps.append(step)
+    worst = float(_relative_errors(torch.cat(steps, dim=1), full).max())
+    f32 = _lm_counters(fa, md)
+    assert worst <= DECODE_RTOL, f"{QWEN2VL}: decode vs forward {worst}"
+    assert f32["flash_attention_decode"] == LM_PROMPT * cfg.n_layers, f32
+    row["decode_vs_forward_f32"] = {"positions": LM_PROMPT, "max_err_over_scale": worst,
+                                    "rtol": DECODE_RTOL, "launches": f32}
+    row["seconds"] = time.perf_counter() - t_model
+    del model, full, cache
+    return row
+
+
+def hubert_phase(mods, dev: str, seed: int, smi: str) -> dict:
+    """hubert-xlarge at its full config, bf16: a bidirectional forward over
+    seeded frame embeddings [4, 1000, 1280], twice, with equal bits and
+    finite logits (one sm90 launch a layer a forward)."""
+    fa, md, get_config, Model, serve = mods
+    cfg = get_config(HUBERT)
+    t_model = time.perf_counter()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    frames = torch.randn(LM_BATCH, HUBERT_FRAMES, cfg.d_model,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 10),
+                         device=dev).bfloat16()
+    _reset_lm_counters(fa, md)
+    a, _ = model.forward(embeds=frames)
+    b, _ = model.forward(embeds=frames)
+    launches = _lm_counters(fa, md)
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all()), f"{HUBERT}: forward"
+    assert launches["flash_attention_sm90"] == 2 * cfg.n_layers, launches
+    row = {"phase": "lm_families", "model": HUBERT, "dtype": "bfloat16", "card": smi,
+           "config": {key: getattr(cfg, key) for key in (
+               "d_model", "n_layers", "n_heads", "head_dim", "causal", "has_decoder",
+               "frontend", "vocab_size")},
+           "reduced": {}, "param_bytes": model.param_bytes(),
+           "forward_embeds": [LM_BATCH, HUBERT_FRAMES, cfg.d_model], "same_bits_twice": True,
+           "launches": launches, "seconds": time.perf_counter() - t_model}
+    del model, a, b
+    return row
+
+
+def lm_families_phase(mods, ref, dev: str, seed: int, smi: str) -> tuple:
+    """Phase 4g: the kernel rows at the new widths, then deepseek-v2,
+    h2o-danube-3, qwen2-vl and hubert, each with the LM counters set to 0
+    just before it and read just after. Returns (rows, kernel rows,
+    launches summed over the models)."""
+    fa, md = mods[0], mods[1]
+    t_phase = time.perf_counter()
+    kernel_rows = family_kernel_rows(fa, ref, dev, seed)
+    for name, row in kernel_rows.items():
+        log({"phase": "lm_families", "kernel": name, "card": smi, **row})
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for run in (deepseek_phase, h2o_phase, qwen2vl_phase, hubert_phase):
+        rows.append(run(mods, dev, seed, smi))
+        log(rows[-1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {key: 0 for key in _lm_counters(fa, md)}
+    for row in rows:
+        for part in (row, row.get("mla_layer_f32"), row.get("ring_wrap_f32"),
+                     row.get("decode_vs_forward_f32")):
+            if part:
+                for key, n in part["launches"].items():
+                    total[key] += n
+    log({"phase": "lm_families", "launches": total, "phase_s": time.perf_counter() - t_phase})
+    return rows, kernel_rows, total
 
 
 def state_bytes(prog, g, k: int) -> int:
@@ -3148,10 +3577,15 @@ def main() -> int:
          "tile_kernels": tile_resources(fa_ptxas, fa)})
     sm90_lib = _build.load("flash_attention_sm90")
     sm90 = ptxas_kernels(built["flash_attention_sm90"]["log"])
-    for row in sm90:
-        row["dynamic_smem_bytes"] = sm90_lib.repro_flash_attention_sm90_smem_bytes(row["dh"])
+    for row in sm90:  # the template arguments: padded Dqk, value slice, keys a stage
+        row["dqk_pad"], row["dv_slice"], row["keys"] = (
+            int(x) for x in re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", row["entry"]).groups())
+    smem = {f"{row['dqk_pad']}x{row['dv_slice']}":
+            sm90_lib.repro_flash_attention_sm90_smem_bytes(row["dqk_pad"], row["dv_slice"])
+            for row in sm90}
     log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
-         "kernels": sm90, "ptxas_warnings": [line.strip() for line in
+         "kernels": sm90, "dynamic_smem_bytes": smem,
+         "ptxas_warnings": [line.strip() for line in
                                              built["flash_attention_sm90"]["log"].splitlines()
                                              if "warning" in line]})
 
@@ -3328,7 +3762,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     qwen = qwen_phase(mods, dev, args.seed)
     log(qwen)
-    launches["flash_attention"] = qwen["launches"]["flash_attention"]  # the f32 path
+    launches["flash_attention"] = (qwen["launches"]["flash_attention_tile"]  # the f32 path
+                                   + qwen["launches"]["flash_attention_decode"])
     launches["flash_decode"] = qwen["launches"]["flash_attention_decode"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3340,6 +3775,19 @@ def main() -> int:
     f32_tile = qwen["launches"]["flash_attention_tile"] + \
         prefill_f32["launches_per_forward"]["flash_attention_tile"]
     launches["flash_attention"] += prefill_f32["launches_per_forward"]["flash_attention_tile"]
+    f32_decode = qwen["launches"]["flash_attention_decode"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4g. MLA, the ring-buffer decode, M-RoPE and the frontend stubs -------
+    _, family_rows, family_launches = lm_families_phase(mods, ref, dev, args.seed, smi)
+    launches["flash_attention_sm90"] += family_launches["flash_attention_sm90"]
+    launches["moe_gather"] += family_launches["moe_gather"]
+    launches["flash_attention"] += (family_launches["flash_attention_tile"]
+                                    + family_launches["flash_attention_decode"])
+    launches["flash_decode"] += family_launches["flash_attention_decode"]
+    f32_tile += family_launches["flash_attention_tile"]
+    f32_decode += family_launches["flash_attention_decode"]
 
     # -- 6. summary ----------------------------------------------------------
     meta = {
@@ -3368,8 +3816,21 @@ def main() -> int:
         })
         if "row_rel_check" in row:
             kernels[-1]["row_rel_err"] = row["row_rel_check"]["row_rel_err"]
+        prefix = {"flash_attention_sm90": "flash_attention_sm90_",
+                  "flash_attention": "flash_attention_tile_",
+                  "flash_decode": "flash_attention_decode_"}.get(name)
+        if prefix:  # the new families' widths (phase 4g)
+            kernels[-1]["shapes"] = {
+                key: {"max_abs_err": r["max_abs_err"], "ms": r.get("kernel_device_ms",
+                                                                   r["kernel_ms"]),
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"],
+                      "library_ms": r.get("library_device_ms", r["library_ms"]),
+                      "timing": "device" if "kernel_device_ms" in r else "events",
+                      "q": r["shape"]["q"], "k": r["shape"]["k"], "v": r["shape"]["v"]}
+                for key, r in family_rows.items() if key.startswith(prefix)}
         if name == "flash_attention":  # the float32 calls: decode route + tile route
-            kernels[-1].update({"decode_launches": qwen["launches"]["flash_attention_decode"],
+            kernels[-1].update({"decode_launches": f32_decode,
                                 "tile_launches": f32_tile, "device_ms": row["kernel_device_ms"],
                                 "library_device_ms": row["library_device_ms"],
                                 "tile": row["tile"]})

@@ -9,7 +9,9 @@
 // the running max, sum and output block in VMEM scratch, and repeated the
 // KV heads in memory for GQA before the call.
 //
-// What it computes, as the TPU kernel does: scale 1/sqrt(Dh); query i sits
+// What it computes, as the TPU kernel does: the scale the caller gives
+// (1/sqrt(Dqk) by default); keys of Dqk columns, values of Dv <= Dqk
+// (MLA; the values may be a view of the keys' first Dv columns); query i sits
 // at position Lk - Lq + i (decode alignment); keys k < Lk, causal k <= the
 // query position, sliding window k > position - window; float32 running
 // max, sum and accumulator; the denominator clamped at 1e-30, so a row
@@ -18,7 +20,7 @@
 // gives the same bits on every call.
 //
 // Bound on this card: at decode (Lq = 1) bytes, the KV cache read once; at
-// prefill operations, 4 * Lq * Lk * Dh per head (halved when causal), at
+// prefill operations, 2 * Lq * Lk * (Dqk + Dv) per head (halved when causal), at
 // 67 TFLOP/s for float32 outside the tensor cores. Both routes keep the
 // plain version's float32 arithmetic, FFMA only, no TF32 (qwen3-0.6b's
 // float32 decode-vs-forward check relies on it).
@@ -68,10 +70,12 @@
 // BN (BM + 4) of P) and tiles per Dh: up to Dh 128 BM = 128, BN = 64
 // (R = 8, C = 4; 230,400 bytes at Dh 128, one block an SM); at Dh 256
 // BM = 64, BN = 32 (R = 4, C = 2; its Q tile alone is 64 KB; 205,312
-// bytes), both stages kept at every Dh. Where the large tiles would give
-// the card fewer blocks than SMs (qwen3-0.6b's 16-token forward: 16), the
-// wrapper (tile_plan) asks for the small tile, BM = BN = 16 (R = C = 1),
-// whose blocks are more and each do a small part of the work.
+// bytes), both stages kept at every Dh; wider (MLA's latent, Dqk 576 and
+// Dv 512) BM = 32, BN = 16 (R = 2, C = 1; 215,296 bytes). Where the
+// large tiles would give the card fewer blocks than SMs (qwen3-0.6b's
+// 16-token forward: 16), the wrapper (tile_plan) asks for the small tile,
+// BM = BN = 16 (R = C = 1), whose blocks are more and each do a small part
+// of the work.
 //
 // Decode route (repro_flash_attention_decode), for few query rows per kv
 // head (a decode step: group x Lq rows, 2 for qwen3-0.6b, 8 for Kimi-K2).
@@ -85,8 +89,10 @@
 //   fill the card at a long cache, and R made smaller while the blocks
 //   cannot give every SM one at a short cache (a warp takes its rows one
 //   after another);
-// - in a block, a team of Dh/4 lanes (32 at most; 8 float32 a lane at Dh =
-//   256) reads one key row with 16-byte loads, and the block's 256 / lanes
+// - in a block, a team of 8, 16 or 32 lanes (the least that holds DK/4
+//   16-byte chunks, 32 at most: 8 float32 a lane at DK 256, 20 at MLA's
+//   576) reads one key row and its value row (Dv <= Dqk, the same lanes)
+//   with 16-byte loads, and the block's 256 / lanes
 //   teams take the split's keys in turn (team t: keys t, t + teams, ...),
 //   kUnit keys at a time, K and V loaded together; each team scores its
 //   keys against all R rows (q from shared memory, the dot summed over the
@@ -98,6 +104,13 @@
 //   with one split the block writes the output, else each row's partial
 //   (acc, m, l) goes to scratch the wrapper allocated, and
 //   flash_decode_combine_kernel folds the splits in split order.
+//
+// Widths. Both routes are instantiated at the (DK, DV) of REPRO_FA_WIDTHS;
+// a call takes the narrowest that holds its (Dqk, Dv) (pick, which the
+// wrapper asks through repro_flash_attention_widths). Columns past Dqk
+// and Dv are loaded as zeros and add nothing; those past Dv are not
+// stored. So h2o-danube's 120 and hubert's 80 run at 128, the smoke MLA's
+// (48, 32) at 64.
 
 #include <cuda_runtime.h>
 
@@ -130,18 +143,21 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 constexpr int kTileThreads = 256;
 constexpr int kGroups = 16;  // row groups = key groups of a tile block (16 x 16 threads)
 
-// The tile of head dim DH: large, or small for shapes with few blocks.
-template <int DH, bool kSmall>
+// The tile of an instantiation's widths DK (Q and K) and DV (V): large, or
+// small for shapes with few blocks.
+template <int DK, int DV, bool kSmall>
 struct Tile {
-  static constexpr int R = kSmall ? 1 : (DH <= 128 ? 8 : 4);  // query rows of a thread
-  static constexpr int C = kSmall ? 1 : (DH <= 128 ? 4 : 2);  // keys a thread scores a tile
-  static constexpr int BM = kGroups * R;                      // query rows of a block
-  static constexpr int BN = kGroups * C;                      // keys of a tile
-  static constexpr int PS = BM + 4;                           // floats a key of the P tile
-  static constexpr int D = DH / kGroups;                      // output dims of a thread
-  static constexpr int W = D < 4 ? D : 4;                     // ... loaded W at a time
-  static constexpr int kV4 = DH / 4;                          // 16-byte chunks of a row
-  static constexpr int kSmemFloats = BM * DH + 4 * BN * DH + BN * PS;
+  static_assert(DK % 32 == 0 && DV >= 32 && (DV & (DV - 1)) == 0 && DV <= DK, "widths");
+  static constexpr int R = kSmall ? 1 : (DK <= 128 ? 8 : DK <= 256 ? 4 : 2);  // rows of a thread
+  static constexpr int C = kSmall ? 1 : (DK <= 128 ? 4 : DK <= 256 ? 2 : 1);  // keys it scores
+  static constexpr int BM = kGroups * R;  // query rows of a block
+  static constexpr int BN = kGroups * C;  // keys of a tile
+  static constexpr int PS = BM + 4;       // floats a key of the P tile
+  static constexpr int D = DV / kGroups;  // output dims of a thread
+  static constexpr int W = D < 4 ? D : 4; // ... loaded W at a time
+  static constexpr int kK4 = DK / 4;      // 16-byte chunks of a Q/K row
+  static constexpr int kV4 = DV / 4;      // ... of a V row
+  static constexpr int kSmemFloats = BM * DK + 2 * BN * DK + 2 * BN * DV + BN * PS;
 };
 
 // N consecutive floats (N = 1, 2 or 4) in one shared-memory access
@@ -202,19 +218,20 @@ __device__ __forceinline__ int keys_hi(int p, int off, int lk, int causal) {
 
 // Block: tile `tile` of BM rows of (b, kvh); row g of a kv head is query
 // head kvh * group + g % group at position g / group (position-major).
-template <int DH, bool kSmall>
+template <int DK, int DV, bool kSmall>
 __global__ void __launch_bounds__(kTileThreads, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int n_heads,
                        int n_kv_heads, int n_bh, int lq, int lk, Strides sq, Strides sk,
-                       Strides sv, Strides so, int causal, int window, float scale_log2) {
-  using T = Tile<DH, kSmall>;
+                       Strides sv, Strides so, int dqk, int dv, int causal, int window,
+                       float scale_log2) {
+  using T = Tile<DK, DV, kSmall>;
   constexpr int R = T::R, C = T::C, BM = T::BM, BN = T::BN, D = T::D, W = T::W;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [BM][DH], swizzled
-  float* k_s = q_s + BM * DH;                     // [2][BN][DH], swizzled
-  float* v_s = k_s + 2 * BN * DH;                 // [2][BN][DH]
-  float* p_s = v_s + 2 * BN * DH;                 // [BN][PS]: P[key][rg * R + i]
+  float* q_s = reinterpret_cast<float*>(smem4);  // [BM][DK], swizzled
+  float* k_s = q_s + BM * DK;                    // [2][BN][DK], swizzled
+  float* v_s = k_s + 2 * BN * DK;                // [2][BN][DV]
+  float* p_s = v_s + 2 * BN * DV;                // [BN][PS]: P[key][rg * R + i]
 
   const int group = n_heads / n_kv_heads;
   const int rows_total = group * lq;
@@ -245,25 +262,29 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (k_hi > k_lo) {
-    // Q: row s of the tile, zeros past the last row
-    for (int e = tid; e < BM * T::kV4; e += kTileThreads) {
-      const int s = e / T::kV4, c = e % T::kV4, g = g0 + s;
-      const bool ok = g < rows_total;
+    // Q: row s of the tile, zeros past the last row and past Dqk
+    for (int e = tid; e < BM * T::kK4; e += kTileThreads) {
+      const int s = e / T::kK4, c = e % T::kK4, g = g0 + s;
+      const bool ok = g < rows_total && 4 * c < dqk;
       const float* src = ok ? q + b * sq.b + (kvh * group + g % group) * sq.h +
                                   static_cast<int64_t>(g / group) * sq.l + 4 * c
                             : q;
-      cp_async16(q_s + swz<DH>(s, c), src, ok);
+      cp_async16(q_s + swz<DK>(s, c), src, ok);
     }
-    // K and V tile t into stage st, zeros past Lk
+    // K and V tile t into stage st, zeros past Lk and in the columns past Dqk and Dv
     auto load_kv = [&](int t, int st) {
-      float* ks = k_s + st * BN * DH;
-      float* vs = v_s + st * BN * DH;
+      float* ks = k_s + st * BN * DK;
+      float* vs = v_s + st * BN * DV;
+      for (int e = tid; e < BN * T::kK4; e += kTileThreads) {
+        const int j = e / T::kK4, c = e % T::kK4, kp = t * BN + j;
+        const bool ok = kp < lk && 4 * c < dqk;
+        cp_async16(ks + swz<DK>(j, c), ok ? k_head + static_cast<int64_t>(kp) * sk.l + 4 * c : k,
+                   ok);
+      }
       for (int e = tid; e < BN * T::kV4; e += kTileThreads) {
         const int j = e / T::kV4, c = e % T::kV4, kp = t * BN + j;
-        const bool ok = kp < lk;
-        cp_async16(ks + swz<DH>(j, c), ok ? k_head + static_cast<int64_t>(kp) * sk.l + 4 * c : k,
-                   ok);
-        cp_async16(vs + j * DH + 4 * c,
+        const bool ok = kp < lk && 4 * c < dv;
+        cp_async16(vs + j * DV + 4 * c,
                    ok ? v_head + static_cast<int64_t>(kp) * sv.l + 4 * c : v, ok);
       }
       cp_async_commit();
@@ -278,21 +299,21 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (t < t_last) load_kv(t + 1, st ^ 1);
 
       // S = Q K^T: R rows x C keys a thread, 4 head dims at a time
-      const float* ks = k_s + st * BN * DH;
+      const float* ks = k_s + st * BN * DK;
       float s[R][C];
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < C; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-      for (int c = 0; c < T::kV4; ++c) {
+      for (int c = 0; c < T::kK4; ++c) {
         float kf[C][4];
 #pragma unroll
-        for (int j = 0; j < C; ++j) ld_vec<4>(kf[j], ks + swz<DH>(cg + kGroups * j, c));
+        for (int j = 0; j < C; ++j) ld_vec<4>(kf[j], ks + swz<DK>(cg + kGroups * j, c));
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           float qf[4];
-          ld_vec<4>(qf, q_s + swz<DH>(rg + kGroups * i, c));
+          ld_vec<4>(qf, q_s + swz<DK>(rg + kGroups * i, c));
 #pragma unroll
           for (int j = 0; j < C; ++j) {
             s[i][j] = fmaf(qf[0], kf[j][0], s[i][j]);
@@ -353,7 +374,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // P of the tile is in shared memory
 
       // O += P V: R rows x D dims a thread, one key at a time
-      const float* vs = v_s + st * BN * DH;
+      const float* vs = v_s + st * BN * DV;
 #pragma unroll 8
       for (int j = 0; j < BN; ++j) {
         float pf[R], vf[D];
@@ -361,7 +382,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int i = 0; i < R; i += (R < 4 ? R : 4))
           ld_vec<(R < 4 ? R : 4)>(pf + i, p_s + j * T::PS + rg * R + i);
 #pragma unroll
-        for (int u = 0; u < D / W; ++u) ld_vec<W>(vf + W * u, vs + j * DH + W * cg + kGroups * W * u);
+        for (int u = 0; u < D / W; ++u)
+          ld_vec<W>(vf + W * u, vs + j * DV + W * cg + kGroups * W * u);
 #pragma unroll
         for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -383,20 +405,23 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    static_cast<int64_t>(g / group) * so.l;
 #pragma unroll
     for (int u = 0; u < D / W; ++u) {
+      const int col = W * cg + kGroups * W * u;  // Dv is a multiple of 4: W columns stay whole
+      if (col >= dv) continue;
       float x[W];
 #pragma unroll
       for (int e = 0; e < W; ++e) x[e] = acc[i][W * u + e] * inv;
-      st_vec<W>(o_row + W * cg + kGroups * W * u, x);
+      st_vec<W>(o_row + col, x);
     }
   }
 }
 
-template <int DH, bool kSmall>
+template <int DK, int DV, bool kSmall>
 static cudaError_t launch_tile(const float* q, const float* k, const float* v, float* out,
                                int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                               const Strides* st, int causal, int window, float scale,
-                               cudaStream_t stream) {
-  using T = Tile<DH, kSmall>;
+                               int dqk, int dv, const Strides* st, int causal, int window,
+                               float scale, cudaStream_t stream) {
+  using T = Tile<DK, DV, kSmall>;
+  static_assert(sizeof(float) * T::kSmemFloats <= 227 * 1024, "a block's shared memory");
   const int64_t rows = static_cast<int64_t>(n_heads / n_kv_heads) * lq;
   const int64_t n_bh = static_cast<int64_t>(batch) * n_kv_heads;
   const int64_t blocks = n_bh * ((rows + T::BM - 1) / T::BM);
@@ -410,48 +435,70 @@ static cudaError_t launch_tile(const float* q, const float* k, const float* v, f
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (!(raised.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<DH, kSmall>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<DK, DV, kSmall>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     raised.fetch_or(bit, std::memory_order_release);
   }
-  flash_attention_kernel<DH, kSmall><<<static_cast<unsigned>(blocks), kTileThreads, smem, stream>>>(
+  flash_attention_kernel<DK, DV, kSmall><<<static_cast<unsigned>(blocks), kTileThreads, smem, stream>>>(
       q, k, v, out, n_heads, n_kv_heads, static_cast<int>(n_bh), lq, lk, st[0], st[1], st[2],
-      st[3], causal, window, scale * 1.4426950408889634f);
+      st[3], dqk, dv, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-// the tile of head dim dh that holds row_tile query rows: 1 large, 0 small, -1 none
-template <int DH>
+// the tile of widths (DK, DV) that holds row_tile query rows: 1 large, 0 small, -1 none
+template <int DK, int DV>
 static int tile_kind(int row_tile) {
-  return row_tile == Tile<DH, false>::BM ? 1 : row_tile == Tile<DH, true>::BM ? 0 : -1;
+  return row_tile == Tile<DK, DV, false>::BM ? 1 : row_tile == Tile<DK, DV, true>::BM ? 0 : -1;
 }
 
-static cudaError_t launch(int dh, int row_tile, const float* q, const float* k, const float* v,
-                          float* out, int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                          const Strides* st, int causal, int window, float scale,
-                          cudaStream_t stream) {
-  switch (dh) {
-#define REPRO_FA_CASE(D)                                                                      \
-  case D:                                                                                     \
-    switch (tile_kind<D>(row_tile)) {                                                         \
-      case 1:                                                                                 \
-        return launch_tile<D, false>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk, st,    \
-                                     causal, window, scale, stream);                          \
-      case 0:                                                                                 \
-        return launch_tile<D, true>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk, st,     \
-                                    causal, window, scale, stream);                           \
-      default:                                                                                \
-        return cudaErrorInvalidValue;                                                         \
-    }
-    REPRO_FA_CASE(32)
-    REPRO_FA_CASE(64)
-    REPRO_FA_CASE(128)
-    REPRO_FA_CASE(256)
-#undef REPRO_FA_CASE
-    default:
-      return cudaErrorInvalidValue;
+// The instantiations (DK, DV), narrowest first; both routes instantiate each.
+#define REPRO_FA_WIDTHS(X) \
+  X(32, 32)                \
+  X(64, 64)                \
+  X(128, 128)              \
+  X(192, 128)              \
+  X(256, 256)              \
+  X(576, 512)
+
+// The instantiation that takes (dqk, dv): the first of REPRO_FA_WIDTHS at
+// least as wide in both, into widths[0..1]; false when none is, or when a
+// width is no multiple of 4 (16-byte rows) or dv > dqk.
+static bool pick(int dqk, int dv, int* widths) {
+  if (dqk <= 0 || dv <= 0 || dv > dqk || dqk % 4 != 0 || dv % 4 != 0) return false;
+#define REPRO_FA_PICK(DK, DV) \
+  if (dqk <= DK && dv <= DV) {  \
+    widths[0] = DK;             \
+    widths[1] = DV;             \
+    return true;                \
   }
+  REPRO_FA_WIDTHS(REPRO_FA_PICK)
+#undef REPRO_FA_PICK
+  return false;
+}
+
+static cudaError_t launch(int dqk, int dv, int row_tile, const float* q, const float* k,
+                          const float* v, float* out, int batch, int n_heads, int n_kv_heads,
+                          int lq, int lk, const Strides* st, int causal, int window, float scale,
+                          cudaStream_t stream) {
+  int w[2];
+  if (!pick(dqk, dv, w)) return cudaErrorInvalidValue;
+#define REPRO_FA_CASE(DK, DV)                                                                \
+  if (w[0] == DK && w[1] == DV) {                                                            \
+    switch (tile_kind<DK, DV>(row_tile)) {                                                   \
+      case 1:                                                                                \
+        return launch_tile<DK, DV, false>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk,  \
+                                          dqk, dv, st, causal, window, scale, stream);       \
+      case 0:                                                                                \
+        return launch_tile<DK, DV, true>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk,   \
+                                         dqk, dv, st, causal, window, scale, stream);        \
+      default:                                                                               \
+        return cudaErrorInvalidValue;                                                        \
+    }                                                                                        \
+  }
+  REPRO_FA_WIDTHS(REPRO_FA_CASE)
+#undef REPRO_FA_CASE
+  return cudaErrorInvalidValue;
 }
 
 // -------------------------------------------------------------------------
@@ -461,42 +508,54 @@ static cudaError_t launch(int dh, int row_tile, const float* q, const float* k, 
 constexpr int kDecodeThreads = 256;
 constexpr int kDecodeRowsMax = 8;  // query rows a decode block holds
 
-template <int DH>
+template <int DK, int DV>
 struct Decode {
-  static constexpr int kLanes = DH / 4 < 32 ? DH / 4 : 32;  // lanes of a team: one key row
-  static constexpr int kVec = DH / (4 * kLanes);            // float4s of a row a lane holds
+  static_assert(DK % 8 == 0 && DV % 8 == 0 && DV <= DK, "widths");
+  static constexpr int kK4 = DK / 4, kV4 = DV / 4;  // 16-byte chunks of a K row, of a V row
+  // lanes of a team: one key row (the least of 8, 16, 32 that holds it, 32 at most)
+  static constexpr int kLanes = kK4 <= 8 ? 8 : kK4 <= 16 ? 16 : 32;
+  static constexpr int kVec = (kK4 + kLanes - 1) / kLanes;   // float4s of a K row a lane holds
+  static constexpr int kVecV = (kV4 + kLanes - 1) / kLanes;  // ... of a V row
   static constexpr int kTeams = kDecodeThreads / kLanes;
-  static constexpr int kUnit = 8 / kVec;                    // keys a team folds at once
+  static constexpr int kUnit = 8 / kVec > 0 ? 8 / kVec : 1;  // keys a team folds at once
+  static constexpr int kQ4 = kLanes * kVec;                  // float4s of a row of q_s
+  static constexpr int kA4 = kLanes * kVecV;                 // float4s of a row of acc_s
 };
 
 // One unit of a team: the keys base + j * kTeams + team of slots j < n_live
 // (kFull: all kUnit slots, whose keys all lie before s1), K and V loaded
 // together, each scored against the block's rows and folded into the
-// team's running (m, l, acc) of each row, slots in order.
-template <int DH, int R, bool kFull>
+// team's running (m, l, acc) of each row, slots in order. A lane's chunks
+// past a row's width (dk4, dv4 chunks) are zeros.
+template <int DK, int DV, int R, bool kFull>
 __device__ __forceinline__ void fold_unit(const float4* q_s, const float* k_head,
                                           const float* v_head, int64_t k_stride,
                                           int64_t v_stride, int base, int s1, int n_live,
-                                          int team, int lane, unsigned mask, float scale,
-                                          const int (&lo)[R], const int (&hi)[R], int n_rows,
+                                          int dk4, int dv4, int team, int lane, unsigned mask,
+                                          float scale, const int (&lo)[R], const int (&hi)[R],
+                                          int n_rows,
                                           float (&m)[R], float (&l)[R],
-                                          float4 (&acc)[R][Decode<DH>::kVec]) {
-  using D = Decode<DH>;
-  constexpr int kV4 = DH / 4;
-  float4 kr[D::kUnit][D::kVec], vr[D::kUnit][D::kVec];
+                                          float4 (&acc)[R][Decode<DK, DV>::kVecV]) {
+  using D = Decode<DK, DV>;
+  float4 kr[D::kUnit][D::kVec], vr[D::kUnit][D::kVecV];
 #pragma unroll
   for (int j = 0; j < D::kUnit; ++j) {
     if (!kFull && j >= n_live) break;
     const int kp = base + j * D::kTeams + team;
+    const bool live = kFull || kp < s1;
 #pragma unroll
     for (int c = 0; c < D::kVec; ++c) {
+      const int c4 = lane + D::kLanes * c;
       kr[j][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-      vr[j][c] = kr[j][c];
-      if (kFull || kp < s1) {
-        const int d4 = 4 * (lane + D::kLanes * c);
-        kr[j][c] = load4(k_head + static_cast<int64_t>(kp) * k_stride + d4);
-        vr[j][c] = load4(v_head + static_cast<int64_t>(kp) * v_stride + d4);
-      }
+      if (live && c4 < dk4)
+        kr[j][c] = load4(k_head + static_cast<int64_t>(kp) * k_stride + 4 * c4);
+    }
+#pragma unroll
+    for (int c = 0; c < D::kVecV; ++c) {
+      const int c4 = lane + D::kLanes * c;
+      vr[j][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && c4 < dv4)
+        vr[j][c] = load4(v_head + static_cast<int64_t>(kp) * v_stride + 4 * c4);
     }
   }
 #pragma unroll
@@ -504,7 +563,7 @@ __device__ __forceinline__ void fold_unit(const float4* q_s, const float* k_head
     if (r >= n_rows) break;
     float4 qv[D::kVec];
 #pragma unroll
-    for (int c = 0; c < D::kVec; ++c) qv[c] = q_s[r * kV4 + lane + D::kLanes * c];
+    for (int c = 0; c < D::kVec; ++c) qv[c] = q_s[r * D::kQ4 + lane + D::kLanes * c];
     float s[D::kUnit];
     float unit_max = -INFINITY;
 #pragma unroll
@@ -524,7 +583,7 @@ __device__ __forceinline__ void fold_unit(const float4* q_s, const float* k_head
     const float alpha = expf(m[r] - m_new);  // 0 on the row's first live unit (m = -inf)
     l[r] *= alpha;
 #pragma unroll
-    for (int c = 0; c < D::kVec; ++c) {
+    for (int c = 0; c < D::kVecV; ++c) {
       acc[r][c].x *= alpha;
       acc[r][c].y *= alpha;
       acc[r][c].z *= alpha;
@@ -536,7 +595,7 @@ __device__ __forceinline__ void fold_unit(const float4* q_s, const float* k_head
       const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m_new);
       l[r] += p;
 #pragma unroll
-      for (int c = 0; c < D::kVec; ++c) {
+      for (int c = 0; c < D::kVecV; ++c) {
         acc[r][c].x = fmaf(p, vr[j][c].x, acc[r][c].x);
         acc[r][c].y = fmaf(p, vr[j][c].y, acc[r][c].y);
         acc[r][c].z = fmaf(p, vr[j][c].z, acc[r][c].z);
@@ -549,19 +608,20 @@ __device__ __forceinline__ void fold_unit(const float4* q_s, const float* k_head
 
 // the rows a block holds are g = row0 + r of the kv head's group x Lq rows:
 // query head kvh * group + g / lq at query position g % lq
-template <int DH, int R>
+template <int DK, int DV, int R>
 __global__ void __launch_bounds__(kDecodeThreads)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
                     float4* __restrict__ part_acc, float2* __restrict__ part_ml, int n_heads,
                     int n_kv_heads, int lq, int lk, Strides sq, Strides sk, Strides sv,
-                    Strides so, int causal, int window, float scale, int n_splits, int chunk) {
-  using D = Decode<DH>;
-  constexpr int kV4 = DH / 4;  // float4s of a row
+                    Strides so, int dqk, int dv, int causal, int window, float scale,
+                    int n_splits, int chunk) {
+  using D = Decode<DK, DV>;
+  const int dk4 = dqk / 4, dv4 = dv / 4;
   extern __shared__ float4 smem[];
-  float4* q_s = smem;                                                    // [R][kV4]
-  float4* acc_s = q_s + R * kV4;                                         // [kTeams][R][kV4]
-  float2* ml_s = reinterpret_cast<float2*>(acc_s + D::kTeams * R * kV4);  // [kTeams][R]
+  float4* q_s = smem;                                                    // [R][kQ4]
+  float4* acc_s = q_s + R * D::kQ4;                                      // [kTeams][R][kA4]
+  float2* ml_s = reinterpret_cast<float2*>(acc_s + D::kTeams * R * D::kA4);  // [kTeams][R]
 
   const int group = n_heads / n_kv_heads;
   const int rows_total = group * lq;
@@ -592,10 +652,10 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       khi = max(khi, e);
     }
   }
-  for (int e = threadIdx.x; e < R * kV4; e += kDecodeThreads) {
-    const int r = e / kV4, c = e % kV4;
+  for (int e = threadIdx.x; e < R * D::kQ4; e += kDecodeThreads) {
+    const int r = e / D::kQ4, c = e % D::kQ4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) {
+    if (r < n_rows && c < dk4) {
       const int g = row0 + r;
       x = load4(q + b * sq.b + (kvh * group + g / lq) * sq.h +
                 static_cast<int64_t>(g % lq) * sq.l + 4 * c);
@@ -611,13 +671,13 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             ? 0xffffffffu
                             : ((1u << D::kLanes) - 1u) << ((threadIdx.x % 32) & ~(D::kLanes - 1));
   float m[R], l[R];
-  float4 acc[R][D::kVec];
+  float4 acc[R][D::kVecV];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D::kVec; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < D::kVecV; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
   constexpr int kRound = D::kTeams * D::kUnit;  // keys the block's teams take in one round
@@ -627,12 +687,12 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int base = s0; base < s1; base += kRound) {
     if (base + kRound <= klo || base >= khi) continue;  // no row sees a key of this round
     if (base + kRound <= s1) {  // every slot of the unit holds a key of the split
-      fold_unit<DH, R, true>(q_s, k_head, v_head, sk.l, sv.l, base, s1, D::kUnit, team, lane,
-                             mask, scale, lo, hi, n_rows, m, l, acc);
+      fold_unit<DK, DV, R, true>(q_s, k_head, v_head, sk.l, sv.l, base, s1, D::kUnit, dk4, dv4,
+                                 team, lane, mask, scale, lo, hi, n_rows, m, l, acc);
     } else {
-      fold_unit<DH, R, false>(q_s, k_head, v_head, sk.l, sv.l, base, s1,
-                              (s1 - base + D::kTeams - 1) / D::kTeams, team, lane, mask, scale,
-                              lo, hi, n_rows, m, l, acc);
+      fold_unit<DK, DV, R, false>(q_s, k_head, v_head, sk.l, sv.l, base, s1,
+                                  (s1 - base + D::kTeams - 1) / D::kTeams, dk4, dv4, team,
+                                  lane, mask, scale, lo, hi, n_rows, m, l, acc);
     }
   }
 
@@ -640,14 +700,14 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < R; ++r) {
     if (lane == 0) ml_s[team * R + r] = make_float2(m[r], l[r]);
 #pragma unroll
-    for (int c = 0; c < D::kVec; ++c)
-      acc_s[(team * R + r) * kV4 + lane + D::kLanes * c] = acc[r][c];
+    for (int c = 0; c < D::kVecV; ++c)
+      acc_s[(team * R + r) * D::kA4 + lane + D::kLanes * c] = acc[r][c];
   }
   __syncthreads();
 
   // fold the teams in team order, each weighted by exp(m_team - m)
-  for (int e = threadIdx.x; e < n_rows * kV4; e += kDecodeThreads) {
-    const int r = e / kV4, c = e % kV4;
+  for (int e = threadIdx.x; e < n_rows * dv4; e += kDecodeThreads) {
+    const int r = e / dv4, c = e % dv4;
     float mx = -INFINITY;
     for (int t = 0; t < D::kTeams; ++t) mx = fmaxf(mx, ml_s[t * R + r].x);
     float ls = 0.f;
@@ -656,7 +716,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float2 ml = ml_s[t * R + r];
       if (ml.x == -INFINITY) continue;  // the team saw no key of this row
       const float w = expf(ml.x - mx);
-      const float4 at = acc_s[(t * R + r) * kV4 + c];
+      const float4 at = acc_s[(t * R + r) * D::kA4 + c];
       ls = fmaf(ml.y, w, ls);
       a = make_float4(fmaf(at.x, w, a.x), fmaf(at.y, w, a.y), fmaf(at.z, w, a.z),
                       fmaf(at.w, w, a.w));
@@ -670,7 +730,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
           make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
     } else {
       const int64_t slot = (static_cast<int64_t>(b * n_heads + h) * lq + i) * n_splits + split;
-      part_acc[slot * kV4 + c] = a;
+      part_acc[slot * dv4 + c] = a;
       if (c == 0) part_ml[slot] = make_float2(mx, ls);
     }
   }
@@ -678,13 +738,13 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // out[row] = the splits' partials of the row folded in split order, each
 // weighted by exp(m_split - m), over their weighted l clamped at 1e-30; one
-// thread per float4 of a row, rows numbered (b * H + h) * Lq + i
+// thread per float4 of a row (Dv / 4 of them), rows numbered (b * H + h) * Lq + i
 __global__ void __launch_bounds__(256)
 flash_decode_combine_kernel(const float4* __restrict__ part_acc,
                             const float2* __restrict__ part_ml, float* __restrict__ out,
-                            int n_heads, int lq, int dh, int n_splits, Strides so,
+                            int n_heads, int lq, int dv, int n_splits, Strides so,
                             int64_t n_rows) {
-  const int v4 = dh / 4;
+  const int v4 = dv / 4;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_rows * v4) return;
   const int64_t row = e / v4;
@@ -712,43 +772,45 @@ flash_decode_combine_kernel(const float4* __restrict__ part_acc,
       make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
 }
 
-template <int DH, int R>
+template <int DK, int DV, int R>
 static cudaError_t launch_decode_rows(const float* q, const float* k, const float* v, float* out,
                                       float4* part_acc, float2* part_ml, int batch, int n_heads,
-                                      int n_kv_heads, int lq, int lk, const Strides* st,
-                                      int causal, int window, float scale, int n_splits,
-                                      int chunk, cudaStream_t stream) {
-  using D = Decode<DH>;
+                                      int n_kv_heads, int lq, int lk, int dqk, int dv,
+                                      const Strides* st, int causal, int window, float scale,
+                                      int n_splits, int chunk, cudaStream_t stream) {
+  using D = Decode<DK, DV>;
   const int64_t rows = static_cast<int64_t>(n_heads / n_kv_heads) * lq;
   const int64_t blocks =
       static_cast<int64_t>(batch) * n_kv_heads * ((rows + R - 1) / R) * n_splits;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float4) * (R * DH / 4) * (1 + D::kTeams) +
-                      sizeof(float2) * D::kTeams * R;
+  constexpr size_t smem = sizeof(float4) * R * (D::kQ4 + D::kTeams * D::kA4) +
+                          sizeof(float2) * D::kTeams * R;
+  static_assert(smem <= 227 * 1024, "a decode block's shared memory");
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<DH, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_decode_kernel<DK, DV, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  flash_decode_kernel<DH, R><<<static_cast<unsigned>(blocks), kDecodeThreads, smem, stream>>>(
+  flash_decode_kernel<DK, DV, R><<<static_cast<unsigned>(blocks), kDecodeThreads, smem, stream>>>(
       q, k, v, out, part_acc, part_ml, n_heads, n_kv_heads, lq, lk, st[0], st[1], st[2], st[3],
-      causal, window, scale, n_splits, chunk);
+      dqk, dv, causal, window, scale, n_splits, chunk);
   return cudaGetLastError();
 }
 
-template <int DH>
-static cudaError_t launch_decode_dh(int row_tile, const float* q, const float* k,
-                                    const float* v, float* out, float4* part_acc,
-                                    float2* part_ml, int batch, int n_heads, int n_kv_heads,
-                                    int lq, int lk, const Strides* st, int causal, int window,
-                                    float scale, int n_splits, int chunk, cudaStream_t stream) {
+template <int DK, int DV>
+static cudaError_t launch_decode_dims(int row_tile, const float* q, const float* k,
+                                      const float* v, float* out, float4* part_acc,
+                                      float2* part_ml, int batch, int n_heads, int n_kv_heads,
+                                      int lq, int lk, int dqk, int dv, const Strides* st,
+                                      int causal, int window, float scale, int n_splits,
+                                      int chunk, cudaStream_t stream) {
   switch (row_tile) {
 #define REPRO_FA_ROWS(R)                                                                    \
   case R:                                                                                   \
-    return launch_decode_rows<DH, R>(q, k, v, out, part_acc, part_ml, batch, n_heads,       \
-                                     n_kv_heads, lq, lk, st, causal, window, scale,         \
-                                     n_splits, chunk, stream);
+    return launch_decode_rows<DK, DV, R>(q, k, v, out, part_acc, part_ml, batch, n_heads,   \
+                                         n_kv_heads, lq, lk, dqk, dv, st, causal, window,   \
+                                         scale, n_splits, chunk, stream);
     REPRO_FA_ROWS(1)
     REPRO_FA_ROWS(2)
     REPRO_FA_ROWS(4)
@@ -759,63 +821,59 @@ static cudaError_t launch_decode_dh(int row_tile, const float* q, const float* k
   }
 }
 
-static cudaError_t launch_decode(int dh, int row_tile, const float* q, const float* k,
+static cudaError_t launch_decode(int dqk, int dv, int row_tile, const float* q, const float* k,
                                  const float* v, float* out, float4* part_acc, float2* part_ml,
                                  int batch, int n_heads, int n_kv_heads, int lq, int lk,
                                  const Strides* st, int causal, int window, float scale,
                                  int n_splits, int chunk, cudaStream_t stream) {
-  cudaError_t err;
-  switch (dh) {
-#define REPRO_FA_DECODE(D)                                                                 \
-  case D:                                                                                  \
-    err = launch_decode_dh<D>(row_tile, q, k, v, out, part_acc, part_ml, batch, n_heads,   \
-                              n_kv_heads, lq, lk, st, causal, window, scale, n_splits,     \
-                              chunk, stream);                                              \
-    break;
-    REPRO_FA_DECODE(32)
-    REPRO_FA_DECODE(64)
-    REPRO_FA_DECODE(128)
-    REPRO_FA_DECODE(256)
+  int w[2];
+  if (!pick(dqk, dv, w)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define REPRO_FA_DECODE(DK, DV)                                                             \
+  if (w[0] == DK && w[1] == DV)                                                             \
+    err = launch_decode_dims<DK, DV>(row_tile, q, k, v, out, part_acc, part_ml, batch,      \
+                                     n_heads, n_kv_heads, lq, lk, dqk, dv, st, causal,      \
+                                     window, scale, n_splits, chunk, stream);
+  REPRO_FA_WIDTHS(REPRO_FA_DECODE)
 #undef REPRO_FA_DECODE
-    default:
-      return cudaErrorInvalidValue;
-  }
   if (err != cudaSuccess || n_splits == 1) return err;
   const int64_t n_rows = static_cast<int64_t>(batch) * n_heads * lq;
-  const int64_t threads = n_rows * (dh / 4);
+  const int64_t threads = n_rows * (dv / 4);
   const int64_t blocks = (threads + 255) / 256;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   flash_decode_combine_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      part_acc, part_ml, out, n_heads, lq, dh, n_splits, st[3], n_rows);
+      part_acc, part_ml, out, n_heads, lq, dv, n_splits, st[3], n_rows);
   return cudaGetLastError();
 }
 
 }  // namespace repro_fa
 
-// q [B, H, Lq, Dh], k/v [B, Hkv, Lk, Dh], out [B, H, Lq, Dh], all float32,
-// given by their data pointers and strides[12] = (batch, head, position)
-// element strides of q, k, v, out in that order, the last dim contiguous
-// and every row aligned for a 16-byte load. Dh is 32, 64, 128 or 256; H is
-// a multiple of Hkv. row_tile is the query rows a block holds, the large
-// or the small tile of Dh (Tile<DH, kSmall>::BM; any other value is
-// cudaErrorInvalidValue). Returns cudaGetLastError() after the launch (0 on success).
+// q [B, H, Lq, Dqk], k [B, Hkv, Lk, Dqk], v [B, Hkv, Lk, Dv], out [B, H, Lq,
+// Dv], all float32, given by their data pointers and strides[12] = (batch,
+// head, position) element strides of q, k, v, out in that order, the last
+// dim contiguous and every row aligned for a 16-byte load. (Dqk, Dv) is a
+// pair repro_flash_attention_widths takes; H is a multiple of Hkv. row_tile
+// is the query rows a block holds, the large or the small tile of the
+// pair's instantiation (Tile<DK, DV, kSmall>::BM; any other value is
+// cudaErrorInvalidValue). Returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                                     int dh, const int64_t* strides, int causal, int window,
-                                     float scale, int row_tile, void* stream) {
+                                     int dqk, int dv, const int64_t* strides, int causal,
+                                     int window, float scale, int row_tile, void* stream) {
   using namespace repro_fa;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || lk < 0) return cudaErrorInvalidValue;
   Strides st[4];
   for (int t = 0; t < 4; ++t) st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  return launch(dh, row_tile, static_cast<const float*>(q), static_cast<const float*>(k),
+  return launch(dqk, dv, row_tile, static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(out), batch, n_heads,
                 n_kv_heads, lq, lk, st, causal, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The decode route: the same arguments as repro_flash_attention, then
 // scratch for each row's partial of every split (part_acc [B*H*Lq,
-// n_splits, Dh] and part_ml [B*H*Lq, n_splits, 2] float32; unused, and
+// n_splits, Dv] and part_ml [B*H*Lq, n_splits, 2] float32; unused, and
 // may be null, when n_splits is 1), the query rows a block holds
 // (row_tile: 1, 2, 4 or 8) and the splits: split s holds keys
 // [s * chunk, min(Lk, (s + 1) * chunk)), n_splits >= 1, chunk >= 1, none
@@ -823,9 +881,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 // combine. Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int repro_flash_attention_decode(const void* q, const void* k, const void* v,
                                             void* out, int batch, int n_heads, int n_kv_heads,
-                                            int lq, int lk, int dh, const int64_t* strides,
-                                            int causal, int window, float scale, void* part_acc,
-                                            void* part_ml, int row_tile, int n_splits, int chunk,
+                                            int lq, int lk, int dqk, int dv,
+                                            const int64_t* strides, int causal, int window,
+                                            float scale, void* part_acc, void* part_ml,
+                                            int row_tile, int n_splits, int chunk,
                                             void* stream) {
   using namespace repro_fa;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
@@ -836,9 +895,15 @@ extern "C" int repro_flash_attention_decode(const void* q, const void* k, const 
     return cudaErrorInvalidValue;
   Strides st[4];
   for (int t = 0; t < 4; ++t) st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  return launch_decode(dh, row_tile, static_cast<const float*>(q),
+  return launch_decode(dqk, dv, row_tile, static_cast<const float*>(q),
                        static_cast<const float*>(k), static_cast<const float*>(v),
                        static_cast<float*>(out), static_cast<float4*>(part_acc),
                        static_cast<float2*>(part_ml), batch, n_heads, n_kv_heads, lq, lk, st,
                        causal, window, scale, n_splits, chunk, static_cast<cudaStream_t>(stream));
+}
+
+// The widths (DK, DV) of the instantiation both routes run (dqk, dv) at,
+// into widths[2]: 0, or -1 for a pair they do not take (see pick).
+extern "C" int repro_flash_attention_widths(int dqk, int dv, int* widths) {
+  return repro_fa::pick(dqk, dv, widths) ? 0 : -1;
 }

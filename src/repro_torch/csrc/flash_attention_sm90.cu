@@ -9,12 +9,16 @@
 // VMEM scratch and repeated the KV heads in memory for GQA first.
 //
 // What it computes, as the TPU kernel and ref.flash_attention_ref do:
-// scale 1/sqrt(Dh); query i sits at position Lk - Lq + i; keys k < Lk,
+// the scale the caller gives (1/sqrt(Dqk) by default; MLA's absorbed decode
+// scores over Dqk 576 at 1/sqrt(192)); query i sits at position Lk - Lq + i; keys k < Lk,
 // causal k <= the query position, sliding window k > position - window;
 // GQA: kv head h / (H / Hkv); float32 running max and sum; the denominator
 // clamped at 1e-30, so a row with no key (also Lq > Lk under causal) is
 // 0, not NaN; strides for q, k, v and out, so the [B, L, H, Dh]
 // activations and the [B, buf, Hkv, Dh] KV cache are read in place.
+// Keys and values may differ in width (Dv <= Dqk; MLA: 192 and 128, and
+// its latent 576 and 512, the values a view of the keys' first 512
+// columns, read in place through their own tensor map).
 //
 // Numeric contract: Q, K and V enter both products as the bf16 values
 // they already are; the probabilities P are rounded to bf16 before
@@ -24,7 +28,7 @@
 // Pallas kernel and the plain version multiply in float32, so this
 // kernel is held to them within bf16's 3e-2.
 //
-// Bound on this card: at prefill operations, 4 * Dh FLOPs per unmasked
+// Bound on this card: at prefill operations, 2 * (Dqk + Dv) FLOPs per unmasked
 // (query, key) pair at 989 TFLOP/s bf16; at decode (Lq = 1) bytes, the
 // KV cache read once at 3.35 TB/s. For the operations bound both
 // products run on the tensor cores (wgmma.m64nNk16 bf16 -> f32), and
@@ -57,6 +61,22 @@
 // range are skipped whole. No atomics and no split over keys: two calls
 // on the same inputs give the same bits. Warp specialisation and two
 // consumer warpgroups are later work.
+//
+// Widths. The kernel is instantiated at the widths of FA90_WIDTHS: DQK (Q
+// and K rows in shared memory, whole 64-element swizzle atoms; 32 stays
+// one 64-byte atom) and DV (one slice of the value columns, 32, 64, 128 or
+// 256: wgmma's N). A call takes the narrowest that holds its (Dqk, Dv)
+// (pick, which the wrapper asks through repro_flash_attention_sm90_widths),
+// so a narrower width (120, 80, 48) is rounded up with zero columns: TMA
+// fills the part of a box past the tensor map's width with zeros, and Q's
+// loads are predicated, so the padding adds nothing to a score. Dv past 256 (the absorbed decode's
+// 512) does not fit one wgmma nor the registers of one accumulator (Dv/2
+// a thread), so the grid's y dimension cuts the value columns into
+// slices of DV, and each slice's blocks recompute the scores. At DQK 576
+// a 64-key K stage is 72 KB, so that instantiation streams 32 keys a
+// stage (S = Q.K^T as m64n32k16), keeping Q (72 KB) and two K and V
+// stages within the 227 KB of a block. A width that is no multiple of 8
+// (16-byte rows) or wider than every instantiation is refused.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,7 +90,6 @@
 namespace repro_fa90 {
 
 constexpr int kRows = 64;      // query rows per block: wgmma's M
-constexpr int kKeys = 64;      // keys per K/V stage: N of S = Q.K^T
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
@@ -97,6 +116,17 @@ struct Strides {
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<32> {
+  // d[16] += A (shared, K-major) * B (shared, K-major), m64n32k16
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : FA90_D8(0), FA90_D8(8)
+        : "l"(da), "l"(db), "r"(1));
+  }
   // d[16] += A (registers) * B (shared), m64n32k16
   template <int kTransB>
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
@@ -266,23 +296,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// Shared-memory layout of a 64-row bf16 tile (Q, or one stage of K or V):
-// the Dh columns are cut into atoms of one swizzle width (64 elements,
-// 128 bytes; 32 and 64 bytes at Dh 32), each atom 64 rows of that width,
-// and the 16-byte chunks of row j are permuted by XOR with the row's bits,
-// as wgmma's 128B (64B) swizzle mode expects. Q and K are read K-major
-// (Dh contiguous is the reduction dim), V MN-major (Dh is the output dim).
-template <int DH> struct Tile {
+// Shared-memory layout of a ROWS-row bf16 tile of DH columns (Q, or one
+// stage of K or V): the columns are cut into atoms of one swizzle width
+// (64 elements, 128 bytes; 32 and 64 bytes at DH 32), each atom ROWS rows
+// of that width, and the 16-byte chunks of row j are permuted by XOR with
+// the row's bits, as wgmma's 128B (64B) swizzle mode expects. Q and K are
+// read K-major (Dqk contiguous is the reduction dim), V MN-major (Dv is
+// the output dim).
+template <int DH, int ROWS> struct Tile {
+  static_assert(DH == 32 || DH % 64 == 0, "a tile is whole swizzle atoms");
   static constexpr int kRowBytes = DH >= 64 ? 128 : 64;
   static constexpr int kChunksPerRow = kRowBytes / 16;
   static constexpr int kElemsPerRow = kRowBytes / 2;
-  static constexpr int kAtomBytes = kRows * kRowBytes;  // kRows == kKeys
-  static constexpr int kBytes = kRows * DH * 2;
+  static constexpr int kAtoms = DH / kElemsPerRow;
+  static constexpr int kAtomBytes = ROWS * kRowBytes;
+  static constexpr int kBytes = ROWS * DH * 2;
   static constexpr uint64_t kMode = DH >= 64 ? 1 : 2;  // descriptor: 1 = 128B swizzle, 2 = 64B
-  // Q lives in registers as wgmma's A operand up to Dh 128, in shared memory at 256
-  static constexpr bool kQInRegs = DH <= 128;
-  static constexpr int kQBytes = kQInRegs ? 0 : kBytes;
-  static constexpr int kSmemBytes = kQBytes + 2 * kStages * kBytes + 1024;  // + alignment slack
 
   // byte offset of 16-byte chunk c (of DH / 8) of row j
   static __device__ __forceinline__ uint32_t offset(int j, int c) {
@@ -302,28 +331,46 @@ template <int DH> struct Tile {
                 8 * kRowBytes);
   }
   // k-step kk (16 keys) of the MN-major V: LBO is the stride between atoms
-  // along Dh, SBO the stride of 8-key groups
+  // along Dv, SBO the stride of 8-key groups
   static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
     return desc(base + kk * 16 * kRowBytes, kAtomBytes, 8 * kRowBytes);
   }
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH <= 128 ? 3 : 1)
+// One instantiation: Q/K rows of DQK (padded) columns, a value slice of DV
+// columns, KEYS keys a K/V stage.
+template <int DQK, int DV, int KEYS> struct Shape {
+  using TQ = Tile<DQK, kRows>;
+  using TK = Tile<DQK, KEYS>;
+  using TV = Tile<DV, KEYS>;
+  // Q lives in registers as wgmma's A operand while both widths are at most
+  // 128, in shared memory otherwise (the registers then hold O)
+  static constexpr bool kQInRegs = DQK <= 128 && DV <= 128;
+  static constexpr int kQBytes = kQInRegs ? 0 : TQ::kBytes;
+  static constexpr int kStageBytes = TK::kBytes + TV::kBytes;
+  static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes + 1024;  // + alignment slack
+};
+
+template <int DQK, int DV, int KEYS>
+__global__ void __launch_bounds__(kThreads, Shape<DQK, DV, KEYS>::kQInRegs ? 3 : 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-                            int n_kv_heads, int group, int lq, int lk, int row_tiles,
-                            int bh_count, Strides sq, Strides so, int causal, int window,
-                            float scale_log2) {
-  using T = Tile<DH>;
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
+                            int n_kv_heads, int group, int lq, int lk, int dqk, int dv,
+                            int row_tiles, int bh_count, Strides sq, Strides so, int causal,
+                            int window, float scale_log2) {
+  using S = Shape<DQK, DV, KEYS>;
+  using TQ = typename S::TQ;
+  using TK = typename S::TK;
+  using TV = typename S::TV;
+  constexpr int kChunks = DQK / 8;  // 16-byte chunks per Q row
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kStages];  // one barrier per stage: its K and V tiles have landed
   // Q's tile (none when Q lives in registers), then the K/V stages, 1024-byte aligned
   const uint32_t q_smem = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
-  const auto k_smem = [&](int s) { return q_smem + T::kQBytes + T::kBytes * (2 * s); };
-  const auto v_smem = [&](int s) { return q_smem + T::kQBytes + T::kBytes * (2 * s + 1); };
+  const auto k_smem = [&](int s) { return q_smem + S::kQBytes + S::kStageBytes * s; };
+  const auto v_smem = [&](int s) { return k_smem(s) + TK::kBytes; };
+  const int v0 = blockIdx.y * DV;  // the value columns of this block's slice
 
   // (batch, kv head) varies fastest; row tiles come longest first
   const int bh = blockIdx.x % bh_count;
@@ -349,7 +396,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
   const int k_begin = window > 0 ? max(0, pos0 + min_i - window + 1) : 0;
   const int min_hi = causal ? min(lk, pos0 + min_i + 1) : lk;  // keys every row sees: [max_lo, min_hi)
   const int max_lo = window > 0 ? max(0, pos0 + max_i - window + 1) : 0;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + KEYS - 1) / KEYS : 0;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // the two rows whose accumulator fragments this thread holds, and their keys [lo, hi)
@@ -364,40 +411,44 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
 
   const auto bar = [&](int s) { return static_cast<uint32_t>(__cvta_generic_to_shared(&full[s])); };
   // Q as wgmma's A fragment: k-step kk holds (row, cols 16kk + 2(lane%4) + {0, 1}),
-  // (row + 8, same), (row, those + 8), (row + 8, those + 8); rows past the end are 0
-  uint32_t qa[T::kQInRegs ? DH / 16 : 1][4];
-  if constexpr (T::kQInRegs) {
+  // (row + 8, same), (row, those + 8), (row + 8, those + 8); rows past the end
+  // and columns past Dqk are 0
+  uint32_t qa[S::kQInRegs ? DQK / 16 : 1][4];
+  if constexpr (S::kQInRegs) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int r = r0 + 16 * warp + lane / 4 + 8 * rr;
       const uint32_t* row = reinterpret_cast<const uint32_t*>(
           q + b * sq.b + (kvh * group + r / lq) * sq.h + (r % lq) * sq.l);
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        qa[kk][rr] = r < rows_total ? __ldg(row + 8 * kk + (lane & 3)) : 0u;
-        qa[kk][rr + 2] = r < rows_total ? __ldg(row + 8 * kk + 4 + (lane & 3)) : 0u;
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        const int c = 16 * kk + 2 * (lane & 3);  // Dqk is a multiple of 8: pairs stay whole
+        qa[kk][rr] = r < rows_total && c < dqk ? __ldg(row + 8 * kk + (lane & 3)) : 0u;
+        qa[kk][rr + 2] = r < rows_total && c + 8 < dqk ? __ldg(row + 8 * kk + 4 + (lane & 3)) : 0u;
       }
     }
   } else {
     for (int idx = tid; idx < kRows * kChunks; idx += kThreads) {
       const int j = idx / kChunks, c = idx % kChunks, r = r0 + j;
-      const bool ok = r < rows_total;
+      const bool ok = r < rows_total && c * 8 < dqk;
       const __nv_bfloat16* src =
           ok ? q + b * sq.b + (kvh * group + r / lq) * sq.h + (r % lq) * sq.l + c * 8 : q;
-      cp_async16(q_smem + T::offset(j, c), src, ok);
+      cp_async16(q_smem + TQ::offset(j, c), src, ok);
     }
     cp_async_commit();
   }
-  // one thread asks TMA for a tile's K and V, one box per swizzle atom;
-  // keys past Lk arrive as zeros
+  // one thread asks TMA for a tile's K and its slice of V, one box per swizzle
+  // atom; keys past Lk and columns past the maps' widths arrive as zeros
   const auto load_kv = [&](int t, int s) {
-    const int k0 = k_begin + t * kKeys;
-    mbar_expect_tx(bar(s), 2 * T::kBytes);
+    const int k0 = k_begin + t * KEYS;
+    mbar_expect_tx(bar(s), S::kStageBytes);
 #pragma unroll
-    for (int a = 0; a < DH / T::kElemsPerRow; ++a) {
-      tma_load_4d(k_smem(s) + a * T::kAtomBytes, &k_map, bar(s), a * T::kElemsPerRow, k0, kvh, b);
-      tma_load_4d(v_smem(s) + a * T::kAtomBytes, &v_map, bar(s), a * T::kElemsPerRow, k0, kvh, b);
-    }
+    for (int a = 0; a < TK::kAtoms; ++a)
+      tma_load_4d(k_smem(s) + a * TK::kAtomBytes, &k_map, bar(s), a * TK::kElemsPerRow, k0, kvh, b);
+#pragma unroll
+    for (int a = 0; a < TV::kAtoms; ++a)
+      tma_load_4d(v_smem(s) + a * TV::kAtomBytes, &v_map, bar(s), v0 + a * TV::kElemsPerRow, k0,
+                  kvh, b);
   };
   if (tid == 0) {
 #pragma unroll
@@ -411,9 +462,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
   fence_proxy_async();
   __syncthreads();
 
-  float o[DH / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -424,27 +475,27 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
 
     // S = Q.K^T: accumulator register j holds row 16*warp + lane/4 + 8*((j/2)%2),
     // key 8*(j/4) + 2*(lane%4) + j%2 of the tile
-    float s[kKeys / 2];
+    float s[KEYS / 2];
 #pragma unroll
-    for (int j = 0; j < kKeys / 2; ++j) s[j] = 0.f;
+    for (int j = 0; j < KEYS / 2; ++j) s[j] = 0.f;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      if constexpr (T::kQInRegs)
-        Wgmma<kKeys>::rs<0>(s, qa[kk], T::k_major(k_smem(stage), kk));
+    for (int kk = 0; kk < DQK / 16; ++kk) {
+      if constexpr (S::kQInRegs)
+        Wgmma<KEYS>::template rs<0>(s, qa[kk], TK::k_major(k_smem(stage), kk));
       else
-        Wgmma<kKeys>::ss(s, T::k_major(q_smem, kk), T::k_major(k_smem(stage), kk));
+        Wgmma<KEYS>::ss(s, TQ::k_major(q_smem, kk), TK::k_major(k_smem(stage), kk));
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
 
-    const int k0 = k_begin + t * kKeys;
-    const bool edge = k0 < max_lo || k0 + kKeys > min_hi;  // some key is masked for some row
+    const int k0 = k_begin + t * KEYS;
+    const bool edge = k0 < max_lo || k0 + KEYS > min_hi;  // some key is masked for some row
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kKeys / 2; ++j) {
+    for (int j = 0; j < KEYS / 2; ++j) {
       const int rr = (j >> 1) & 1;
       const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
       float x = s[j] * scale_log2;
@@ -465,30 +516,31 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
     }
     // P in bf16 as wgmma's A fragment: k-step kk takes accumulator registers
     // 8kk..8kk+7, pairs (row, row + 8, row, row + 8) of two 8-key blocks
-    uint32_t a[kKeys / 16][4];
+    uint32_t a[KEYS / 16][4];
 #pragma unroll
-    for (int j = 0; j < kKeys / 2; j += 2) {
+    for (int j = 0; j < KEYS / 2; j += 2) {
       const int rr = (j >> 1) & 1;
       const float p0 = fast_exp2(s[j] - base[rr]), p1 = fast_exp2(s[j + 1] - base[rr]);
       l[rr] += p0 + p1;
       a[j / 8][(j % 8) / 2] = pack_bf16(p0, p1);
     }
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P.V
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-      Wgmma<DH>::template rs<1>(o, a[kk], T::mn_major(v_smem(stage), kk));
+    for (int kk = 0; kk < KEYS / 16; ++kk)
+      Wgmma<DV>::template rs<1>(o, a[kk], TV::mn_major(v_smem(stage), kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
     __syncthreads();  // every thread is done with this stage before it is refilled
   }
 
-  // O / max(l, 1e-30) in bf16 through the out strides; rows past Lq * group are dropped
+  // O / max(l, 1e-30) in bf16 through the out strides; rows past Lq * group
+  // and columns past Dv are dropped
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     float sum = l[rr];
@@ -499,10 +551,12 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
     if (r >= rows_total) continue;
     __nv_bfloat16* row = out + b * so.b + (kvh * group + r / lq) * so.h + (r % lq) * so.l;
 #pragma unroll
-    for (int c8 = 0; c8 < DH / 8; ++c8) {
+    for (int c8 = 0; c8 < DV / 8; ++c8) {
       const int i = 4 * c8 + 2 * rr;
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * c8 + 2 * (lane & 3)) =
-          __floats2bfloat162_rn(o[i] / denom, o[i + 1] / denom);
+      const int col = v0 + 8 * c8 + 2 * (lane & 3);
+      if (col < dv)
+        *reinterpret_cast<__nv_bfloat162*>(row + col) =
+            __floats2bfloat162_rn(o[i] / denom, o[i + 1] / denom);
     }
   }
 }
@@ -527,19 +581,19 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [B, Hkv, Lk, Dh] through its strides as a 4-d map (Dh, Lk, Hkv, B), one box
-// = one swizzle atom of a 64-key tile
-template <int DH>
+// [B, Hkv, Lk, width] through its strides as a 4-d map (width, Lk, Hkv, B),
+// one box = one swizzle atom of a tile T (a box past the width fills zeros)
+template <typename T>
 static bool encode_kv(CUtensorMap* map, const void* base, int batch, int n_kv_heads, int lk,
-                      const Strides& st) {
-  using T = Tile<DH>;
+                      int width, const Strides& st) {
+  constexpr int DH = T::kElemsPerRow * T::kAtoms;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {DH, static_cast<cuuint64_t>(lk), static_cast<cuuint64_t>(n_kv_heads),
-                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(lk),
+                              static_cast<cuuint64_t>(n_kv_heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.l) * 2, static_cast<cuuint64_t>(st.h) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {T::kElemsPerRow, kKeys, 1, 1};
+  const cuuint32_t box[4] = {T::kElemsPerRow, T::kAtomBytes / T::kRowBytes, 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -548,16 +602,20 @@ static bool encode_kv(CUtensorMap* map, const void* base, int batch, int n_kv_he
          CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DQK, int DV, int KEYS>
 static cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
-                          int n_kv_heads, int group, int lq, int lk, int row_tiles, int bh_count,
-                          int blocks, const Strides* st, int causal, int window, float scale_log2,
-                          cudaStream_t stream) {
+                          int n_kv_heads, int group, int lq, int lk, int dqk, int dv,
+                          int row_tiles, int bh_count, int blocks, const Strides* st, int causal,
+                          int window, float scale_log2, cudaStream_t stream) {
+  using S = Shape<DQK, DV, KEYS>;
+  static_assert(S::kSmemBytes <= 227 * 1024, "a block's shared memory");
+  if (dqk > DQK || dv > dqk) return cudaErrorInvalidValue;
   CUtensorMap k_map{}, v_map{};  // never read when there is no key
-  if (lk > 0 && !(encode_kv<DH>(&k_map, k, batch, n_kv_heads, lk, st[1]) &&
-                  encode_kv<DH>(&v_map, v, batch, n_kv_heads, lk, st[2])))
+  if (lk > 0 &&
+      !(encode_kv<typename S::TK>(&k_map, k, batch, n_kv_heads, lk, dqk, st[1]) &&
+        encode_kv<typename S::TV>(&v_map, v, batch, n_kv_heads, lk, dv, st[2])))
     return cudaErrorInvalidValue;
-  const int smem = Tile<DH>::kSmemBytes;
+  const int smem = S::kSmemBytes;
   // the dynamic shared-memory limit is raised once per head dim and device
   static std::atomic<uint64_t> raised{0};
   int device = 0;
@@ -565,30 +623,62 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
   if (e != cudaSuccess) return e;
   const uint64_t bit = uint64_t{1} << (device & 63);
   if ((raised.load(std::memory_order_acquire) & bit) == 0) {
-    e = cudaFuncSetAttribute(flash_attention_sm90_kernel<DH>,
+    e = cudaFuncSetAttribute(flash_attention_sm90_kernel<DQK, DV, KEYS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     raised.fetch_or(bit, std::memory_order_release);
   }
-  flash_attention_sm90_kernel<DH><<<blocks, kThreads, smem, stream>>>(
+  const dim3 grid(blocks, (dv + DV - 1) / DV);  // y: the slices of the value columns
+  flash_attention_sm90_kernel<DQK, DV, KEYS><<<grid, kThreads, smem, stream>>>(
       k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
-      n_kv_heads, group, lq, lk, row_tiles, bh_count, st[0], st[3], causal, window, scale_log2);
+      n_kv_heads, group, lq, lk, dqk, dv, row_tiles, bh_count, st[0], st[3], causal, window,
+      scale_log2);
   return cudaGetLastError();
+}
+
+// The instantiations, narrowest first: Q/K width, value slice width, keys
+// a stage.
+#define FA90_WIDTHS(X) \
+  X(32, 32, 64)        \
+  X(64, 64, 64)        \
+  X(128, 128, 64)      \
+  X(192, 128, 64)      \
+  X(256, 256, 64)      \
+  X(576, 256, 32)
+
+// The instantiation that takes (dqk, dv): the first of FA90_WIDTHS whose
+// Q/K width holds dqk and whose value slice holds dv, or is the widest
+// slice (kMaxSlice), which then cuts the value columns over grid.y; its
+// widths into widths[0..1]. False when none does, or when a width is no
+// multiple of 8 (16-byte rows) or dv > dqk.
+constexpr int kMaxSlice = 256;
+static bool pick(int dqk, int dv, int* widths) {
+  if (dqk <= 0 || dv <= 0 || dv > dqk || dqk % 8 != 0 || dv % 8 != 0) return false;
+#define FA90_PICK(PK, PV, KEYS)                     \
+  if (dqk <= PK && (dv <= PV || PV == kMaxSlice)) { \
+    widths[0] = PK;                                 \
+    widths[1] = PV;                                 \
+    return true;                                    \
+  }
+  FA90_WIDTHS(FA90_PICK)
+#undef FA90_PICK
+  return false;
 }
 
 }  // namespace repro_fa90
 
-// q [B, H, Lq, Dh], k/v [B, Hkv, Lk, Dh], out [B, H, Lq, Dh], all bfloat16,
-// given by their data pointers and strides[12] = (batch, head, position)
-// element strides of q, k, v, out in that order: the last dim contiguous,
-// every base and stride a multiple of 16 bytes (cp.async and TMA). Dh is
-// 32, 64, 128 or 256; H is a multiple of Hkv. Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue when the K/V
-// tensor maps cannot be encoded.
+// q [B, H, Lq, Dqk], k [B, Hkv, Lk, Dqk], v [B, Hkv, Lk, Dv], out [B, H, Lq,
+// Dv], all bfloat16, given by their data pointers and strides[12] = (batch,
+// head, position) element strides of q, k, v, out in that order: the last
+// dim contiguous, every base and stride a multiple of 16 bytes (cp.async
+// and TMA). (Dqk, Dv) is a pair pick takes; H is a multiple of Hkv. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for another pair or when the K/V tensor maps cannot
+// be encoded.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const void* v, void* out,
                                           int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                                          int dh, const int64_t* strides, int causal, int window,
-                                          float scale, void* stream) {
+                                          int dqk, int dv, const int64_t* strides, int causal,
+                                          int window, float scale, void* stream) {
   using namespace repro_fa90;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || lk < 0) return cudaErrorInvalidValue;
@@ -603,38 +693,32 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const vo
   const int tiles = static_cast<int>(row_tiles), bhc = static_cast<int>(bh);
   const int blocks = tiles * bhc;
   const float sl2 = scale * kLog2e;
-  switch (dh) {
-    case 32:
-      return launch<32>(q, k, v, out, batch, n_kv_heads, group, lq, lk, tiles, bhc, blocks, st,
-                        causal, window, sl2, s);
-    case 64:
-      return launch<64>(q, k, v, out, batch, n_kv_heads, group, lq, lk, tiles, bhc, blocks, st,
-                        causal, window, sl2, s);
-    case 128:
-      return launch<128>(q, k, v, out, batch, n_kv_heads, group, lq, lk, tiles, bhc, blocks, st,
-                         causal, window, sl2, s);
-    case 256:
-      return launch<256>(q, k, v, out, batch, n_kv_heads, group, lq, lk, tiles, bhc, blocks, st,
-                         causal, window, sl2, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  int w[2];
+  if (!pick(dqk, dv, w)) return cudaErrorInvalidValue;
+#define FA90_LAUNCH(PK, PV, KEYS)                                                         \
+  if (w[0] == PK && w[1] == PV)                                                           \
+    return launch<PK, PV, KEYS>(q, k, v, out, batch, n_kv_heads, group, lq, lk, dqk, dv,  \
+                                tiles, bhc, blocks, st, causal, window, sl2, s);
+  FA90_WIDTHS(FA90_LAUNCH)
+#undef FA90_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of the launch at head dim dh (Q, two K/V stages
-// and the alignment slack), or -1 for a head dim the kernel does not take.
-extern "C" int repro_flash_attention_sm90_smem_bytes(int dh) {
+// Dynamic shared memory of the launch at head dims (dqk, dv) (Q, two K/V
+// stages and the alignment slack), or -1 for a pair the kernel does not take.
+extern "C" int repro_flash_attention_sm90_smem_bytes(int dqk, int dv) {
   using namespace repro_fa90;
-  switch (dh) {
-    case 32:
-      return Tile<32>::kSmemBytes;
-    case 64:
-      return Tile<64>::kSmemBytes;
-    case 128:
-      return Tile<128>::kSmemBytes;
-    case 256:
-      return Tile<256>::kSmemBytes;
-    default:
-      return -1;
-  }
+  int w[2];
+  if (!pick(dqk, dv, w)) return -1;
+#define FA90_SMEM(PK, PV, KEYS) \
+  if (w[0] == PK && w[1] == PV) return Shape<PK, PV, KEYS>::kSmemBytes;
+  FA90_WIDTHS(FA90_SMEM)
+#undef FA90_SMEM
+  return -1;
+}
+
+// The widths (Q/K, value slice) of the instantiation that runs (dqk, dv),
+// into widths[2]: 0, or -1 for a pair the kernel does not take (see pick).
+extern "C" int repro_flash_attention_sm90_widths(int dqk, int dv, int* widths) {
+  return repro_fa90::pick(dqk, dv, widths) ? 0 : -1;
 }

@@ -33,14 +33,20 @@ Strides are passed to the kernels, so a ``[B, L, H, Dh]`` activation or a
 ``[B, buf, Hkv, Dh]`` KV cache viewed as ``[B, H, L, Dh]`` (a transpose)
 is read in place; only a last dim that is not contiguous, or a base or
 stride that is not a multiple of 16 bytes (the kernels' 16-byte copies
-and TMA's tensor maps), is copied first.
+and TMA's tensor maps), is copied first. The value rows may be narrower
+than the key rows (``Dv <= Dqk``, MLA) and may be a view of the keys'
+first ``Dv`` columns (MLA's latent cache), which is read in place too.
+Each source is instantiated at a few widths and runs a pair at the
+narrowest that holds it, with zero columns past Dqk and Dv
+(:func:`kernel_widths` asks the source which); a pair that none holds
+raises ``ValueError`` on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,6 +65,9 @@ HEAD_DIMS = (32, 64, 128, 256)
 KERNELS = {"sm90": ("flash_attention_sm90", "repro_flash_attention_sm90"),
            "cuda_core": ("flash_attention", "repro_flash_attention"),
            "decode": ("flash_attention", "repro_flash_attention_decode")}
+# source -> its C entry point that names the instantiation a (Dqk, Dv) runs at
+WIDTHS = {"flash_attention_sm90": "repro_flash_attention_sm90_widths",
+          "flash_attention": "repro_flash_attention_widths"}
 
 #: float32 attention takes the decode route when ``group * Lq`` (the query
 #: rows of one kv head) is at most this, and always at ``Lq == 1``.
@@ -81,8 +90,8 @@ DECODE_ROWS = 8  # query rows a decode block holds at most (kDecodeRowsMax)
 TILE_THREADS = 256
 TILE_GROUPS = 16
 
-# q, k, v, out, batch, heads, kv_heads, lq, lk, dh, strides, causal, window, scale
-_COMMON = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+# q, k, v, out, batch, heads, kv_heads, lq, lk, dqk, dv, strides, causal, window, scale
+_COMMON = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int64)]
            + [ctypes.c_int] * 2 + [ctypes.c_float])
 # ..., then the tile route's row tile, or the decode route's scratch (partial
 # acc, partial (m, l)), row tile, n_splits, chunk; the stream last
@@ -111,20 +120,25 @@ def _route(q, group: int = 1) -> str:
 
 
 def tile_shape(dh: int, small: bool) -> Tuple[int, int]:
-    """``(BM, BN)`` of a tile-route block at head dim ``dh``
-    (``csrc/flash_attention.cu``, ``Tile<DH, kSmall>``): its query rows
+    """``(BM, BN)`` of a tile-route block at Q/K width ``dh``
+    (``csrc/flash_attention.cu``, ``Tile<DK, DV, kSmall>``): its query rows
     and the keys of its key tiles. Each of its 16 x 16 threads holds ``R =
-    BM / 16`` rows and scores ``C = BN / 16`` keys of a key tile: 8 x 4 in
-    the large tile up to Dh 128, 4 x 2 at Dh 256, 1 x 1 in the small one."""
-    r, c = (1, 1) if small else (8, 4) if dh <= 128 else (4, 2)
+    BM / 16`` rows and scores ``C = BN / 16`` keys of a key tile: in the
+    large tile 8 x 4 up to 128, 4 x 2 up to 256, 2 x 1 wider (MLA's latent,
+    576); 1 x 1 in the small one. The bounds are instantiated widths, so a
+    pair gets the tile of the instantiation it runs at."""
+    r, c = (1, 1) if small else (8, 4) if dh <= 128 else (4, 2) if dh <= 256 else (2, 1)
     return TILE_GROUPS * r, TILE_GROUPS * c
 
 
-def tile_smem_bytes(dh: int, small: bool) -> int:
-    """Dynamic shared memory of a tile-route block: Q ``[BM, Dh]``, two
-    stages each of K and V ``[BN, Dh]``, and P ``[BN, BM + 4]``, float32."""
+def tile_smem_bytes(dh: int, small: bool, dv: Optional[int] = None) -> int:
+    """Dynamic shared memory of a tile-route block of widths ``dh`` (Q and
+    K) and ``dv`` (V; ``None``: ``dh``), an instantiation's: Q ``[BM,
+    dh]``, two stages each of K ``[BN, dh]`` and V ``[BN, dv]``, and P
+    ``[BN, BM + 4]``, float32."""
     bm, bn = tile_shape(dh, small)
-    return 4 * (bm * dh + 4 * bn * dh + bn * (bm + 4))
+    dv = dh if dv is None else dv
+    return 4 * (bm * dh + 2 * bn * dh + 2 * bn * dv + bn * (bm + 4))
 
 
 def tile_plan(batch: int, kv_heads: int, rows: int, dh: int, n_sm: int) -> Tuple[int, int, int]:
@@ -168,14 +182,18 @@ def key_tiles(tile: int, bm: int, bn: int, rows: int, group: int, lq: int, lk: i
 
 
 def decode_layout(dh: int) -> Tuple[int, int, int]:
-    """``(lanes, teams, unit)`` of a decode block at head dim ``dh``
-    (``csrc/flash_attention.cu``, ``Decode<DH>``): a team of ``lanes``
-    lanes holds one key row (4 or 8 of its floats a lane), the block's
+    """``(lanes, teams, unit)`` of a decode block whose key rows are ``dh``
+    wide, an instantiation's Q/K width; the values (Dv <= Dqk) take the
+    same lanes (``csrc/flash_attention.cu``, ``Decode<DK, DV>``): a team of
+    ``lanes`` lanes (8, 16 or 32: the least that holds a key row's 16-byte
+    chunks, 32 at most) holds one key row, ``vec`` chunks a lane (the last
+    lanes of a row that is no multiple of them hold zeros), the block's
     ``teams`` teams take the keys of their split in turn, and a team folds
-    ``unit`` keys at a time."""
-    lanes = min(32, dh // 4)
-    vec = dh // (4 * lanes)
-    return lanes, DECODE_THREADS // lanes, 8 // vec
+    ``unit = 8 // vec`` keys at a time (at least one)."""
+    k4 = dh // 4
+    lanes = 8 if k4 <= 8 else 16 if k4 <= 16 else 32
+    vec = -(-k4 // lanes)
+    return lanes, DECODE_THREADS // lanes, max(1, 8 // vec)
 
 
 def split_chunk(lk: int, splits: int) -> Tuple[int, int]:
@@ -189,7 +207,8 @@ def split_chunk(lk: int, splits: int) -> Tuple[int, int]:
 
 def _least_split(dh: int) -> int:
     """The fewest keys a split of more than one holds: one round of the
-    block's teams, and DECODE_SPLIT_BYTES of K and V."""
+    block's teams, and DECODE_SPLIT_BYTES of K and V (each row counted
+    ``dh`` wide)."""
     _, teams, unit = decode_layout(dh)
     return max(teams * unit, DECODE_SPLIT_BYTES // (8 * dh))
 
@@ -250,6 +269,24 @@ def _lib(route: str):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_widths(route: str, dqk: int, dv: int) -> Tuple[int, int]:
+    """``(DK, DV)``: the widths of the instantiation ``route``'s source runs
+    ``(dqk, dv)`` at, the narrowest of its table that holds both (for
+    ``"sm90"`` DV is the slice of value columns a block holds), as the
+    source's own widths entry answers; ``ValueError`` naming the pair where
+    none does. Builds the source on first use."""
+    source = KERNELS[route][0]
+    fn = getattr(_build.load(source), WIDTHS[source])
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    if fn(dqk, dv, out) != 0:
+        raise ValueError(f"flash_attention: no {route} kernel takes head dims (Dqk, Dv) = "
+                         f"{(dqk, dv)}")
+    return out[0], out[1]
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its last dim is contiguous and its base and every
     other stride are positive multiples of 16 bytes (the kernels' 16-byte
@@ -260,38 +297,56 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
+def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty ``[B, H, Lq, Dv]`` in q's dtype whose first three dims lie
+    in memory in q's order (a ``[B, L, H, Dv]`` buffer for q viewed from
+    ``[B, L, H, Dqk]``)."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=q.stride, reverse=True)
+    out = q.new_empty([q.shape[d] for d in order] + [dv])
+    return out.permute(*[order.index(d) for d in range(3)], 3)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Softmax attention of ``q [B, H, Lq, Dh]`` over ``k, v [B, Hkv, Lk,
-    Dh]`` (``H`` a multiple of ``Hkv``), output ``[B, H, Lq, Dh]`` in q's
-    dtype with q's memory layout. Query ``i`` sits at position
-    ``Lk - Lq + i``; ``window > 0`` keeps keys ``> position - window``.
-    Matches :func:`.ref.flash_attention_ref` (in bfloat16 within bf16's
-    rounding: the products take bf16 operands)."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q [B, H, Lq, Dh] and k, v [B, Hkv, Lk, Dh], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention of ``q [B, H, Lq, Dqk]`` over ``k [B, Hkv, Lk,
+    Dqk]`` and ``v [B, Hkv, Lk, Dv]`` (``H`` a multiple of ``Hkv``, ``Dv <=
+    Dqk``), output ``[B, H, Lq, Dv]`` in q's dtype with q's memory layout.
+    Query ``i`` sits at position ``Lk - Lq + i``; ``window > 0`` keeps keys
+    ``> position - window``; the scores are scaled by ``scale``
+    (``None``: ``1/sqrt(Dqk)``). Matches :func:`.ref.flash_attention_ref`
+    (in bfloat16 within bf16's rounding: the products take bf16
+    operands)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention: q [B, H, Lq, Dqk], k [B, Hkv, Lk, Dqk] and v "
+                         f"[B, Hkv, Lk, Dv], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, lq, dh = q.shape
     hkv = k.shape[1]
-    if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or h % hkv:
-        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or h % hkv or v.shape[3] > dh:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     route = _route(q, h // hkv)
     if route == "plain":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return _launch(route, q, k, v, causal, window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return _launch(route, q, k, v, causal, window, scale)
 
 
 def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int) -> torch.Tensor:
+            window: int, scale: Optional[float] = None) -> torch.Tensor:
     """Run ``route``'s kernel(s) on CUDA tensors whose shapes
     :func:`flash_attention` has checked. :func:`flash_attention` passes the
     route :func:`_route` chose; chip_smoke.py also calls it with the other
     float32 route, to time both at one shape."""
     global LAUNCHES, SM90_LAUNCHES, DECODE_LAUNCHES
     b, h, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one CUDA device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -299,25 +354,24 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if (route == "sm90") != (q.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention: route {route} does not take {q.dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+    dk = kernel_widths(route, dh, dv)[0]
     if max(b * h * lq, lk) >= 2**31:
         raise ValueError("flash_attention: sizes past int32")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = _aligned(torch.empty_like(q))
+    out = _aligned(_out_like(q, dv))
     if out.numel() == 0:
         return out
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, dh,
-            strides, int(causal), int(window), 1.0 / math.sqrt(dh)]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, dh, dv,
+            strides, int(causal), int(window), scale]
     if route == "cuda_core":
-        args.append(tile_plan(b, hkv, h // hkv * lq, dh, _sm_count(q.device.index))[0])
+        args.append(tile_plan(b, hkv, h // hkv * lq, dk, _sm_count(q.device.index))[0])
     elif route == "decode":
-        row_tile, _, n_splits, chunk = decode_plan(b, hkv, h // hkv * lq, lk, dh,
+        row_tile, _, n_splits, chunk = decode_plan(b, hkv, h // hkv * lq, lk, dk,
                                                    _sm_count(q.device.index))
         scratch = [0, 0]
         if n_splits > 1:  # each row's partial (acc, then m and l) of every split
-            part_acc = torch.empty(b * h * lq, n_splits, dh, dtype=torch.float32,
+            part_acc = torch.empty(b * h * lq, n_splits, dv, dtype=torch.float32,
                                    device=q.device)
             part_ml = torch.empty(b * h * lq, n_splits, 2, dtype=torch.float32,
                                   device=q.device)

@@ -205,15 +205,16 @@ def edge_stream_gather_batched_ref(vval, vact, src_s, eid_s, weights, offsets, a
 
 
 def flash_attention_ref(
-    q: torch.Tensor,  # [B, H, Lq, Dh]
-    k: torch.Tensor,  # [B, Hkv, Lk, Dh]
-    v: torch.Tensor,  # [B, Hkv, Lk, Dh]
+    q: torch.Tensor,  # [B, H, Lq, Dqk]
+    k: torch.Tensor,  # [B, Hkv, Lk, Dqk]
+    v: torch.Tensor,  # [B, Hkv, Lk, Dv]
     causal: bool = True,
     window: int = 0,  # 0 = full; > 0 = sliding window
+    scale: Optional[float] = None,  # None = 1/sqrt(Dqk)
 ) -> torch.Tensor:
-    """Softmax attention in float32, output in q's dtype.
+    """Softmax attention in float32, output ``[B, H, Lq, Dv]`` in q's dtype.
 
-    Scale ``1/sqrt(Dh)``; query ``i`` sits at position ``Lk - Lq + i``
+    Scale ``1/sqrt(Dqk)`` unless given; query ``i`` sits at position ``Lk - Lq + i``
     (decode alignment); causal keeps keys ``<=`` the query position, a
     window keeps keys ``>`` position ``- window``; kv head ``h // (H / Hkv)``
     serves query head ``h`` (GQA). A row whose keys are all masked comes
@@ -227,7 +228,7 @@ def flash_attention_ref(
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
         v = v.repeat_interleave(h // hkv, dim=1)
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
     k_pos = torch.arange(lk, device=q.device)[None, :]
@@ -265,7 +266,8 @@ def _fold_partials(parts, rescale: bool = True):
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = True, window: int = 0, *, n_splits: int,
                               chunk: int, teams: int, unit: int,
-                              rescale: bool = True) -> torch.Tensor:
+                              rescale: bool = True,
+                              scale: Optional[float] = None) -> torch.Tensor:
     """The decode route's schedule (``csrc/flash_attention.cu``,
     ``flash_decode_kernel`` and its combine) in plain PyTorch, for the
     tests: what :func:`flash_attention_ref` computes, taken in the
@@ -281,7 +283,8 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
         v = v.repeat_interleave(h // hkv, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(dh))
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
     k_pos = torch.arange(lk, device=q.device)[None, :]
     mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
@@ -292,7 +295,7 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~mask, float("-inf"))
     vf = v.float()
     neg = torch.full((b, h, lq), float("-inf"), device=q.device)
-    zero_acc = torch.zeros(b, h, lq, dh, device=q.device)
+    zero_acc = torch.zeros(b, h, lq, v.shape[-1], device=q.device)
     splits = []
     for s in range(n_splits):
         s0, s1 = s * chunk, min(lk, (s + 1) * chunk)
@@ -319,7 +322,8 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, window: int = 0, *, bm: int, bn: int,
-                             rescale: bool = True) -> torch.Tensor:
+                             rescale: bool = True,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """The float32 tile route's schedule in plain PyTorch, for the CPU
     tests: what :func:`flash_attention_ref` computes, taken in the kernel's
     steps. A kv head's ``group x Lq`` query rows are numbered
@@ -340,14 +344,15 @@ def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.float().reshape(b, hkv, group, lq, dh).transpose(2, 3).reshape(b, hkv, rows, dh)
     kf, vf = k.float(), v.float()
     q_pos = torch.arange(rows, device=q.device) // group + (lk - lq)
-    out = torch.zeros(b, hkv, rows, dh, device=q.device)
-    scale = 1.0 / math.sqrt(dh)
+    dv = v.shape[-1]
+    out = torch.zeros(b, hkv, rows, dv, device=q.device)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     for tile in range(-(-rows // bm)):
         r0, r1 = tile * bm, min((tile + 1) * bm, rows)
         qt, qp = qf[:, :, r0:r1], q_pos[r0:r1, None]
         m = torch.full((b, hkv, r1 - r0), float("-inf"), device=q.device)
         l_sum = torch.zeros_like(m)
-        acc = torch.zeros(b, hkv, r1 - r0, dh, device=q.device)
+        acc = torch.zeros(b, hkv, r1 - r0, dv, device=q.device)
         for t, inside in key_tiles(tile, bm, bn, rows, group, lq, lk, causal, window):
             k0, k1 = t * bn, min((t + 1) * bn, lk)
             sc = torch.einsum("bhqd,bhkd->bhqk", qt, kf[:, :, k0:k1]) * scale
@@ -367,7 +372,7 @@ def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, k0:k1])
             m = m_new
         out[:, :, r0:r1] = acc / l_sum.clamp_min(1e-30)[..., None]
-    return out.reshape(b, hkv, lq, group, dh).transpose(2, 3).reshape(b, h, lq, dh).to(q.dtype)
+    return out.reshape(b, hkv, lq, group, dv).transpose(2, 3).reshape(b, h, lq, dv).to(q.dtype)
 
 
 def moe_gather_ref(

@@ -435,6 +435,9 @@ def main(argv=None) -> int:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if not cfg.has_decoder:
         raise SystemExit(f"{args.arch} is encoder-only: no decode path")
+    if cfg.frontend != "none":
+        raise SystemExit(f"{args.arch} takes {cfg.frontend} embeddings (its frontend is a "
+                         "stub), not the token prompts this CLI serves")
     model = Model(cfg, dtype=torch.float32 if args.smoke else torch.bfloat16, device=device)
     model.init(torch.Generator(device=device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)

@@ -1,6 +1,7 @@
 """Shared layer primitives: norms, MLPs, RoPE.
 
-The port of the reference's ``models/layers.py`` without its sharding
+The port of the reference's ``models/layers.py`` (RoPE and Qwen2-VL's
+M-RoPE included) without its sharding
 rules (``shd`` is a no-op outside a mesh) and the abstract-init context
 of its dry run; qk-norm is ``rmsnorm`` over the head dim and the
 embedding lookup an index. Weights keep the reference's names, shapes
@@ -16,7 +17,7 @@ expert tensor never has a float32 temporary of its own size.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,6 +110,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def apply_mrope(*_args, **_kwargs):
-    raise NotImplementedError(
-        "M-RoPE (qwen2-vl) is not ported yet: ROADMAP queue A, the LM stack's later slice")
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x [B, S, H, Dh], positions [3, B, S]
+    (the t, h and w position ids); the rotary half of Dh is cut into
+    ``sections`` of frequencies, section ``i`` rotated by position source
+    ``i``."""
+    dh = x.shape[-1]
+    half = dh // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} must cover head_dim/2 = {half}")
+    freqs = rope_freqs(dh, theta, x.device)  # [half]
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                        for i, n in enumerate(sections)])  # [half]
+    pos_per_freq = positions.float()[sec_id]  # [half, B, S]
+    angles = pos_per_freq.permute(1, 2, 0) * freqs  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL's default sections scaled to head_dim (16/24/24 at Dh 128)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return t, h, half - t - h

@@ -1,22 +1,30 @@
-"""Model assembly: the dense family and the MoE family with GQA attention.
+"""Model assembly: the attention families, dense, MoE, vision and audio.
 
-The port of the reference's ``models/model.py`` for qwen3-0.6b,
-granite-20b, deepseek-coder-33b and kimi-k2 (any config of the ``dense``
-or ``moe`` family without MLA, M-RoPE, a sliding window or a frontend).
-Per-layer modules replace the reference's stacked ``blocks`` axis; the
-names are the reference's, so ``blocks.3.attn.wq`` is layer 3 of its
-``params["blocks"]["attn"]["wq"]``. Layer order is the reference's:
+The port of the reference's ``models/model.py`` for every config whose
+blocks are attention blocks: qwen3-0.6b, granite-20b, deepseek-coder-33b,
+kimi-k2, deepseek-v2 (MLA), h2o-danube-3 (sliding window, ring-buffer
+decode), qwen2-vl (M-RoPE, the vision frontend stub) and hubert (the
+audio frontend stub, bidirectional, encoder-only). The SSM and xLSTM
+families (zamba2, xlstm) are not ported. Per-layer modules replace the
+reference's stacked ``blocks`` axis; the names are the reference's, so
+``blocks.3.attn.wq`` is layer 3 of its ``params["blocks"]["attn"]["wq"]``.
+Layer order is the reference's:
 
-* dense: ``blocks`` (attention + MLP) ``n_layers`` times;
+* dense, vlm, audio: ``blocks`` (attention + MLP) ``n_layers`` times;
 * moe: ``dense_blocks`` (the first ``first_dense_layers``), then ``blocks``
   (attention + MoE).
+
+A frontend config (``cfg.frontend != "none"``) takes precomputed patch or
+frame embeddings ``[B, S, D]`` through ``frontend_proj`` where the others
+look tokens up in ``embed``, as the reference's stubs do.
 
 The public surface:
     Model(cfg, dtype, device)           weights allocated, not drawn
     init(generator)                     draw every weight (in slices)
-    forward(tokens)                     (logits, aux) for a whole sequence
-    init_cache(batch, max_len)          KV caches, ``pos`` = 0
-    decode_step(cache, tokens)          one-token serve step -> (logits, cache)
+    forward(tokens=None, embeds=None)   (logits, aux) for a whole sequence
+    init_cache(batch, max_len)          KV or latent caches, ``pos`` = 0
+    decode_step(cache, tokens)          one-token serve step -> (logits, cache);
+                                        a frontend config takes embeds [B, 1, D]
 
 Every attention call goes through the hand-written flash kernel and every
 MoE dispatch through the hand-written gather kernel (on a CUDA device;
@@ -41,17 +49,11 @@ Cache = Dict[str, object]
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what the port does not hold yet:
+    the SSM and xLSTM families."""
     if cfg.xlstm or cfg.ssm:
         raise NotImplementedError(f"{cfg.name}: the SSM and xLSTM families are not ported "
                                   "yet: ROADMAP queue A, the LM stack's later slice")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the vision/audio frontends are not ported "
-                                  "yet: ROADMAP queue A, the LM stack's later slice")
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-                                  "ROADMAP queue A, the LM stack's later slice")
-    attn.check_supported(cfg)
 
 
 class Block(nn.Module):
@@ -61,7 +63,7 @@ class Block(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.ln1 = weight((d,), None, dtype, device)
-        self.attn = attn.gqa_init(cfg, dtype, device)
+        self.attn = (attn.mla_init if cfg.mla else attn.gqa_init)(cfg, dtype, device)
         self.ln2 = weight((d,), None, dtype, device)
         if moe:
             self.moe = moe_mod.moe_init(cfg, dtype, device)
@@ -78,12 +80,14 @@ class Block(nn.Module):
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor,
                 aux: List[dict]) -> torch.Tensor:
-        x = x + attn.gqa_forward(self.attn, cfg, rmsnorm(x, self.ln1, cfg.norm_eps), pos)
+        fwd = attn.mla_forward if cfg.mla else attn.gqa_forward
+        x = x + fwd(self.attn, cfg, rmsnorm(x, self.ln1, cfg.norm_eps), pos)
         return self._ffn(cfg, x, aux)
 
     def decode(self, cfg: ArchConfig, cache: dict, x: torch.Tensor, pos: int,
                aux: List[dict]) -> torch.Tensor:
-        dh, _ = attn.gqa_decode(self.attn, cfg, cache, rmsnorm(x, self.ln1, cfg.norm_eps), pos)
+        dec = attn.mla_decode if cfg.mla else attn.gqa_decode
+        dh, _ = dec(self.attn, cfg, cache, rmsnorm(x, self.ln1, cfg.norm_eps), pos)
         return self._ffn(cfg, x + dh, aux)
 
 
@@ -100,6 +104,8 @@ class Model(nn.Module):
         self.final_norm = weight((d,), None, dtype, dev)
         if not cfg.tie_embeddings:
             self.lm_head = weight((d, cfg.vocab_size), 1.0 / math.sqrt(d), dtype, dev)
+        if cfg.frontend != "none":
+            self.frontend_proj = weight((d, d), 1.0 / math.sqrt(d), dtype, dev)
         n_dense = cfg.first_dense_layers if cfg.moe else 0
         self.dense_blocks = nn.ModuleList(Block(cfg, False, dtype, dev) for _ in range(n_dense))
         self.blocks = nn.ModuleList(Block(cfg, cfg.moe, dtype, dev)
@@ -134,13 +140,31 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # forward (prefill)
     # ------------------------------------------------------------------
+    def _embed(self, inputs: Optional[torch.Tensor]) -> torch.Tensor:
+        """The residual stream's input: embeds [B, S, D] through
+        ``frontend_proj`` for a frontend config, token ids [B, S] looked up
+        in ``embed`` otherwise."""
+        if self.cfg.frontend != "none":
+            if inputs is None or inputs.dim() != 3:
+                raise ValueError(f"{self.cfg.name} takes embeds [B, S, {self.cfg.d_model}] "
+                                 "(its frontend is a stub), not tokens")
+            return inputs.to(self.dtype) @ self.frontend_proj
+        if inputs is None:
+            raise ValueError(f"{self.cfg.name} takes tokens [B, S]")
+        return self.embed[inputs]
+
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens [B, S] -> (logits [B, S, vocab], aux); aux holds the MoE
-        layers' mean ``load_balance_loss`` and ``drop_fraction``."""
-        b, s = tokens.shape
-        x = self.embed[tokens]
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens [B, S] (or embeds [B, S, D] for a frontend config) ->
+        (logits [B, S, vocab], aux); aux holds the MoE layers' mean
+        ``load_balance_loss`` and ``drop_fraction``."""
+        x = self._embed(embeds if self.cfg.frontend != "none" else tokens)
+        b, s = x.shape[0], x.shape[1]
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+        if self.cfg.mrope:  # the reference's _inputs: equal t, h and w position ids
+            pos = pos[None].expand(3, b, s)
         aux: List[dict] = []
         for blk in (*self.dense_blocks, *self.blocks):
             x = blk(self.cfg, x, pos, aux)
@@ -151,9 +175,13 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """``kv`` per ``blocks`` layer, ``kv_dense`` per dense-first layer
-        (MoE family), and ``pos``, the index of the next token (an int)."""
+        (MoE family), and ``pos``, the index of the next token (an int).
+        A layer's cache is its K/V (a ring of ``min(max_len, window)``
+        slots under a sliding window) or, for MLA, its latent."""
+        init = attn.mla_init_cache if self.cfg.mla else attn.gqa_init_cache
+
         def one():
-            return attn.gqa_init_cache(self.cfg, batch, max_len, self.dtype, self.device)
+            return init(self.cfg, batch, max_len, self.dtype, self.device)
         cache: Cache = {"kv": [one() for _ in self.blocks], "pos": 0}
         if self.cfg.moe and self.cfg.first_dense_layers:
             cache["kv_dense"] = [one() for _ in self.dense_blocks]
@@ -161,11 +189,11 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """One serve step: tokens [B, 1] -> (logits [B, 1, vocab], cache).
-        The KV caches are written in place; the returned cache has
-        ``pos`` advanced by one."""
+        """One serve step: tokens [B, 1] (embeds [B, 1, D] for a frontend
+        config) -> (logits [B, 1, vocab], cache). The caches are written in
+        place; the returned cache has ``pos`` advanced by one."""
         pos = cache["pos"]
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         aux: List[dict] = []
         for blk, c in zip(self.dense_blocks, cache.get("kv_dense", [])):
             x = blk.decode(self.cfg, c, x, pos, aux)

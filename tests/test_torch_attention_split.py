@@ -27,13 +27,24 @@ H100_SMS = 132
 LKS = (1, 2, 31, 32, 33)
 MASKS = [(True, 0), (False, 0), (True, 8)]
 HKV = 2
+# the head dims: HEAD_DIMS (Dqk == Dv) by value, then the (Dqk, Dv) pairs of
+# the other LM configs (hubert's 80, h2o-danube's 120, MLA's prefill and
+# absorbed decode, the smoke MLA's)
+CONFIG_PAIRS = [(80, 80), (120, 120), (192, 128), (576, 512), (48, 32), (80, 64)]
+DIMS = list(fa.HEAD_DIMS) + [pytest.param(p, id=f"{p[0]}x{p[1]}") for p in CONFIG_PAIRS]
+
+
+def _dims(dh):
+    """(Dqk, Dv) of a DIMS entry."""
+    return dh if isinstance(dh, tuple) else (dh, dh)
 
 
 def _case(b, group, lq, lk, dh, seed):
+    dqk, dv = _dims(dh)
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, HKV * group, lq, dh)).astype(np.float32)
-    k = rng.normal(size=(b, HKV, lk, dh)).astype(np.float32)
-    v = rng.normal(size=(b, HKV, lk, dh)).astype(np.float32)
+    q = rng.normal(size=(b, HKV * group, lq, dqk)).astype(np.float32)
+    k = rng.normal(size=(b, HKV, lk, dqk)).astype(np.float32)
+    v = rng.normal(size=(b, HKV, lk, dv)).astype(np.float32)
     return q, k, v
 
 
@@ -50,8 +61,12 @@ def _plain(q, k, v, causal, window):
 
 
 def _pallas(q, k, v, causal, window):
-    return np.asarray(ref_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                              block_q=64, block_k=64, interpret=True))
+    """The reference's kernel, which takes one head dim: values narrower
+    than the keys are padded with zero columns, and the output cut back."""
+    dv = v.shape[-1]
+    vp = np.pad(v, [(0, 0)] * 3 + [(0, q.shape[-1] - dv)])
+    return np.asarray(ref_ops.flash_attention(q, k, vp, causal=causal, window=window,
+                                              block_q=64, block_k=64, interpret=True))[..., :dv]
 
 
 def _split_counts(lk, largest):
@@ -75,18 +90,19 @@ def test_split_chunk_cuts_every_key_into_one_split(lk):
         assert all(min(lk, (s + 1) * chunk) > s * chunk for s in range(n)) or lk == 0
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 def test_decode_splits_keep_their_limits(dh):
     """``decode_splits`` never asks for more blocks than about DECODE_WAVES
     an SM, never cuts a split under DECODE_SPLIT_BYTES of K and V (nor
     under one round of the teams) unless there is one split, and depends
     on nothing but its arguments."""
-    _, teams, unit = fa.decode_layout(dh)
-    least = max(teams * unit, fa.DECODE_SPLIT_BYTES // (8 * dh))
+    dqk = _dims(dh)[0]
+    _, teams, unit = fa.decode_layout(dqk)
+    least = max(teams * unit, fa.DECODE_SPLIT_BYTES // (8 * dqk))
     for lk, blocks, n_sm in itertools.product([0, 1, 33, 128, 129, 700, 4096, 70000],
                                               [1, 2, 32, 132, 600, 5000], [1, 16, 132]):
-        n, chunk = fa.decode_splits(lk, blocks, dh, n_sm)
-        assert (n, chunk) == fa.decode_splits(lk, blocks, dh, n_sm)
+        n, chunk = fa.decode_splits(lk, blocks, dqk, n_sm)
+        assert (n, chunk) == fa.decode_splits(lk, blocks, dqk, n_sm)
         assert n >= 1 and (n - 1) * chunk < max(lk, 1) <= n * chunk
         assert n <= max(1, -(-fa.DECODE_WAVES * n_sm // blocks))
         if n > 1:
@@ -107,18 +123,25 @@ def test_decode_plan_at_the_paths_shapes():
     assert fa.decode_plan(4, 8, 2, 4096, 128, H100_SMS) == (2, 1, 16, 256)
     assert fa.decode_plan(4, 8, 8, 4096, 128, H100_SMS) == (8, 1, 16, 256)
     assert fa.decode_plan(2, 1, 48, 32, 128, H100_SMS) == (1, 48, 1, 32)
+    # deepseek-v2's absorbed MLA decode: 128 heads over one latent kv head
+    # (Dqk 576, Dv 512), batch 4: over 32 slots 2 rows a block (256 blocks
+    # reach every SM); over 4,096 8 rows a block, 16 row tiles, the cache cut
+    # into 8 splits of 512 keys (2.2 MB of K and V each)
+    assert fa.decode_plan(4, 1, 128, 32, 576, H100_SMS) == (2, 64, 1, 32)
+    assert fa.decode_plan(4, 1, 128, 4096, 576, H100_SMS) == (8, 16, 8, 512)
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 def test_decode_row_tile_keeps_its_limits(dh):
     """R is 1, 2, 4 or 8, holds all the rows when they fit one tile and
     the blocks fill the card, and is only made smaller while the blocks
     at the most splits the length allows would leave SMs without one."""
-    least = max(fa.decode_layout(dh)[1] * fa.decode_layout(dh)[2],
-                fa.DECODE_SPLIT_BYTES // (8 * dh))
+    dqk = _dims(dh)[0]
+    least = max(fa.decode_layout(dqk)[1] * fa.decode_layout(dqk)[2],
+                fa.DECODE_SPLIT_BYTES // (8 * dqk))
     for rows, kv_heads, lk, n_sm in itertools.product([1, 2, 3, 8, 9, 16, 48], [1, 4, 32, 200],
                                                       [0, 32, 4096], [16, 132]):
-        r = fa.decode_row_tile(rows, kv_heads, lk, dh, n_sm)
+        r = fa.decode_row_tile(rows, kv_heads, lk, dqk, n_sm)
         assert r in (1, 2, 4, 8)
         full = min(8, 1 << (rows - 1).bit_length())
         most = max(1, lk // least)
@@ -129,17 +152,26 @@ def test_decode_row_tile_keeps_its_limits(dh):
 
 def test_decode_layout_matches_the_source():
     """The layout the model takes is the kernel's: 256 threads a block, a
-    team of Dh/4 lanes (32 at most), 8/vec keys a unit, 8 rows a block."""
+    team of 8, 16 or 32 lanes (the least that holds Dqk/4 16-byte chunks,
+    32 at most), 8/vec keys a unit (1 at MLA's 576), 8 rows a block; the
+    configs' other widths lay out as the instantiation they run at (80 and
+    120 as 128, 48 as 64)."""
     text = (_build.CSRC / "flash_attention.cu").read_text()
     assert re.search(r"constexpr int kDecodeThreads = (\d+);", text).group(1) == \
         str(fa.DECODE_THREADS)
     assert re.search(r"constexpr int kDecodeRowsMax = (\d+);", text).group(1) == \
         str(fa.DECODE_ROWS)
-    assert "kLanes = DH / 4 < 32 ? DH / 4 : 32;" in text
+    assert "kLanes = kK4 <= 8 ? 8 : kK4 <= 16 ? 16 : 32;" in text
+    assert "kVec = (kK4 + kLanes - 1) / kLanes;" in text
     assert "kTeams = kDecodeThreads / kLanes;" in text
-    assert "kUnit = 8 / kVec;" in text
+    assert "kUnit = 8 / kVec > 0 ? 8 / kVec : 1;" in text
     assert [fa.decode_layout(d) for d in fa.HEAD_DIMS] == [(8, 32, 8), (16, 16, 8), (32, 8, 8),
                                                            (32, 8, 4)]
+    assert {p: fa.decode_layout(p[0]) for p in CONFIG_PAIRS} == {
+        (80, 80): (32, 8, 8), (120, 120): (32, 8, 8), (192, 128): (32, 8, 4),
+        (576, 512): (32, 8, 1), (48, 32): (16, 16, 8), (80, 64): (32, 8, 8)}
+    assert [fa.decode_layout(d) for d in (80, 120, 48)] == \
+        [fa.decode_layout(128), fa.decode_layout(128), fa.decode_layout(64)]
 
 
 # --------------------------------------------------------------------------
@@ -147,7 +179,7 @@ def test_decode_layout_matches_the_source():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("lq", [1, 2])
 @pytest.mark.parametrize("causal,window", MASKS)
@@ -156,7 +188,7 @@ def test_split_model_matches_pallas(dh, group, lq, causal, window):
     32 and 33, under 1, 2, 3 and Lk splits: the model within 2e-3 of the
     Pallas kernel (at Lk = 33) and within 1e-5 of the plain version."""
     for lk in LKS:
-        q, k, v = _case(2, group, lq, lk, dh, seed=dh + 10 * group + 100 * lq + lk)
+        q, k, v = _case(2, group, lq, lk, dh, seed=sum(_dims(dh)) + 10 * group + 100 * lq + lk)
         plain = _plain(q, k, v, causal, window)
         pallas = _pallas(q, k, v, causal, window) if lk == LKS[-1] else None
         if pallas is not None:
@@ -169,33 +201,34 @@ def test_split_model_matches_pallas(dh, group, lq, causal, window):
                 np.testing.assert_allclose(got, pallas, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_split_model_under_every_split_count(dh, causal, window):
     """Lk = 33 under every split count from 1 to 33 (each split then holds
     one key at the end), group 2 and Lq = 2."""
     lk = 33
-    q, k, v = _case(1, 2, 2, lk, dh, seed=7 * dh)
+    q, k, v = _case(1, 2, 2, lk, dh, seed=7 * sum(_dims(dh)))
     plain = _plain(q, k, v, causal, window)
     for n, chunk in _split_counts(lk, lk):
         np.testing.assert_allclose(_model(q, k, v, causal, window, n, chunk), plain,
                                    rtol=1e-5, atol=1e-5, err_msg=f"splits={n}")
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 def test_split_model_over_a_long_cache(dh):
     """A few thousand keys under every split count from 1 to the most
     ``decode_splits`` gives at that length (one block, the H100's SMs),
     held to Pallas and to the plain version; the split the wrapper takes
     for qwen3's 32 blocks among them."""
     lk = 2500
-    q, k, v = _case(1, 2, 1, lk, dh, seed=dh)
+    dqk, dv = _dims(dh)
+    q, k, v = _case(1, 2, 1, lk, dh, seed=dqk + dv)
     plain = _plain(q, k, v, True, 0)
     np.testing.assert_allclose(plain, _pallas(q, k, v, True, 0), rtol=2e-3, atol=2e-3)
-    largest = fa.decode_splits(lk, 1, dh, H100_SMS)[0]
+    largest = fa.decode_splits(lk, 1, dqk, H100_SMS)[0]
     assert largest > 1
     counts = _split_counts(lk, largest)
-    assert fa.decode_splits(lk, 32, dh, H100_SMS) in counts
+    assert fa.decode_splits(lk, 32, dqk, H100_SMS) in counts
     for n, chunk in counts:
         np.testing.assert_allclose(_model(q, k, v, True, 0, n, chunk), plain, rtol=1e-5,
                                    atol=1e-5, err_msg=f"splits={n}")

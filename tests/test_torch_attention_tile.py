@@ -28,13 +28,24 @@ H100_SMS = 132
 SMEM_LIMIT = 232448  # shared memory a block may use on sm_90 (227 KB)
 MASKS = [(True, 0), (False, 0), (True, 8)]
 HKV = 2
+# the head dims: HEAD_DIMS (Dqk == Dv) by value, then the (Dqk, Dv) pairs of
+# the other LM configs (hubert's 80, h2o-danube's 120, MLA's prefill and
+# absorbed decode, the smoke MLA's)
+CONFIG_PAIRS = [(80, 80), (120, 120), (192, 128), (576, 512), (48, 32), (80, 64)]
+DIMS = list(fa.HEAD_DIMS) + [pytest.param(p, id=f"{p[0]}x{p[1]}") for p in CONFIG_PAIRS]
+
+
+def _dims(dh):
+    """(Dqk, Dv) of a DIMS entry."""
+    return dh if isinstance(dh, tuple) else (dh, dh)
 
 
 def _case(b, group, lq, lk, dh, seed):
+    dqk, dv = _dims(dh)
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, HKV * group, lq, dh)).astype(np.float32)
-    k = rng.normal(size=(b, HKV, lk, dh)).astype(np.float32)
-    v = rng.normal(size=(b, HKV, lk, dh)).astype(np.float32)
+    q = rng.normal(size=(b, HKV * group, lq, dqk)).astype(np.float32)
+    k = rng.normal(size=(b, HKV, lk, dqk)).astype(np.float32)
+    v = rng.normal(size=(b, HKV, lk, dv)).astype(np.float32)
     return q, k, v
 
 
@@ -50,8 +61,12 @@ def _plain(q, k, v, causal, window):
 
 
 def _pallas(q, k, v, causal, window):
-    return np.asarray(ref_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                              block_q=64, block_k=64, interpret=True))
+    """The reference's kernel, which takes one head dim: values narrower
+    than the keys are padded with zero columns, and the output cut back."""
+    dv = v.shape[-1]
+    vp = np.pad(v, [(0, 0)] * 3 + [(0, q.shape[-1] - dv)])
+    return np.asarray(ref_ops.flash_attention(q, k, vp, causal=causal, window=window,
+                                              block_q=64, block_k=64, interpret=True))[..., :dv]
 
 
 def _allowed(group, lq, lk, causal, window):
@@ -71,7 +86,7 @@ def _allowed(group, lq, lk, causal, window):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 @pytest.mark.parametrize("small", [False, True])
 @pytest.mark.parametrize("causal,window", MASKS + [(False, 5), (True, 1)])
 def test_key_tiles_hold_every_unmasked_pair(dh, small, causal, window):
@@ -81,7 +96,7 @@ def test_key_tiles_hold_every_unmasked_pair(dh, small, causal, window):
     tile it visits; no visited key tile is masked for every row of the
     block; a tile marked inside has no masked pair among the block's rows;
     and the visited tiles are consecutive."""
-    bm, bn = fa.tile_shape(dh, small)
+    bm, bn = fa.tile_shape(_dims(dh)[0], small)
     for group, lq, lk in itertools.product([1, 2, 8], [1, 5, 31, 33, 70, 130],
                                            [1, 31, 64, 65, 200]):
         rows = group * lq
@@ -114,17 +129,27 @@ def test_tile_plan_at_the_paths_shapes():
     assert fa.tile_plan(2, 8, 2 * 16, 128, H100_SMS) == (16, 16, 2)
     assert fa.tile_plan(4, 8, 2 * 2048, 256, H100_SMS) == (64, 32, 64)
     assert fa.tile_plan(1, 1, 1, 32, H100_SMS) == (16, 16, 1)
+    # the other widths, at the instantiation each runs at: h2o-danube's f32
+    # forward over 4,160 tokens (32 heads over 8, Dh 120 at 128) takes the
+    # large tile; deepseek-v2's MLA prefill ([1, 128, 2048] over 128 kv heads,
+    # (192, 128)) 64 x 32; MLA's latent (576, 512) 32 x 16, and the small tile
+    # where blocks are few
+    assert fa.tile_plan(1, 8, 4 * 4160, 128, H100_SMS) == (128, 64, 130)
+    assert fa.tile_plan(1, 128, 2048, 192, H100_SMS) == (64, 32, 32)
+    assert fa.tile_plan(4, 1, 128 * 16, 576, H100_SMS) == (32, 16, 64)
+    assert fa.tile_plan(1, 1, 128, 576, H100_SMS) == (16, 16, 8)
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 def test_tile_plan_keeps_its_limits(dh):
     """The large tile whenever its blocks give every SM one, else the
     small; the tiles hold every row; a pure function of its arguments."""
-    big, small = fa.tile_shape(dh, False), fa.tile_shape(dh, True)
+    dqk = _dims(dh)[0]
+    big, small = fa.tile_shape(dqk, False), fa.tile_shape(dqk, True)
     for batch, kv_heads, rows, n_sm in itertools.product([1, 2, 33], [1, 4, 8], [1, 32, 129, 4096],
                                                          [16, 132]):
-        bm, bn, tiles = fa.tile_plan(batch, kv_heads, rows, dh, n_sm)
-        assert (bm, bn, tiles) == fa.tile_plan(batch, kv_heads, rows, dh, n_sm)
+        bm, bn, tiles = fa.tile_plan(batch, kv_heads, rows, dqk, n_sm)
+        assert (bm, bn, tiles) == fa.tile_plan(batch, kv_heads, rows, dqk, n_sm)
         assert tiles * bm >= rows > (tiles - 1) * bm
         large_blocks = batch * kv_heads * -(-rows // big[0])
         assert (bm, bn) == (big if large_blocks >= n_sm else small)
@@ -132,28 +157,34 @@ def test_tile_plan_keeps_its_limits(dh):
 
 def test_tile_layout_matches_the_source():
     """The tiles the model and the wrapper take are the kernel's: 256
-    threads as 16 x 16 groups, R x C a thread (8 x 4 up to Dh 128, 4 x 2 at
-    256, 1 x 1 small), and the shared memory of every tile within the 227
-    KB a block may use, by the source's own count."""
+    threads as 16 x 16 groups, R x C a thread (8 x 4 up to a Q/K width of
+    128, 4 x 2 up to 256, 2 x 1 wider, 1 x 1 small), a width between two
+    bounds taking the tile of the instantiation above it, and the shared
+    memory of every instantiation the configs run at within the 227 KB a
+    block may use, by the source's own count."""
     text = (_build.CSRC / "flash_attention.cu").read_text()
     assert re.search(r"constexpr int kTileThreads = (\d+);", text).group(1) == \
         str(fa.TILE_THREADS)
     assert re.search(r"constexpr int kGroups = (\d+);", text).group(1) == str(fa.TILE_GROUPS)
     assert fa.TILE_GROUPS ** 2 == fa.TILE_THREADS
-    assert "R = kSmall ? 1 : (DH <= 128 ? 8 : 4);" in text
-    assert "C = kSmall ? 1 : (DH <= 128 ? 4 : 2);" in text
+    assert "R = kSmall ? 1 : (DK <= 128 ? 8 : DK <= 256 ? 4 : 2);" in text
+    assert "C = kSmall ? 1 : (DK <= 128 ? 4 : DK <= 256 ? 2 : 1);" in text
     assert "BM = kGroups * R;" in text and "BN = kGroups * C;" in text
     assert "PS = BM + 4;" in text
-    assert "kSmemFloats = BM * DH + 4 * BN * DH + BN * PS;" in text
-    for dh in fa.HEAD_DIMS:
+    assert "kSmemFloats = BM * DK + 2 * BN * DK + 2 * BN * DV + BN * PS;" in text
+    for dk, dv in [(d, d) for d in fa.HEAD_DIMS] + [(192, 128), (576, 512)]:
         for small in (False, True):
-            r, c = (1, 1) if small else (8, 4) if dh <= 128 else (4, 2)
+            r, c = (1, 1) if small else (8, 4) if dk <= 128 else (4, 2) if dk <= 256 else (2, 1)
             bm, bn = 16 * r, 16 * c
-            assert fa.tile_shape(dh, small) == (bm, bn)
-            assert fa.tile_smem_bytes(dh, small) == 4 * (bm * dh + 4 * bn * dh + bn * (bm + 4))
-            assert fa.tile_smem_bytes(dh, small) <= SMEM_LIMIT
+            assert fa.tile_shape(dk, small) == (bm, bn)
+            assert fa.tile_smem_bytes(dk, small, dv) == \
+                4 * (bm * dk + 2 * bn * dk + 2 * bn * dv + bn * (bm + 4))
+            assert fa.tile_smem_bytes(dk, small, dv) <= SMEM_LIMIT
+    for dqk, dk in [(80, 128), (120, 128), (48, 64)]:
+        assert fa.tile_shape(dqk, False) == fa.tile_shape(dk, False)
     assert fa.tile_smem_bytes(128, False) == 230400
     assert fa.tile_smem_bytes(256, False) == 205312
+    assert fa.tile_smem_bytes(576, False, 512) == 215296
 
 
 # --------------------------------------------------------------------------
@@ -161,7 +192,7 @@ def test_tile_layout_matches_the_source():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dh", DIMS)
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_tile_model_matches_pallas(dh, group, causal, window):
@@ -170,7 +201,8 @@ def test_tile_model_matches_pallas(dh, group, causal, window):
     the large and the small tile: the model within 2e-3 of the Pallas
     kernel and within 1e-5 of the plain version."""
     lq = {1: 130, 2: 70, 8: 20}[group]
-    q, k, v = _case(2, group, lq, lq + 37, dh, seed=dh + 10 * group + int(causal) + window)
+    q, k, v = _case(2, group, lq, lq + 37, dh,
+                    seed=sum(_dims(dh)) + 10 * group + int(causal) + window)
     plain = _plain(q, k, v, causal, window)
     pallas = _pallas(q, k, v, causal, window)
     np.testing.assert_allclose(plain, pallas, rtol=2e-3, atol=2e-3)

@@ -443,11 +443,14 @@ def test_cuda_shuffle_reduce_batched_rows_equal_one_row_launches(cuda, dtype, op
         rows = torch.stack([sr.shuffle_reduce_sorted(vals[q], offsets, n_out, op, lst)
                             for q in range(k)])
         assert torch.equal(_bits(got), _bits(rows))
-    want = ref.segment_reduce_batched_ref(vals, offsets, op)
+    # the oracle on the CPU, float values in float64: on the card the plain
+    # version scatters with atomics, so its float32 sums change from run to run
+    src = vals.cpu().double() if dtype == torch.float32 else vals.cpu()
+    want = ref.segment_reduce_batched_ref(src, offsets.cpu(), op).to(cuda)
     if dtype == torch.float32 and op == "+":
-        assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+        assert torch.allclose(got.double(), want, rtol=1e-4, atol=1e-3)
     else:
-        assert torch.equal(got, want)
+        assert torch.equal(got, want.to(dtype))
 
 
 @pytest.mark.gpu
@@ -740,6 +743,94 @@ def test_cuda_flash_attention_reads_the_cache_in_place(cuda):
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=2e-3, atol=2e-3)
 
 
+# the (Dqk, Dv) pairs of the LM configs beside HEAD_DIMS: hubert (80),
+# h2o-danube (120), MLA's prefill (192, 128) and absorbed decode (576, 512),
+# the smoke MLA's; and 96, which no config uses, run at 128 as they are
+NEW_PAIRS = [(80, 80), (120, 120), (192, 128), (576, 512), (48, 32), (80, 64), (96, 96)]
+# route -> (dtype, group, lq, lk): a prefill on the tile route (more rows than
+# DECODE_MAX_ROWS), a decode step (Lq = 1) over a cache with splits
+PAIR_ROUTES = {"sm90": (torch.bfloat16, 2, 70, 130), "cuda_core": (torch.float32, 2, 70, 130),
+               "decode": (torch.float32, 8, 1, 3000)}
+
+
+def _pair_inputs(gen, dev, dqk, dv, dtype, group, lq, lk, hkv=2, b=2):
+    q = torch.randn(b, hkv * group, lq, dqk, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, hkv, lk, dqk, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, hkv, lk, dv, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def _pair_scale(dqk, dv):
+    """MLA's scale is 1/sqrt(192) at both of its pairs; the others take the default."""
+    return 1.0 / math.sqrt(192) if (dqk, dv) in ((192, 128), (576, 512)) else None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", NEW_PAIRS)
+@pytest.mark.parametrize("route", sorted(PAIR_ROUTES))
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
+def test_cuda_attention_head_dim_pairs_match_plain(cuda, dqk, dv, route, causal, window):
+    """Every new (Dqk, Dv) pair on every route, causal, windowed and
+    bidirectional, held to its plain version with the same scale; the
+    call's route is read from the launch counters, and the output is
+    [B, H, Lq, Dv]."""
+    dtype, group, lq, lk = PAIR_ROUTES[route]
+    gen = torch.Generator(device=cuda).manual_seed(dqk + dv)
+    q, k, v = _pair_inputs(gen, cuda, dqk, dv, dtype, group, lq, lk)
+    scale = _pair_scale(dqk, dv)
+    assert fa._route(q, group) == route
+    before = (fa.LAUNCHES, fa.SM90_LAUNCHES, fa.DECODE_LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    moved = (fa.LAUNCHES - before[0], fa.SM90_LAUNCHES - before[1],
+             fa.DECODE_LAUNCHES - before[2])
+    assert moved == (1, int(route == "sm90"), int(route == "decode")), moved
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    assert got.shape == (q.shape[0], q.shape[1], lq, dv) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", [(48, 32), (80, 64), (576, 512)])
+@pytest.mark.parametrize("route", sorted(PAIR_ROUTES))
+def test_cuda_attention_reads_values_as_a_view_of_the_keys(cuda, dqk, dv, route):
+    """MLA's absorbed decode: the values are the first Dv columns of the
+    key rows (the latent cache, a view of one [B, L, Dqk] buffer with one
+    kv head). Read in place, they give the bits of a contiguous copy, the
+    same bits on a second call, and the plain version's answer."""
+    dtype, group, lq, lk = PAIR_ROUTES[route]
+    gen = torch.Generator(device=cuda).manual_seed(dqk)
+    latent = torch.randn(2, lk, dqk, generator=gen, device=cuda).to(dtype)
+    k = latent[:, None]  # [B, 1, Lk, Dqk]
+    v = k[..., :dv]
+    assert v.data_ptr() == k.data_ptr() and not v.is_contiguous()
+    q = torch.randn(2, 16 * group, lq, dqk, generator=gen, device=cuda).to(dtype)
+    scale = _pair_scale(dqk, dv)
+    got = fa.flash_attention(q, k, v, scale=scale)
+    assert torch.equal(got, fa.flash_attention(q, k, v.contiguous(), scale=scale))
+    assert torch.equal(got, fa.flash_attention(q, k, v, scale=scale))
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, scale=scale).float(),
+                               rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refuses_a_pair_no_route_takes(cuda):
+    """A (Dqk, Dv) pair wider than every instantiation (640), or whose rows
+    are no whole 16-byte chunks (bf16 at 36), raises ValueError naming it on
+    the card, and the source's widths entry refuses it; the plain version
+    on the CPU takes it. 36 in float32 is whole chunks and runs at 64."""
+    for dtype, d in ((torch.bfloat16, 640), (torch.float32, 640), (torch.bfloat16, 36)):
+        q, k, v = (torch.randn(1, 2, 4, d, device=cuda).to(dtype) for _ in range(3))
+        with pytest.raises(ValueError, match=rf"\({d}, {d}\)"):
+            fa.flash_attention(q, k, v)
+        q, k, v = (t.cpu() for t in (q, k, v))
+        assert fa.flash_attention(q, k, v).shape == (1, 2, 4, d)
+    assert fa.kernel_widths("decode", 36, 36) == (64, 64)
+    q, k, v = (torch.randn(1, 2, 4, 36, device=cuda) for _ in range(3))
+    torch.testing.assert_close(fa.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v),
+                               rtol=FA_TOL[torch.float32], atol=FA_TOL[torch.float32])
+
+
 # the float32 tile route's masks: a window shorter than either key tile
 TILE_MASKS = [(True, 0), (False, 0), (True, 5), (False, 5)]
 
@@ -999,7 +1090,8 @@ def _smoke_model(arch: str, dtype, device, seed: int = 0) -> Model:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "kimi-k2-1t-a32b", "deepseek-v2-236b",
+                                  "h2o-danube-3-4b"])
 def test_cuda_decode_matches_forward(cuda, arch):
     """Decode through the KV cache (the kernel at Lq = 1) agrees with the
     whole-sequence forward (Lq = S) at every position, float32, within
@@ -1036,6 +1128,44 @@ def test_cuda_lm_matches_cpu(cuda):
     assert float(aux["drop_fraction"]) == pytest.approx(float(want_aux["drop_fraction"]),
                                                         abs=1e-6)
     assert float(aux["drop_fraction"]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "h2o-danube-3-4b", "qwen2-vl-2b",
+                                  "hubert-xlarge"])
+def test_cuda_lm_families_match_cpu(cuda, arch):
+    """MLA (the kernel at (48, 32) for the prefill and (80, 64) over the
+    latent for the decode), the sliding window's ring (40 steps into a
+    40-slot cache wrap its 32-slot ring), M-RoPE on embeddings, and
+    hubert's bidirectional encoder: the same weights on the card (kernels)
+    and on the CPU (plain versions) give the same forward logits and the
+    same logits at every decode step, float32."""
+    cpu = _smoke_model(arch, torch.float32, "cpu")
+    cfg = cpu.cfg
+    gpu = Model(cfg, dtype=torch.float32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    s = 40
+    if cfg.frontend != "none":
+        x = torch.randn(2, s, cfg.d_model, generator=gen)
+        fwd = {"embeds": x}
+    else:
+        x = torch.randint(0, cfg.vocab_size, (2, s), generator=gen)
+        fwd = {"tokens": x}
+    before = fa.LAUNCHES
+    want, _ = cpu.forward(**fwd)
+    got, _ = gpu.forward(**{k: t.to(cuda) for k, t in fwd.items()})
+    assert fa.LAUNCHES == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    if not cfg.has_decoder:
+        return
+    cache_c, cache_g = cpu.init_cache(2, s), gpu.init_cache(2, s)
+    for t in range(s):
+        want_t, cache_c = cpu.decode_step(cache_c, x[:, t:t + 1])
+        got_t, cache_g = gpu.decode_step(cache_g, x[:, t:t + 1].to(cuda))
+        scale = max(1.0, float(want_t.abs().max()))
+        assert float((got_t.cpu() - want_t).abs().max()) <= 1e-4 * scale, (arch, t)
+    assert fa.DECODE_LAUNCHES > 0
 
 
 @pytest.mark.gpu

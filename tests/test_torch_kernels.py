@@ -240,8 +240,11 @@ def test_flash_attention_rejects_bad_shapes():
         fa.flash_attention(q, torch.zeros(1, 2, 4, 32), torch.zeros(1, 2, 4, 32))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, q, q, window=-1)
-    with pytest.raises(ValueError, match="k, v"):
-        fa.flash_attention(q, q, q[..., :16])
+    with pytest.raises(ValueError, match="Lk, Dv"):  # values over other keys than k's
+        fa.flash_attention(q, q, torch.zeros(1, 3, 5, 32))
+    with pytest.raises(ValueError, match="do not fit"):  # values wider than the keys
+        fa.flash_attention(q, q, torch.zeros(1, 3, 4, 64))
+    assert fa.flash_attention(q, q, q[..., :16]).shape == (1, 3, 4, 16)  # Dv < Dqk (MLA)
 
 
 def _stand_in(device_type: str, dtype: torch.dtype, lq: int = 64):

@@ -28,7 +28,7 @@ from repro_torch.launch import serve
 from repro_torch.models import Model, layers, moe, params_from_numpy
 from repro_torch.models.model import check_supported
 
-LM_ARCHS = ["qwen3-0.6b", "granite-20b", "kimi-k2-1t-a32b"]
+LM_ARCHS = ["qwen3-0.6b", "granite-20b", "deepseek-coder-33b", "kimi-k2-1t-a32b"]
 LOGIT_RTOL = 1e-4
 
 
@@ -205,8 +205,9 @@ def test_sliding_window_forward_matches_reference():
     want, _ = jax.jit(ref.forward)(params, {"tokens": jnp.asarray(toks)})
     got, _ = port.forward(torch.from_numpy(toks).long())
     _assert_logits_close(got, want, "h2o-danube forward")
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        port.init_cache(1, 48)
+    # its decode keeps the reference's ring of min(max_len, window) slots
+    # (held to the reference step by step in tests/test_torch_lm_families.py)
+    assert port.init_cache(1, 48)["kv"][0]["k"].shape == (1, 32, cfg.n_kv_heads, cfg.head_dim)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -266,9 +267,6 @@ def test_params_from_numpy_rejects_a_mismatched_tree():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("deepseek-v2-236b", "MLA"),
-    ("qwen2-vl-2b", "frontend|M-RoPE"),
-    ("hubert-xlarge", "frontend"),
     ("zamba2-2.7b", "SSM"),
     ("xlstm-125m", "xLSTM"),
 ])
