@@ -14,7 +14,8 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    path's own shape (the R19 graph's dst-sorted edge stream), checks that
    a float ``+`` gives the same bits on two runs, and times kernel, plain
    version and (where one exists) a single PyTorch library call with CUDA
-   events. ``edge_stream`` runs with the work list the bind built (its
+   events (an attention row names the backend SDPA's dispatcher takes,
+   ``library_backend``). ``edge_stream`` runs with the work list the bind built (its
    longest bin, chunks, work items and build time are printed), gets its
    device time (both of its kernels) from profiler events, and is also
    held to its plain version on a skewed stream (one bin of 2^20 edges,
@@ -202,6 +203,24 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    over [4, 2048, 1536]; in float32, 16 decode steps on embeddings against
    the forward. hubert-xlarge at its full config: a bidirectional bf16
    forward over [4, 1000, 1280] frame embeddings, twice, the same bits.
+   Then (4h, ``{"phase": "ssm_families", ...}`` lines) the recurrent
+   families, random weights from the seed, the LM counters set to 0 just
+   before each model and read just after. First the tensor-core kernel at
+   zamba2's shared attention, bf16 [4, 32, 2048, 80] causal under its
+   4,096-token window, held to its plain version (with the row-relative
+   check and its controls) and timed beside its bound and SDPA, and the
+   float32 tile and decode routes at the shapes zamba2's f32 check gives
+   them. Then zamba2-2.7b at its full config (54 Mamba2 blocks in 9
+   groups, each followed by the one shared attention block), bf16:
+   ``generate`` twice (the same tokens, 9 sm90 launches a step), a forward
+   over [4, 2048] tokens (timed, finite, 9 sm90 launches), one decode step
+   and one forward profiled; in float32 at full depth, 64 teacher-forced
+   decode steps against one forward, each within ``2e-3 * max(1,
+   |logits|)`` (9 tile-route and 64 x 9 decode-route launches).
+   xlstm-125m at its full config: ``generate`` twice in bf16 (the same
+   tokens, no attention launch); in float32 a forward over [4, 2048]
+   (timed: the sLSTM steps through every position) against 64 decode
+   steps within the same tolerance.
 6. The last line is ``{"ok": true, "device": {...}}``.
 
 """
@@ -224,6 +243,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -273,6 +293,11 @@ WRAP_TOKENS, WRAP_CACHE = 4160, 8192  # h2o-danube's f32 ring run: 64 steps past
 # its depth, cut from 24: at 31 ms a step (the host's launches, ~1.2 ms a
 # layer) the full depth took 129 s of the phase's 150 on the H100
 WRAP_LAYERS = 4
+# phase 4h: the recurrent families (zamba2: Mamba2 + one shared attention block; xLSTM)
+ZAMBA, XLSTM = "zamba2-2.7b", "xlstm-125m"
+SSM_PREFILL = 2048  # tokens a row of the bf16 zamba2 forward and the f32 xLSTM forward
+SSM_CHECK_POSITIONS = 64  # teacher-forced decode steps held to a forward, f32
+SSM_FORWARD_RUNS = 2  # timed bf16 zamba2 forwards after one warm-up; the median is kept
 
 
 def log(obj) -> None:
@@ -300,19 +325,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-PROFILE_TRIES = 3  # profiled windows a measurement may take before it fails
+PROFILE_TRIES = 3  # profiled windows a measurement may take before it times with events
+#: every profiled window of the run and those that missed kernels (window
+#: index, kernel events seen), printed in the ``done`` line; ``stale``: the
+#: last measurement's windows all missed, so the next takes one window
+PROFILE_WINDOWS = {"windows": 0, "missed": [], "stale": False}
 
 
 def profiled(run, seen_all=bool, tries: int = PROFILE_TRIES):
     """``run()`` (which launches kernels) under ``torch.profiler``, ended by
     a synchronise: returns the profile, its CUDA kernel events and the
-    window's host time. The profiler now and then reports no device event
-    for a window that launched kernels; a window whose events fail
-    ``seen_all`` (by default: none at all) is run again, up to ``tries``
-    times in all, and then the run fails."""
+    window's host time.
+
+    The profiler now and then reports no device event for a window that
+    launched kernels, and on the card's machine, late in a long process,
+    it stopped reporting the kernels of short windows altogether (the
+    Kineto log counted them "out of range"; a pause of up to 1 s around
+    the window did not bring them back), while long windows kept nearly
+    all. So a window whose events fail ``seen_all`` (by default: none at
+    all) is recorded and run again, up to ``tries`` windows (one after a
+    measurement whose windows all missed); then it returns ``(None, None,
+    wall_s)`` and the callers measure without it. No check of the run
+    reads a profile."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for _ in range(1 if PROFILE_WINDOWS["stale"] else tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -320,17 +357,49 @@ def profiled(run, seen_all=bool, tries: int = PROFILE_TRIES):
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        PROFILE_WINDOWS["windows"] += 1
         if seen_all(kernels):
+            PROFILE_WINDOWS["stale"] = False
             return prof, kernels, wall_s
-    raise AssertionError(f"the profiler missed kernels in {tries} windows "
-                         f"({len(kernels)} events in the last)")
+        PROFILE_WINDOWS["missed"].append([PROFILE_WINDOWS["windows"], len(kernels)])
+        print(f"chip_smoke: profiler window {PROFILE_WINDOWS['windows']} saw {len(kernels)} "
+              "kernel events", file=sys.stderr)
+    PROFILE_WINDOWS["stale"] = True
+    return None, None, wall_s
+
+
+QUEUE_HOLD_CYCLES = 100_000_000  # ~50 ms of the card's clock: the host queues the calls meanwhile
+
+
+def queued_event_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn()`` without the profiler: the stream
+    is held by a sleep kernel while the host queues ``iters`` calls, each
+    between two CUDA events, so the card runs them back to back and each
+    pair of events brackets one call's kernels, not the host's launch
+    gaps; less the same pairs' time with nothing between them (the events'
+    own cost). ``fn`` must not synchronise."""
+    def bracketed(call) -> float:
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_HOLD_CYCLES)
+        for start, end in pairs:
+            start.record()
+            call()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in pairs) / iters
+
+    return bracketed(fn) - bracketed(lambda: None)
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, focus: str = None) -> dict:
     """Mean device time of one ``fn()`` over ``iters`` calls: the summed
     durations of the kernels it launched, from ``torch.profiler`` kernel
     events, so the host's time between launches is left out; ``focus_ms``
-    sums only the kernels whose name holds ``focus``."""
+    sums only the kernels whose name holds ``focus``. Where the profiler
+    missed the calls' kernels, :func:`queued_event_ms` measures them
+    (``"timing": "events"``, no kernel names, no ``focus_ms``)."""
     for _ in range(warmup):
         fn()
 
@@ -339,6 +408,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, focus: str = None) -> dict:
             fn()
 
     _, kernels, _ = profiled(calls, seen_all=lambda k: len(k) >= iters)
+    if kernels is None:  # no kernel events: the calls' device time by queued CUDA events
+        return {"ms": queued_event_ms(fn, iters), "kernels_per_call": None,
+                "kernels": [], "focus_ms": None, "timing": "events"}
     names = sorted({e.name[:80] for e in kernels})
     out = {"ms": sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3,
            "kernels_per_call": len(kernels) / iters, "kernels": names}
@@ -354,6 +426,10 @@ def profile_run(run, top: int = 6, focus: str = None) -> dict:
     that took the most device time. The profiler slows the host, so the
     idle share it gives is an upper bound of the unprofiled run's."""
     prof, kernels, wall_s = profiled(run)
+    if kernels is None:
+        return {"wall_s": wall_s, "device_kernels": None, "device_busy_s": None,
+                "device_idle_share": None, "top_kernels_ms": {}, "focus_ms": None,
+                "profiler": "no kernel events"}
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         if stop > end:
@@ -413,6 +489,8 @@ def shuffle_reduce_launches(sr, run) -> list:
         _, kernels, _ = profiled(recorded_run, seen_all=lambda k: len(mains(k)) == len(shapes))
     finally:
         sr.shuffle_reduce_sorted = inner
+    if kernels is None:
+        return []
     calls, pending = [], 0.0
     for e in sorted((e for e in kernels if "shuffle_reduce_" in e.name),
                     key=lambda e: e.time_range.start):
@@ -668,7 +746,8 @@ def skewed_shuffle_reduce(sr, ref, dev: str) -> dict:
             "counter": {"updates": n_c, "bins": n_c, "chunks": counter_split.chunks.shape[0],
                         "device_ms": dev_c["focus_ms"], "kernels": [k for k in dev_c["kernels"]
                                                                     if "shuffle_reduce_" in k],
-                        "routing_ops_device_ms": dev_c["ms"] - dev_c["focus_ms"]}}
+                        "routing_ops_device_ms": (None if dev_c["focus_ms"] is None
+                                                  else dev_c["ms"] - dev_c["focus_ms"])}}
 
 
 def skewed_edge_stream(sr, es, ref, dev: str) -> dict:
@@ -1220,6 +1299,10 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
     if q.dtype == torch.bfloat16:
         check_close("scaled_dot_product_attention", lib, got)
     del lib
+    # the backend SDPA's dispatcher takes for these inputs (flash,
+    # memory-efficient, cuDNN or the math fallback's products)
+    lib_backend = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, scale=scale, enable_gqa=True, **lib_mask)).name
     shared = v.untyped_storage().data_ptr() == k.untyped_storage().data_ptr()
     n_bytes = ((q.numel() + got.numel()) * q.element_size()
                + (k.numel() + (0 if shared else v.numel())) * k.element_size())
@@ -1234,7 +1317,7 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
         "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True"
                         + "".join(f", {key}=" + ("True" if key == "is_causal" else "window mask")
                                   for key in lib_mask) + ")",
-        "library_max_abs_diff": lib_diff,
+        "library_max_abs_diff": lib_diff, "library_backend": lib_backend,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
         "shape": {"q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
                   "q_strides": list(q.stride()), "k_strides": list(k.stride()),
@@ -1257,6 +1340,8 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
         ld = device_ms(library)
         row.update({"kernel_device_ms": kd["ms"], "kernel_device_kernels": kd["kernels"],
                     "library_device_ms": ld["ms"], "library_device_kernels": ld["kernels"],
+                    "device_timing": "events" if "events" in (kd.get("timing"),
+                                                              ld.get("timing")) else "profiler",
                     "device_bound_share": b_ms / kd["ms"],
                     "kernel_over_library_device": kd["ms"] / ld["ms"]})
         if route == "decode":  # the tile route on the same inputs, at the tile tile_plan picks
@@ -1824,7 +1909,8 @@ def qwen_prefill_f32_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
         "forward_ms_runs": [t * 1e3 for t in runs_s],
         "attention_flop": attn_flop,
         "attention_bound_ms": attn_flop / F32_OPS_PER_S * 1e3,
-        "attention_bound_share": attn_flop / F32_OPS_PER_S * 1e3 / prof["focus_ms"],
+        "attention_bound_share": (attn_flop / F32_OPS_PER_S * 1e3 / prof["focus_ms"]
+                                  if prof["focus_ms"] else None),
         "launches_per_forward": launches,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "profile_forward": prof,
@@ -2166,6 +2252,232 @@ def lm_families_phase(mods, ref, dev: str, seed: int, smi: str) -> tuple:
                 for key, n in part["launches"].items():
                     total[key] += n
     log({"phase": "lm_families", "launches": total, "phase_s": time.perf_counter() - t_phase})
+    return rows, kernel_rows, total
+
+
+# -- phase 4h: the recurrent families (Mamba2 with zamba2's shared attention; xLSTM) --
+
+
+def ssm_kernel_rows(fa, ref, dev: str, seed: int) -> dict:
+    """The kernels at zamba2's shared attention (32 heads, as many kv heads,
+    Dh 80, window 4,096): the bf16 prefill [4, 32, 2048, 80] (the window
+    hides no key at 2,048 tokens, so SDPA's causal mask is the same
+    function) at ``<128, 128, 64>``, held to its plain version with the
+    row-relative check and its controls; then the float32 routes at the
+    shapes the f32 check runs them: the tile route over a 64-token forward
+    ([2, 32, 64, 80]) and the decode route over the last step's 64 slots of
+    the ring ([2, 32, 1, 80], the cache read in place)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    rows = {}
+    s, b = SSM_PREFILL, LM_BATCH
+    bf = torch.bfloat16
+    rows["flash_attention_sm90_zamba2_prefill"] = _attention_row(
+        fa, ref, rnd(b, 32, s, 80, dtype=bf), rnd(b, 32, s, 80, dtype=bf),
+        rnd(b, 32, s, 80, dtype=bf), True, s * (s + 1) // 2, 3, window=4096)
+    n = SSM_CHECK_POSITIONS
+    row = _attention_row(fa, ref, rnd(2, 32, n, 80), rnd(2, 32, n, 80), rnd(2, 32, n, 80), True,
+                         n * (n + 1) // 2, 20, device_side=True, window=4096)
+    assert row["route"] == "cuda_core", row["route"]
+    rows["flash_attention_tile_zamba2_forward"] = row
+    ck, cv = (rnd(2, n, 32, 80).transpose(1, 2) for _ in range(2))
+    row = _attention_row(fa, ref, rnd(2, 1, 32, 80).transpose(1, 2), ck, cv, True, n, 20,
+                         device_side=True)
+    assert row["route"] == "decode", row["route"]
+    rows["flash_attention_decode_zamba2"] = row
+    return rows
+
+
+def _bf16_serving(fa, md, serve, model, prompts, name: str) -> dict:
+    """``generate`` twice (batch 4, prompt 16, generate 16) with the LM
+    counters set to 0 just before: the same tokens, in range; the decode
+    steps' times and the launches."""
+    _reset_lm_counters(fa, md)
+    step_s: list = []
+    t0 = time.perf_counter()
+    first = serve.generate(model, prompts, LM_GEN, step_s=step_s).cpu()
+    first_s = time.perf_counter() - t0
+    second = serve.generate(model, prompts, LM_GEN).cpu()
+    torch.cuda.synchronize()
+    launches = _lm_counters(fa, md)
+    assert torch.equal(first, second), f"{name}: two generate runs gave different tokens"
+    assert first.shape == (LM_BATCH, LM_GEN)
+    assert bool(((first >= 0) & (first < model.cfg.vocab_size)).all()), name
+    return {"tokens_identical": True, "tokens": first[:2].tolist(), "decode_steps": len(step_s),
+            "median_step_ms": statistics.median(step_s) * 1e3,
+            "step_ms_min_max": [min(step_s) * 1e3, max(step_s) * 1e3],
+            "first_run_s": first_s, "launches": launches}
+
+
+def _decode_vs_forward(model, toks, full) -> tuple:
+    """Teacher-forced ``decode_step`` over ``toks [B, n]`` against ``full``,
+    the forward's logits at the same positions: (worst error over scale,
+    the step at it), read after the last step."""
+    n = toks.shape[1]
+    cache = model.init_cache(toks.shape[0], n)
+    errs = torch.empty(n, device=toks.device)
+    for t in range(n):
+        step, cache = model.decode_step(cache, toks[:, t:t + 1])
+        errs[t] = _relative_errors(step[:, 0], full[:, t]).max()
+    errs = errs.cpu()
+    return float(errs.max()), int(errs.argmax())
+
+
+def zamba2_phase(mods, dev: str, seed: int, smi: str) -> dict:
+    """zamba2-2.7b at its full config. bf16: ``generate`` twice (one sm90
+    launch a group a step, none of the f32 routes), a forward over [4,
+    2048] tokens (a warm-up, then SSM_FORWARD_RUNS timed; finite logits; one
+    sm90 launch a group), one warm decode step and one forward profiled.
+    float32 at full depth: SSM_CHECK_POSITIONS teacher-forced decode steps
+    against one forward (the tile route once a group, the decode route once
+    a group a step), within DECODE_RTOL x max(1, |logits|)."""
+    fa, md, get_config, Model, serve = mods
+    cfg = get_config(ZAMBA)
+    groups = cfg.n_layers // cfg.attn_every
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed + 12)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    served = _bf16_serving(fa, md, serve, model, prompts, ZAMBA)
+    launches = served["launches"]
+    assert launches["flash_attention_sm90"] == 2 * (LM_PROMPT + LM_GEN) * groups, launches
+    assert launches["flash_attention_tile"] == launches["flash_attention_decode"] == 0, launches
+
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, SSM_PREFILL))).to(dev)
+    _reset_lm_counters(fa, md)
+    logits, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    fwd_launches = _lm_counters(fa, md)
+    assert fwd_launches["flash_attention_sm90"] == groups, fwd_launches
+    assert logits.shape == (LM_BATCH, SSM_PREFILL, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), f"{ZAMBA}: non-finite forward logits"
+    del logits
+    forward_s = []
+    for _ in range(SSM_FORWARD_RUNS):
+        t0 = time.perf_counter()
+        model.forward(tokens)
+        torch.cuda.synchronize()
+        forward_s.append(time.perf_counter() - t0)
+    row = {"phase": "ssm_families", "model": ZAMBA, "dtype": "bfloat16", "card": smi,
+           "config": {key: getattr(cfg, key) for key in (
+               "d_model", "n_layers", "attn_every", "n_heads", "n_kv_heads", "head_dim",
+               "sliding_window", "ssm_state", "ssm_heads", "ssm_expand", "ssm_conv", "d_ff",
+               "vocab_size")},
+           "groups": groups, "reduced": {}, "param_bytes": model.param_bytes(), **served,
+           "forward_tokens": [LM_BATCH, SSM_PREFILL], "forward_ms": statistics.median(
+               forward_s) * 1e3, "forward_runs_ms": [t * 1e3 for t in forward_s],
+           "forward_tokens_per_s": LM_BATCH * SSM_PREFILL / statistics.median(forward_s),
+           "forward_launches": fwd_launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    row["profile_decode_step"] = _profile_step(model, prompts)
+    row["profile_forward"] = profile_run(lambda: model.forward(tokens), top=8)
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    n = SSM_CHECK_POSITIONS
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, n))).to(dev)
+    _reset_lm_counters(fa, md)
+    t0 = time.perf_counter()
+    full, _ = model.forward(toks)
+    worst, at = _decode_vs_forward(model, toks, full)
+    f32 = _lm_counters(fa, md)
+    assert worst <= DECODE_RTOL, f"{ZAMBA} f32: decode vs forward {worst} at step {at}"
+    assert bool(torch.isfinite(full).all())
+    assert f32["flash_attention_tile"] == groups and f32["flash_attention_sm90"] == 0, f32
+    assert f32["flash_attention_decode"] == n * groups, f32
+    row["decode_vs_forward_f32"] = {
+        "positions": n, "batch": 2, "max_err_over_scale": worst, "at_step": at,
+        "rtol": DECODE_RTOL, "seconds": time.perf_counter() - t0, "reduced": {},
+        "param_bytes": model.param_bytes(), "launches": f32,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    row["seconds"] = time.perf_counter() - t_model
+    del model, full
+    return row
+
+
+def xlstm_phase(mods, dev: str, seed: int, smi: str) -> dict:
+    """xlstm-125m at its full config: ``generate`` twice in bf16 (the same
+    tokens, no attention launch); in float32 one forward over [4, 2048]
+    tokens (timed: each sLSTM layer steps through the 2,048 positions)
+    against SSM_CHECK_POSITIONS teacher-forced decode steps, within
+    DECODE_RTOL x max(1, |logits|)."""
+    fa, md, get_config, Model, serve = mods
+    cfg = get_config(XLSTM)
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed + 13)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    served = _bf16_serving(fa, md, serve, model, prompts, XLSTM)
+    assert not any(served["launches"].values()), served["launches"]
+    row = {"phase": "ssm_families", "model": XLSTM, "dtype": "bfloat16", "card": smi,
+           "config": {key: getattr(cfg, key) for key in (
+               "d_model", "n_layers", "slstm_every", "n_heads", "ssm_expand", "vocab_size")},
+           "reduced": {}, "param_bytes": model.param_bytes(), **served,
+           "profile_decode_step": _profile_step(model, prompts)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, SSM_PREFILL))).to(dev)
+    _reset_lm_counters(fa, md)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    n = SSM_CHECK_POSITIONS
+    worst, at = _decode_vs_forward(model, tokens[:, :n], full[:, :n])
+    f32 = _lm_counters(fa, md)
+    assert worst <= DECODE_RTOL, f"{XLSTM} f32: decode vs forward {worst} at step {at}"
+    assert bool(torch.isfinite(full).all()) and not any(f32.values()), f32
+    row["decode_vs_forward_f32"] = {
+        "forward_tokens": [LM_BATCH, SSM_PREFILL], "forward_ms": forward_s * 1e3,
+        "positions": n, "batch": LM_BATCH, "max_err_over_scale": worst, "at_step": at,
+        "rtol": DECODE_RTOL, "launches": f32,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    row["seconds"] = time.perf_counter() - t_model
+    del model, full
+    return row
+
+
+def ssm_families_phase(mods, ref, dev: str, seed: int, smi: str) -> tuple:
+    """Phase 4h: the kernel rows at zamba2's shared attention, then zamba2
+    and xlstm, each with the LM counters set to 0 just before a run and
+    read just after. Returns (rows, kernel rows, launches summed over the
+    models)."""
+    fa, md = mods[0], mods[1]
+    t_phase = time.perf_counter()
+    kernel_rows = ssm_kernel_rows(fa, ref, dev, seed)
+    for name, row in kernel_rows.items():
+        log({"phase": "ssm_families", "kernel": name, "card": smi, **row})
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for run in (zamba2_phase, xlstm_phase):
+        rows.append(run(mods, dev, seed, smi))
+        log(rows[-1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {key: 0 for key in _lm_counters(fa, md)}
+    for row in rows:
+        for part in (row, row.get("decode_vs_forward_f32")):
+            for key, n in part["launches"].items():
+                total[key] += n
+        total["flash_attention_sm90"] += row.get("forward_launches", {}).get(
+            "flash_attention_sm90", 0)
+    log({"phase": "ssm_families", "launches": total, "phase_s": time.perf_counter() - t_phase})
     return rows, kernel_rows, total
 
 
@@ -3788,6 +4100,18 @@ def main() -> int:
     launches["flash_decode"] += family_launches["flash_attention_decode"]
     f32_tile += family_launches["flash_attention_tile"]
     f32_decode += family_launches["flash_attention_decode"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4h. Mamba2 with zamba2's shared windowed attention, and xLSTM --------
+    _, ssm_rows, ssm_launches = ssm_families_phase(mods, ref, dev, args.seed, smi)
+    family_rows.update(ssm_rows)
+    launches["flash_attention_sm90"] += ssm_launches["flash_attention_sm90"]
+    launches["flash_attention"] += (ssm_launches["flash_attention_tile"]
+                                    + ssm_launches["flash_attention_decode"])
+    launches["flash_decode"] += ssm_launches["flash_attention_decode"]
+    f32_tile += ssm_launches["flash_attention_tile"]
+    f32_decode += ssm_launches["flash_attention_decode"]
 
     # -- 6. summary ----------------------------------------------------------
     meta = {
@@ -3819,14 +4143,15 @@ def main() -> int:
         prefix = {"flash_attention_sm90": "flash_attention_sm90_",
                   "flash_attention": "flash_attention_tile_",
                   "flash_decode": "flash_attention_decode_"}.get(name)
-        if prefix:  # the new families' widths (phase 4g)
+        if prefix:  # the new families' widths (phases 4g and 4h)
             kernels[-1]["shapes"] = {
                 key: {"max_abs_err": r["max_abs_err"], "ms": r.get("kernel_device_ms",
                                                                    r["kernel_ms"]),
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r.get("library_device_ms", r["library_ms"]),
-                      "timing": "device" if "kernel_device_ms" in r else "events",
+                      "timing": ("device" if r.get("device_timing") == "profiler"
+                                 else "events"),
                       "q": r["shape"]["q"], "k": r["shape"]["k"], "v": r["shape"]["v"]}
                 for key, r in family_rows.items() if key.startswith(prefix)}
         if name == "flash_attention":  # the float32 calls: decode route + tile route
@@ -3837,9 +4162,12 @@ def main() -> int:
         if name == "flash_decode":  # at decode size the host paces the loop: device times
             kernels[-1].update({"ms": row["kernel_device_ms"],
                                 "library_ms": row["library_device_ms"],
-                                "host_paced_ms": row["kernel_ms"], "timing": "device",
+                                "host_paced_ms": row["kernel_ms"],
+                                "timing": ("device" if row.get("device_timing") == "profiler"
+                                           else "events"),
                                 "splits": row["decode"]["splits"]})
-    log({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
+    log({"phase": "done", "elapsed_s": time.perf_counter() - t_start,
+         "profiler": PROFILE_WINDOWS})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -1,10 +1,12 @@
 """Carry the reference's parameter pytree into the port's :class:`Model`.
 
-The reference's ``Model.init`` returns nested dicts with a stacked
-``blocks`` axis (layer first) and, for the MoE family, a ``dense_blocks``
-list. With every leaf turned into a numpy array, :func:`params_from_numpy`
-loads it into the port's per-layer modules, so the two packages compute
-with the same weights.
+The reference's ``Model.init`` returns nested dicts whose layer stacks
+carry leading axes: ``blocks`` and ``slstm_blocks`` one (layer or group),
+``mamba_groups`` and ``mlstm_groups`` two (group, block in the group);
+the MoE family adds a ``dense_blocks`` list and zamba2 one unstacked
+``shared_attn`` tree. With every leaf turned into a numpy array,
+:func:`params_from_numpy` loads it into the port's per-layer modules, so
+the two packages compute with the same weights.
 """
 from __future__ import annotations
 
@@ -28,15 +30,20 @@ def _leaves(tree, prefix: str) -> Iterator[Tuple[str, np.ndarray]]:
         yield prefix[:-1], np.asarray(tree)
 
 
+#: the reference's stacked subtrees and their number of leading layer axes
+STACKED = {"blocks": 1, "slstm_blocks": 1, "mamba_groups": 2, "mlstm_groups": 2}
+
+
 def _flatten(tree) -> Dict[str, np.ndarray]:
-    """``{"blocks.3.attn.wq": array, ...}``: the stacked ``blocks`` leaves
-    split per layer, the other leaves by their path."""
-    flat: Dict[str, np.ndarray] = {}
-    for name, arr in _leaves({k: v for k, v in tree.items() if k != "blocks"}, ""):
-        flat[name] = arr
-    for name, arr in _leaves(tree.get("blocks", {}), ""):
-        for layer in range(arr.shape[0]):
-            flat[f"blocks.{layer}.{name}"] = arr[layer]
+    """``{"blocks.3.attn.wq": array, "mamba_groups.1.4.mamba.w_z": array,
+    ...}``: the stacked leaves split along their leading layer axes, the
+    other leaves by their path."""
+    flat: Dict[str, np.ndarray] = dict(
+        _leaves({k: v for k, v in tree.items() if k not in STACKED}, ""))
+    for key, axes in STACKED.items():
+        for name, arr in _leaves(tree.get(key, {}), ""):
+            for index in np.ndindex(*arr.shape[:axes]):
+                flat[".".join([key, *map(str, index), name])] = arr[index]
     return flat
 
 

@@ -11,7 +11,7 @@ compute in float32 and cast back to the input dtype.
 
 Every weight is an ``nn.Parameter`` that carries its init scale
 (``init_scale``: normal draws times the scale, or ``None`` for a norm's
-ones); :func:`init_normal_` fills it in slices so that a full-width
+ones and the other constants); :func:`init_normal_` fills it in slices so that a full-width
 expert tensor never has a float32 temporary of its own size.
 """
 from __future__ import annotations
@@ -36,6 +36,15 @@ def weight(shape, scale: Optional[float], dtype: torch.dtype, device) -> nn.Para
         t = torch.empty(shape, dtype=dtype, device=device)
     p = nn.Parameter(t, requires_grad=False)
     p.init_scale = scale
+    return p
+
+
+def constant(values: torch.Tensor, dtype: torch.dtype, device) -> nn.Parameter:
+    """A weight set to ``values`` when it is built, which :func:`init_normal_`
+    never draws (the reference's constant initial values: zeros, ones, a
+    ramp of decay rates)."""
+    p = nn.Parameter(values.to(device=device, dtype=dtype), requires_grad=False)
+    p.init_scale = None
     return p
 
 

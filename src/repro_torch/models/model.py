@@ -1,18 +1,28 @@
-"""Model assembly: the attention families, dense, MoE, vision and audio.
+"""Model assembly: all ten architectures behind one interface.
 
-The port of the reference's ``models/model.py`` for every config whose
-blocks are attention blocks: qwen3-0.6b, granite-20b, deepseek-coder-33b,
-kimi-k2, deepseek-v2 (MLA), h2o-danube-3 (sliding window, ring-buffer
-decode), qwen2-vl (M-RoPE, the vision frontend stub) and hubert (the
-audio frontend stub, bidirectional, encoder-only). The SSM and xLSTM
-families (zamba2, xlstm) are not ported. Per-layer modules replace the
-reference's stacked ``blocks`` axis; the names are the reference's, so
-``blocks.3.attn.wq`` is layer 3 of its ``params["blocks"]["attn"]["wq"]``.
+The port of the reference's ``models/model.py``: the dense, MoE, vision
+and audio configs (qwen3-0.6b, granite-20b, deepseek-coder-33b, kimi-k2,
+deepseek-v2 with MLA, h2o-danube-3 with the sliding window and its
+ring-buffer decode, qwen2-vl with M-RoPE and the vision frontend stub,
+hubert with the audio frontend stub, bidirectional and encoder-only),
+zamba2 (Mamba2 with one shared attention block) and xlstm (mLSTM and
+sLSTM). Per-layer modules replace the reference's stacked axes; the names
+are the reference's, so ``blocks.3.attn.wq`` is layer 3 of its
+``params["blocks"]["attn"]["wq"]`` and ``mamba_groups.2.5.mamba.w_xbc``
+block 5 of group 2 of its ``params["mamba_groups"]["mamba"]["w_xbc"]``.
 Layer order is the reference's:
 
 * dense, vlm, audio: ``blocks`` (attention + MLP) ``n_layers`` times;
 * moe: ``dense_blocks`` (the first ``first_dense_layers``), then ``blocks``
-  (attention + MoE).
+  (attention + MoE);
+* hybrid (zamba2): ``n_layers // attn_every`` groups, each ``attn_every``
+  Mamba2 blocks (``mamba_groups``) followed by the ONE ``shared_attn``
+  block (attention + MLP): one weight set, a KV cache per group;
+* ssm (xlstm): ``n_layers // slstm_every`` groups, each ``slstm_every -
+  1`` mLSTM blocks (``mlstm_groups``) and one sLSTM block
+  (``slstm_blocks``); ``slstm_every = 0`` is one group of ``n_layers``
+  mLSTM blocks, whose sLSTM block is built and never run, as in the
+  reference.
 
 A frontend config (``cfg.frontend != "none"``) takes precomputed patch or
 frame embeddings ``[B, S, D]`` through ``frontend_proj`` where the others
@@ -22,14 +32,15 @@ The public surface:
     Model(cfg, dtype, device)           weights allocated, not drawn
     init(generator)                     draw every weight (in slices)
     forward(tokens=None, embeds=None)   (logits, aux) for a whole sequence
-    init_cache(batch, max_len)          KV or latent caches, ``pos`` = 0
+    init_cache(batch, max_len)          KV, latent or recurrent caches, ``pos`` = 0
     decode_step(cache, tokens)          one-token serve step -> (logits, cache);
                                         a frontend config takes embeds [B, 1, D]
 
 Every attention call goes through the hand-written flash kernel and every
 MoE dispatch through the hand-written gather kernel (on a CUDA device;
-their plain versions on the CPU). ``device=None`` means ``"cuda"`` and
-raises without a GPU, as ``bind()`` does.
+their plain versions on the CPU). The Mamba2 and xLSTM recurrences are
+plain PyTorch, as the reference's are plain JAX. ``device=None`` means
+``"cuda"`` and raises without a GPU, as ``bind()`` does.
 """
 from __future__ import annotations
 
@@ -43,17 +54,36 @@ from ..configs.base import ArchConfig
 from ..core.session import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import init_normal_, mlp_apply, mlp_init, rmsnorm, weight
 
 Cache = Dict[str, object]
 
+#: a recurrent block's (init, forward, decode) by its kind
+RECURRENT = {
+    "mamba": (ssm_mod.mamba2_init, ssm_mod.mamba2_forward, ssm_mod.mamba2_decode),
+    "mlstm": (xlstm_mod.mlstm_init, xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode),
+    "slstm": (xlstm_mod.slstm_init, xlstm_mod.slstm_forward, xlstm_mod.slstm_decode),
+}
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not hold yet:
-    the SSM and xLSTM families."""
-    if cfg.xlstm or cfg.ssm:
-        raise NotImplementedError(f"{cfg.name}: the SSM and xLSTM families are not ported "
-                                  "yet: ROADMAP queue A, the LM stack's later slice")
+
+def _xlstm_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """(groups, mLSTM blocks a group) of an xLSTM config."""
+    if not cfg.slstm_every:
+        return 1, cfg.n_layers  # one group, all mLSTM, no sLSTM run
+    if cfg.n_layers % cfg.slstm_every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                         f"slstm_every {cfg.slstm_every}")
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def _hybrid_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """(groups, Mamba2 blocks a group) of a hybrid config."""
+    if cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                         f"attn_every {cfg.attn_every}")
+    return cfg.n_layers // cfg.attn_every, cfg.attn_every
 
 
 class Block(nn.Module):
@@ -91,11 +121,35 @@ class Block(nn.Module):
         return self._ffn(cfg, x + dh, aux)
 
 
+class RecurrentBlock(nn.Module):
+    """Pre-norm residual around one Mamba2, mLSTM or sLSTM layer, held
+    under its kind's name (``mamba``, ``mlstm``, ``slstm``)."""
+
+    def __init__(self, cfg: ArchConfig, kind: str, dtype: torch.dtype, device):
+        super().__init__()
+        self.kind = kind
+        self.ln1 = weight((cfg.d_model,), None, dtype, device)
+        setattr(self, kind, RECURRENT[kind][0](cfg, dtype, device))
+
+    def forward(self, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        return x + RECURRENT[self.kind][1](getattr(self, self.kind), cfg, h)
+
+    def decode(self, cfg: ArchConfig, cache: dict, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        return x + RECURRENT[self.kind][2](getattr(self, self.kind), cfg, cache, h)[0]
+
+
+def _groups(cfg: ArchConfig, kind: str, n_groups: int, per: int, dtype, device) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleList(RecurrentBlock(cfg, kind, dtype, device) for _ in range(per))
+        for _ in range(n_groups))
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
                  device: Optional[str] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(resolve_device(device))
@@ -106,17 +160,30 @@ class Model(nn.Module):
             self.lm_head = weight((d, cfg.vocab_size), 1.0 / math.sqrt(d), dtype, dev)
         if cfg.frontend != "none":
             self.frontend_proj = weight((d, d), 1.0 / math.sqrt(d), dtype, dev)
-        n_dense = cfg.first_dense_layers if cfg.moe else 0
-        self.dense_blocks = nn.ModuleList(Block(cfg, False, dtype, dev) for _ in range(n_dense))
-        self.blocks = nn.ModuleList(Block(cfg, cfg.moe, dtype, dev)
-                                    for _ in range(cfg.n_layers - n_dense))
+        if cfg.xlstm:
+            g, rem = _xlstm_groups(cfg)
+            self.mlstm_groups = _groups(cfg, "mlstm", g, rem, dtype, dev)
+            self.slstm_blocks = nn.ModuleList(RecurrentBlock(cfg, "slstm", dtype, dev)
+                                              for _ in range(g))
+        elif cfg.ssm:
+            g, per = _hybrid_groups(cfg)
+            self.mamba_groups = _groups(cfg, "mamba", g, per, dtype, dev)
+            self.shared_attn = Block(cfg, False, dtype, dev)  # ONE weight set, every group
+        else:
+            n_dense = cfg.first_dense_layers if cfg.moe else 0
+            self.dense_blocks = nn.ModuleList(Block(cfg, False, dtype, dev)
+                                              for _ in range(n_dense))
+            self.blocks = nn.ModuleList(Block(cfg, cfg.moe, dtype, dev)
+                                        for _ in range(cfg.n_layers - n_dense))
         #: the MoE layers' aux metrics of the last forward or decode step
         self.last_aux: Dict[str, torch.Tensor] = {}
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every weight from ``generator`` (on the model's device) as
-        ``N(0, 1) * scale``, in a fixed order; norm weights stay ones."""
+        ``N(0, 1) * scale``, in a fixed order; norm weights stay ones and
+        the other constants (Mamba2's ``a_log``, ``d_skip``, ``dt_bias``,
+        ``conv_b``) keep the values they were built with."""
         for p in self.parameters():
             if p.init_scale is not None:
                 init_normal_(p, p.init_scale, generator)
@@ -166,8 +233,21 @@ class Model(nn.Module):
         if self.cfg.mrope:  # the reference's _inputs: equal t, h and w position ids
             pos = pos[None].expand(3, b, s)
         aux: List[dict] = []
-        for blk in (*self.dense_blocks, *self.blocks):
-            x = blk(self.cfg, x, pos, aux)
+        cfg = self.cfg
+        if cfg.xlstm:
+            for group, sblk in zip(self.mlstm_groups, self.slstm_blocks):
+                for blk in group:
+                    x = blk(cfg, x)
+                if cfg.slstm_every:
+                    x = sblk(cfg, x)
+        elif cfg.ssm:
+            for group in self.mamba_groups:
+                for blk in group:
+                    x = blk(cfg, x)
+                x = self.shared_attn(cfg, x, pos, aux)
+        else:
+            for blk in (*self.dense_blocks, *self.blocks):
+                x = blk(cfg, x, pos, aux)
         return self._head(x), self._record(aux)
 
     # ------------------------------------------------------------------
@@ -177,11 +257,26 @@ class Model(nn.Module):
         """``kv`` per ``blocks`` layer, ``kv_dense`` per dense-first layer
         (MoE family), and ``pos``, the index of the next token (an int).
         A layer's cache is its K/V (a ring of ``min(max_len, window)``
-        slots under a sliding window) or, for MLA, its latent."""
-        init = attn.mla_init_cache if self.cfg.mla else attn.gqa_init_cache
+        slots under a sliding window) or, for MLA, its latent. zamba2 keeps
+        ``mamba`` (per group, per block: conv frames and SSM state) and
+        ``attn`` (one K/V ring per group: the shared block's weights, each
+        call its own cache); xlstm keeps ``mlstm`` (per group, per block)
+        and ``slstm`` (per group)."""
+        cfg, dev = self.cfg, self.device
+        if cfg.xlstm:
+            return {"mlstm": [[xlstm_mod.mlstm_init_cache(cfg, batch, dev) for _ in group]
+                              for group in self.mlstm_groups],
+                    "slstm": [xlstm_mod.slstm_init_cache(cfg, batch, dev)
+                              for _ in self.slstm_blocks], "pos": 0}
+        if cfg.ssm:
+            return {"mamba": [[ssm_mod.mamba2_init_cache(cfg, batch, self.dtype, dev)
+                               for _ in group] for group in self.mamba_groups],
+                    "attn": [attn.gqa_init_cache(cfg, batch, max_len, self.dtype, dev)
+                             for _ in self.mamba_groups], "pos": 0}
+        init = attn.mla_init_cache if cfg.mla else attn.gqa_init_cache
 
         def one():
-            return init(self.cfg, batch, max_len, self.dtype, self.device)
+            return init(cfg, batch, max_len, self.dtype, dev)
         cache: Cache = {"kv": [one() for _ in self.blocks], "pos": 0}
         if self.cfg.moe and self.cfg.first_dense_layers:
             cache["kv_dense"] = [one() for _ in self.dense_blocks]
@@ -195,9 +290,23 @@ class Model(nn.Module):
         pos = cache["pos"]
         x = self._embed(tokens)
         aux: List[dict] = []
-        for blk, c in zip(self.dense_blocks, cache.get("kv_dense", [])):
-            x = blk.decode(self.cfg, c, x, pos, aux)
-        for blk, c in zip(self.blocks, cache["kv"]):
-            x = blk.decode(self.cfg, c, x, pos, aux)
+        cfg = self.cfg
+        if cfg.xlstm:
+            for group, sblk, mc, sc in zip(self.mlstm_groups, self.slstm_blocks,
+                                           cache["mlstm"], cache["slstm"]):
+                for blk, c in zip(group, mc):
+                    x = blk.decode(cfg, c, x)
+                if cfg.slstm_every:
+                    x = sblk.decode(cfg, sc, x)
+        elif cfg.ssm:
+            for group, mc, ac in zip(self.mamba_groups, cache["mamba"], cache["attn"]):
+                for blk, c in zip(group, mc):
+                    x = blk.decode(cfg, c, x)
+                x = self.shared_attn.decode(cfg, ac, x, pos, aux)
+        else:
+            for blk, c in zip(self.dense_blocks, cache.get("kv_dense", [])):
+                x = blk.decode(cfg, c, x, pos, aux)
+            for blk, c in zip(self.blocks, cache["kv"]):
+                x = blk.decode(cfg, c, x, pos, aux)
         self._record(aux)
         return self._head(x), dict(cache, pos=pos + 1)

@@ -1169,6 +1169,58 @@ def test_cuda_lm_families_match_cpu(cuda, arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_cuda_ssm_families_match_cpu(cuda, arch):
+    """zamba2 (Mamba2 groups, the one shared attention block and its ring:
+    40 steps wrap each group's 32-slot ring) and xLSTM (mLSTM and sLSTM):
+    the same weights on the card (zamba2's attention on the kernels) and on
+    the CPU (plain versions) give the same forward logits and the same
+    logits at every decode step, float32, and each decode step agrees with
+    the card's own forward within tests/test_models.py's 2e-3 * scale. A
+    zamba2 forward and a decode step launch one attention a group; xLSTM
+    launches none."""
+    cpu = _smoke_model(arch, torch.float32, "cpu")
+    cfg = cpu.cfg
+    gpu = Model(cfg, dtype=torch.float32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    groups = cfg.n_layers // cfg.attn_every if cfg.ssm else 0
+    s = 40
+    x = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator().manual_seed(4))
+    before = (fa.LAUNCHES, fa.DECODE_LAUNCHES)
+    want, _ = cpu.forward(x)
+    got, _ = gpu.forward(x.to(cuda))
+    assert fa.LAUNCHES == before[0] + groups
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cache_c, cache_g = cpu.init_cache(2, s), gpu.init_cache(2, s)
+    for t in range(s):
+        want_t, cache_c = cpu.decode_step(cache_c, x[:, t:t + 1])
+        got_t, cache_g = gpu.decode_step(cache_g, x[:, t:t + 1].to(cuda))
+        scale = max(1.0, float(want_t.abs().max()))
+        assert float((got_t.cpu() - want_t).abs().max()) <= 1e-4 * scale, (arch, t)
+        own = max(1.0, float(got[:, t].abs().max()))
+        assert float((got_t[:, 0] - got[:, t]).abs().max()) <= 2e-3 * own, (arch, t)
+    assert fa.LAUNCHES == before[0] + groups * (1 + s)
+    assert fa.DECODE_LAUNCHES == before[1] + groups * s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_cuda_ssm_families_generate_is_deterministic(cuda, arch):
+    """Two bf16 generate runs give the same tokens; zamba2's attention takes
+    the tensor-core kernel, one launch a group a step."""
+    model = _smoke_model(arch, torch.bfloat16, cuda)
+    cfg = model.cfg
+    prompts = torch.randint(0, cfg.vocab_size, (4, 8), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(5))
+    before = fa.SM90_LAUNCHES
+    a = serve.generate(model, prompts, 8)
+    b = serve.generate(model, prompts, 8)
+    assert torch.equal(a, b)
+    groups = cfg.n_layers // cfg.attn_every if cfg.ssm else 0
+    assert fa.SM90_LAUNCHES == before + 2 * 16 * groups
+
+
+@pytest.mark.gpu
 def test_cuda_generate_is_deterministic(cuda):
     """Two bf16 runs give the same tokens (the MoE combine has no atomics)."""
     model = _smoke_model("kimi-k2-1t-a32b", torch.bfloat16, cuda)

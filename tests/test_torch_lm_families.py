@@ -35,7 +35,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import ref
 from repro_torch.launch import serve
 from repro_torch.models import Model, attention, layers, moe, params_from_numpy
-from repro_torch.models.model import check_supported
+from repro_torch.models.convert import _flatten
 
 DECODERS = ["deepseek-v2-236b", "h2o-danube-3-4b", "qwen2-vl-2b"]
 LOGIT_RTOL = 1e-4
@@ -91,19 +91,18 @@ def _port_forward(port, cfg, x: np.ndarray):
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_check_supported_raises_only_for_ssm_and_xlstm(arch):
-    """Every attention family builds; only zamba2 (Mamba2) and xLSTM are
-    refused, naming the ROADMAP."""
+def test_every_config_builds_with_the_reference_names_and_shapes(arch):
+    """Every one of the ten configs builds on the CPU, and its parameters
+    are the reference pytree's leaves, name for name and shape for shape
+    (the stacked layer and group axes split into per-layer modules)."""
     cfg = smoke_config(arch)
-    if cfg.ssm or cfg.xlstm:
-        with pytest.raises(NotImplementedError, match="SSM and xLSTM.*ROADMAP"):
-            check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg, dtype=torch.float32, device="cpu")
-    else:
-        check_supported(cfg)
-        model = Model(cfg, dtype=torch.float32, device="cpu")
-        assert hasattr(model, "frontend_proj") == (cfg.frontend != "none")
+    model = Model(cfg, dtype=torch.float32, device="cpu")
+    assert hasattr(model, "frontend_proj") == (cfg.frontend != "none")
+    ref = RefModel(ref_smoke_config(arch), dtype=jnp.float32).abstract_params()
+    want = {name: tuple(leaf.shape) for name, leaf in _flatten(
+        jax.tree.map(lambda leaf: np.empty(leaf.shape, np.float32), ref)).items()}
+    got = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    assert got == want
 
 
 # --------------------------------------------------------------------------

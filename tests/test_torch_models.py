@@ -26,7 +26,6 @@ from repro.models import moe as ref_moe
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch import serve
 from repro_torch.models import Model, layers, moe, params_from_numpy
-from repro_torch.models.model import check_supported
 
 LM_ARCHS = ["qwen3-0.6b", "granite-20b", "deepseek-coder-33b", "kimi-k2-1t-a32b"]
 LOGIT_RTOL = 1e-4
@@ -264,17 +263,6 @@ def test_params_from_numpy_rejects_a_mismatched_tree():
     del tree["embed"]
     with pytest.raises(ValueError, match="names differ"):
         params_from_numpy(smoke_config("qwen3-0.6b"), tree, device="cpu", dtype=torch.float32)
-
-
-@pytest.mark.parametrize("arch,match", [
-    ("zamba2-2.7b", "SSM"),
-    ("xlstm-125m", "xLSTM"),
-])
-def test_unported_families_raise(arch, match):
-    with pytest.raises(NotImplementedError, match=match):
-        check_supported(smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(smoke_config(arch), dtype=torch.float32, device="cpu")
 
 
 def test_model_without_device_needs_a_gpu():
