@@ -95,12 +95,13 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    interleaved (the tracer's cost), and one traced run under the profiler
    (its launch spans' host seconds beside its device busy time). Both
    graph kernels' counters are set to 0 before the phase and read after.
-   Then (4d, ``{"phase": "streaming", ...}`` lines) streaming updates: the
-   R19 graph padded to its geometric bucket (661,395 x 19,719,866: the
+   Then (4d, ``{"phase": "streaming", ...}`` lines) streaming updates: a
+   graph padded to its geometric bucket (R19's is 661,395 x 19,719,866: the
    padding edges are self-loops on one vertex) behind a
    ``StreamingSession`` bound from ``program.lower(graph=g, bucket=True)``,
-   for BFS_ECP, SSSP, SSSP under ``Target(cache=False)``, WCC and
-   PAGERANK. One additions-only delta of 4,096 edges drawn from the seed
+   for BFS_ECP and SSSP under ``Target(cache=False)`` on R19, and SSSP,
+   WCC and PAGERANK on rmat(16, 32) (their R19 binds cut for time). One
+   additions-only delta of 4,096 edges drawn from the seed
    (SSSP's weights 1-63); the next query must be a host repair (PAGERANK:
    a full run), bit-identical to a full run on the card at that version
    (``ss.session.run``), equal to the oracle on the updated graph's real
@@ -220,15 +221,49 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    xlstm-125m at its full config: ``generate`` twice in bf16 (the same
    tokens, no attention launch); in float32 a forward over [4, 2048]
    (timed: the sLSTM steps through every position) against 64 decode
-   steps within the same tolerance.
+   steps within the same tolerance. For zamba2, the forward's two forms
+   of the SSD's products, in place (serving) and out of place (grad mode,
+   no graph), each timed with its transient peak memory.
+   Then (4i, ``{"phase": "train", ...}`` lines) training. First the
+   backward kernels (``csrc/flash_attention_bwd.cu``) at qwen3-0.6b's
+   layer (bf16 and f32 [4, 16, 2048, 128], kv 8, causal), deepseek-v2's
+   MLA (bf16 [2, 128, 1024, (192, 128)]), zamba2's width under a window
+   that hides keys (bf16 [2, 32, 2048, 80], window 512) and hubert's
+   bidirectional frames (bf16 [2, 16, 1024, 80]): dq, dk and dv held to
+   the plain twin on the card (bf16 by a row-relative rule, float32 by
+   max |err| / max |g|), the same bits twice, fault controls that must
+   fail (a key tile dropped from P; for float32 also the twin on
+   bf16-rounded inputs), the time beside the bound of the least work (2 *
+   (3 Dqk + 2 Dv) FLOPs a visible pair, or q, k, v, out, dout read and
+   dq, dk, dv written once) and SDPA's backward alone on a retained graph
+   (queued CUDA events, backend named); the gather's transpose at deepseek-v2's dispatch, bit
+   for bit its twin, beside its byte bound and ``index_add_``. Then
+   qwen3-0.6b at its full config in bf16 through
+   ``repro_torch.launch.train.main``: 10 steps of [4, 2048] tokens in two
+   microbatches, remat on; every loss and grad norm finite, step 0's loss
+   within 1.0 of ln(vocab), the last below the first, 28 x 2 backward and
+   twice as many forward attention launches a step (remat); step time,
+   tokens/s, peak memory and a profiled step. The f32 gradient of qwen3 at
+   full width cut to 2 layers ([1, 128] tokens) on the card against the
+   CPU's, each parameter within 1e-3 of its max. deepseek-v2 at full width
+   cut to 2 layers, one bf16 step with 8-bit moments on [2, 1024] tokens:
+   finite, the gather's backward launched, every attention backward at
+   (192, 128). Last, checkpoints through the CLI (``--smoke`` on the
+   card): a 6-step run resumed to 8 steps at step 6, an 8-step run
+   restarted from its step-6 checkpoint equal to it uninterrupted (lines
+   and final checkpoint, bit for bit), and the manager's round trip of
+   bf16 weights and 8-bit moments on the card.
 6. The last line is ``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -277,6 +312,7 @@ BATCH_MSBFS = "__msbfs__"  # kernel_launches key of the multi-source BFS path
 STREAM_DELTA = 4096  # edges of each additions-only delta of the streaming phase
 STREAM_ADD_DELTAS = 1  # additions-only deltas a program (BFS_ECP's cut from 2 for time)
 STREAM_REMOVE = 64  # real edges of BFS_ECP's removal delta
+STREAM_SMALL_SCALE = 16  # cached SSSP's, WCC's and PAGERANK's streaming graph: rmat(16, 32)
 DIST_DEVICES = 4  # shards of phase 4f's distributed target (on one card they share it)
 DIST_SMALL_SCALE = 16  # phase 4f's streaming, serving and CLI graph: rmat(16, 16)
 # a distributed float sum against the single-device one: PAGERANK's values
@@ -2326,6 +2362,31 @@ def _decode_vs_forward(model, toks, full) -> tuple:
     return float(errs.max()), int(errs.argmax())
 
 
+def forward_forms(model, tokens) -> dict:
+    """The two forms of the SSD's products (zamba2) in one forward of
+    ``tokens``: in place (no grad mode, as ``forward``
+    serves) and out of place (grad mode on with no parameter taking a
+    gradient: the form a train step runs, without its graph), run in the
+    order in place, out of place, out of place, in place. Each form's wall
+    ms a run and its transient peak, ``max_memory_allocated`` less what
+    was allocated before the run."""
+    forms = {"in_place": torch.no_grad, "out_of_place": torch.enable_grad}
+    runs = {name: {"ms": [], "peak_bytes": []} for name in forms}
+    for name in ("in_place", "out_of_place", "out_of_place", "in_place"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with forms[name]():
+            logits, _ = model._forward(tokens, None)
+        torch.cuda.synchronize()
+        runs[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+        runs[name]["peak_bytes"].append(torch.cuda.max_memory_allocated() - base)
+        assert logits.grad_fn is None
+        del logits
+    return runs
+
+
 def zamba2_phase(mods, dev: str, seed: int, smi: str) -> dict:
     """zamba2-2.7b at its full config. bf16: ``generate`` twice (one sm90
     launch a group a step, none of the f32 routes), a forward over [4,
@@ -2376,6 +2437,7 @@ def zamba2_phase(mods, dev: str, seed: int, smi: str) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     row["profile_decode_step"] = _profile_step(model, prompts)
     row["profile_forward"] = profile_run(lambda: model.forward(tokens), top=8)
+    row["forward_forms"] = forward_forms(model, tokens)
     del model, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -2479,6 +2541,479 @@ def ssm_families_phase(mods, ref, dev: str, seed: int, smi: str) -> tuple:
             "flash_attention_sm90", 0)
     log({"phase": "ssm_families", "launches": total, "phase_s": time.perf_counter() - t_phase})
     return rows, kernel_rows, total
+
+
+# ---------------------------------------------------------------------------
+# 4i. training: the backward kernels, qwen3-0.6b's train loop, deepseek-v2's
+# MoE/MLA step, the gradient against the plain path, checkpoint resume
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 10  # qwen3-0.6b train steps through launch.train.main
+TRAIN_ARGS = ["--seq-len", "2048", "--global-batch", "4", "--microbatches", "2"]
+GRAD_LAYERS, GRAD_TOKENS = 2, 128  # the f32 gradient against the CPU's: qwen3 cut to 2 layers
+GRAD_TOL = 1e-3  # each parameter's gradient within GRAD_TOL * max|g| of the CPU's
+#: a bf16 gradient against the float32 plain twin: max over rows of
+#: max |err| / max(rms(row), GRAD_ROW_FLOOR * rms(tensor)) within
+#: ROW_REL_TOL (the forward rows' rule); the floor keeps a row whose
+#: gradient cancels to rounding noise (a query that sees one key) from
+#: dividing by that noise
+GRAD_ROW_FLOOR = 1e-2
+#: a float32 gradient against the twin: max |err| / max |g| per tensor
+#: (grad_vs_plain's rule). The two sum orders' rounding reads ~1e-6 to
+#: 1e-5; the twin on bf16-rounded inputs reads ~2e-3 to 4e-3, and each
+#: float32 row asserts that this control fails
+GRAD_F32_TOL = 1e-4
+#: the backward rows: (name, dtype, q [B, H, L, Dqk], kv heads, Dv, causal, window)
+BWD_ROWS = [("qwen3", torch.bfloat16, (4, 16, 2048, 128), 8, 128, True, 0),
+            ("qwen3_f32", torch.float32, (4, 16, 2048, 128), 8, 128, True, 0),
+            ("deepseek_v2_mla", torch.bfloat16, (2, 128, 1024, 192), 128, 128, True, 0),
+            ("zamba2_window", torch.bfloat16, (2, 32, 2048, 80), 32, 80, True, 512),
+            ("hubert", torch.bfloat16, (2, 16, 1024, 80), 16, 80, False, 0)]
+
+
+def grad_row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(dim=-1).sqrt()
+    floor = GRAD_ROW_FLOOR * w.pow(2).mean().sqrt()
+    return float(((g - w).abs().amax(dim=-1) / torch.maximum(rms, floor).clamp_min(1e-30)).max())
+
+
+def grad_max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    w = want.float()
+    return float((got.float() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def attention_bwd_control(ref, q, k, v, out, dout, causal: bool, window: int, keys: tuple):
+    """The plain twin's formula with the keys ``[lo, hi)`` dropped from P
+    (a key tile skipped): the fault the row-relative check must catch."""
+    b, h, lq, dqk = q.shape
+    group = h // k.shape[1]
+    scale = 1.0 / math.sqrt(dqk)
+    kr, vr = (t.float().repeat_interleave(group, dim=1) for t in (k, v))
+    p, denom = ref._softmax_parts(q.float(), kr, causal, window, scale)
+    p = p / denom
+    p[..., keys[0]:keys[1]] = 0.0
+    g = dout.float()
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g, vr) - (g * out.float()).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = (torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale).unflatten(1, (-1, group)).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g).unflatten(1, (-1, group)).sum(2)
+    return dq, dk, dv
+
+
+def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen) -> dict:
+    """One backward row: the kernels against the plain twin on the card
+    (dq, dk and dv; bf16 by the row-relative rule, float32 by max |err| /
+    max |g|), the same bits twice, a fault control that must fail (a key
+    tile dropped; for float32 also the twin on bf16-rounded inputs), the
+    kernel's time (queued CUDA events) beside the plain twin's, SDPA's
+    backward alone on one retained graph (the library, queued alike) and
+    the bound of the least work: 2 * (3 Dqk + 2 Dv) FLOPs a visible
+    (query, key) pair, and q, k, v, out and dout read once, dq, dk and dv
+    written once."""
+    b, h, lq, dqk = qshape
+    dev = gen.device
+    q = torch.randn(b, h, lq, dqk, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, hkv, lq, dqk, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, hkv, lq, dv, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(b, h, lq, dv, generator=gen, device=dev).to(dtype)
+    out = fa.flash_attention(q, k, v, causal, window)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, dout, causal, window)
+
+    before = fa.BWD_LAUNCHES
+    got, again = kernel(), kernel()
+    assert fa.BWD_LAUNCHES - before == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), f"{name}: bits differ"
+    inputs = (q, k, v, out, dout)
+    want = ref.flash_attention_bwd_ref(*(t.float() for t in inputs), causal, window)
+    bf16 = dtype == torch.bfloat16
+    rule, tol = (grad_row_rel, ROW_REL_TOL) if bf16 else (grad_max_rel, GRAD_F32_TOL)
+    errs = {f"d{x}": rule(a, w) for x, a, w in zip("qkv", got, want)}
+    max_abs = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
+    for x, a in zip("qkv", got):
+        assert torch.isfinite(a).all(), f"{name}: d{x} not finite"
+    assert all(e <= tol for e in errs.values()), f"{name}: gradient errors {errs} > {tol}"
+    keys = control_keys(lq)
+    faults = {"keys_dropped": attention_bwd_control(ref, *inputs, causal, window, keys)}
+    if not bf16:  # a kernel that rounded to bf16 inside
+        faults["bf16_inputs"] = ref.flash_attention_bwd_ref(
+            *(t.bfloat16().float() for t in inputs), causal, window)
+    caught = {}
+    for fault, grads in faults.items():
+        caught[fault] = {f"d{x}": rule(c, w) for x, c, w in zip("qkv", grads, want)}
+        assert all(e > tol for e in caught[fault].values()), \
+            f"{name}: the control {fault} passes: {caught[fault]}"
+    del got, again, want, faults
+    seen = visible_keys(lq, lq, causal, window, dev)
+    pairs = int(seen.sum()) * b * h
+    n_bytes = (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + dout.numel()) \
+        * q.element_size()
+    rate = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
+    b_ms, b_by = bound(n_bytes, 2 * (3 * dqk + 2 * dv) * pairs, rate)
+    kernel_ms = queued_event_ms(kernel, 3)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window),
+                       iters=1, warmup=1)
+    mask = ({} if bool(seen.all()) else {"is_causal": True}
+            if window == 0 else {"attn_mask": seen})
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **mask)
+    lib_dout = torch.empty_like(lib_out.detach()).copy_(dout)  # laid out as its output
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, leaves, lib_dout, retain_graph=True)
+
+    backend = SDPBackend(torch._fused_sdp_choice(*leaves, enable_gqa=True, **mask)).name
+    for _ in range(2):  # the backend's first calls pick and build its plan
+        lib_bwd()
+    library_ms = queued_event_ms(lib_bwd, 10)
+    del lib_out, leaves
+    return {"route": "cuda", "dtype": str(dtype).split(".")[-1], "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "torch.autograd.grad of scaled_dot_product_attention("
+                            "enable_gqa=True" + "".join(f", {key}" for key in mask)
+                            + "), the graph retained: its backward alone",
+            "library_backend": backend,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / kernel_ms,
+            "visible_pairs": pairs, "max_abs_err": max_abs,
+            "grad_rule": "row_rel" if bf16 else "max_rel", "grad_err": errs, "grad_tol": tol,
+            "control": {"keys_dropped": list(keys), "grad_err": caught},
+            "same_bits_twice": True, "widths": list(fa.bwd_widths(dqk, dv)),
+            "shape": {"q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
+                      "causal": causal, "window": window}}
+
+
+def _gather_bwd_row(md, ref, moe_mod, cfg, n_tokens: int, gen) -> dict:
+    """The gather's transpose at deepseek-v2's dispatch of ``n_tokens``
+    tokens (its groups, top-6 of 160 experts, capacity factor 1.25, D =
+    5120, bf16): bit for bit its plain twin, twice; timed beside its byte
+    bound (live slot rows read once, token rows written once, the inverse
+    map's indices) and ``index_add_`` over the same slots."""
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    dev = gen.device
+    g = moe_mod._dispatch_groups(n_tokens)
+    tg = n_tokens // g
+    cap = int(max(1, math.ceil(cfg.moe_capacity_factor * tg * k / e)))
+    top_e = torch.rand(g, tg, e, generator=gen, device=dev).topk(k, dim=-1).indices
+    _, order, offsets, sizes = moe_mod.route(top_e, e, cap)
+    rows = (order // k).to(torch.int32)
+    offsets, sizes = offsets.to(torch.int32), sizes.to(torch.int32)
+    dout = torch.randn(g, e, cap, d, generator=gen, device=dev).bfloat16()
+
+    def kernel():
+        return md.moe_gather_bwd(dout, offsets, sizes, cap, tg, rows)
+
+    before = md.BWD_LAUNCHES
+    got, again = kernel(), kernel()
+    assert md.BWD_LAUNCHES - before == 2
+    want = ref.moe_gather_bwd_ref(dout, rows, offsets, sizes, cap, tg)
+    assert torch.equal(got, want) and torch.equal(got, again), "moe_gather_bwd: not exact"
+    # the library form: one index_add_ of every slot's row into its token
+    # row, the dead slots into a spare row
+    c = torch.arange(cap, device=dev)
+    slot = (offsets.long()[..., None] + c).clamp(max=tg * k - 1)
+    tok = rows.long().gather(1, slot.reshape(g, -1)).reshape(slot.shape)
+    live = c < sizes.long()[..., None]
+    index = torch.where(live, tok + tg * torch.arange(g, device=dev)[:, None, None],
+                        g * tg).reshape(-1)
+    flat = dout.reshape(-1, d)
+
+    def library():
+        return torch.zeros(g * tg + 1, d, dtype=dout.dtype, device=dev).index_add_(
+            0, index, flat)
+
+    lib_diff = float((library()[:-1].float() - got.reshape(-1, d).float()).abs().max())
+    live_rows = int(sizes.sum())
+    n_bytes = live_rows * d * 2 + got.numel() * 2 + 4 * (g * e * cap + g * (tg + 1))
+    b_ms, b_by = bound(n_bytes, live_rows * d)
+    dev_ms = device_ms(kernel, iters=10, focus="moe_gather_bwd_kernel")
+    return {"route": "cuda", "kernel_ms": queued_event_ms(kernel, 10),
+            "kernel_device_ms": dev_ms["ms"], "kernel_only_device_ms": dev_ms.get("focus_ms"),
+            "plain_ms": time_ms(lambda: ref.moe_gather_bwd_ref(dout, rows, offsets, sizes, cap,
+                                                               tg), iters=3, warmup=1),
+            "library_ms": queued_event_ms(library, 10),
+            "library_call": "torch.Tensor.index_add_ (slot -> token row map precomputed)",
+            "library_max_abs_diff": lib_diff, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": 0.0, "same_bits_twice": True,
+            "shape": {"tokens": n_tokens, "groups": g, "experts": e, "top_k": k,
+                      "capacity": cap, "d": d, "live_slots": live_rows, "dtype": "bfloat16"}}
+
+
+def _train_cli(train, argv) -> tuple:
+    """``launch.train.main(argv)`` with its standard output captured:
+    (the CSV rows as dicts, the other lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert train.main(argv) == 0
+    lines = buf.getvalue().splitlines()
+    head = lines.index("step,loss,grad_norm,lr,step_time_s")
+    rows = [dict(zip(("step", "loss", "grad_norm", "lr", "step_time_s"), map(float,
+                                                                              line.split(","))))
+            for line in lines[head + 1:] if not line.startswith("#")]
+    return rows, lines[:head] + [line for line in lines[head + 1:] if line.startswith("#")]
+
+
+def qwen_train(mods, train, dev: str, seed: int) -> dict:
+    """qwen3-0.6b at its full config in bf16 through ``launch.train.main``:
+    10 steps of [4, 2048] tokens in two microbatches, remat on. The LM
+    counters are set to 0 just before and read just after: 28 x 2 backward
+    launches a step and twice as many forward ones (remat). Then one more
+    step, built the same way outside the CLI, profiled."""
+    fa, md, get_config, Model = mods[0], mods[1], mods[2], mods[3]
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import OptConfig, init_state, make_train_step
+
+    cfg = get_config(QWEN)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counters(fa, md)
+    fa.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows, _ = _train_cli(train, ["--arch", QWEN, "--steps", str(TRAIN_STEPS), *TRAIN_ARGS,
+                                 "--seed", str(seed), "--log-every", "1", "--device", dev])
+    wall_s = time.perf_counter() - t0
+    launches = {**_lm_counters(fa, md), "flash_attention_bwd": fa.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    assert [int(r["step"]) for r in rows] == list(range(TRAIN_STEPS))
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows), rows
+    assert abs(rows[0]["loss"] - math.log(cfg.vocab_size)) < 1.0, rows[0]
+    assert rows[-1]["loss"] < rows[0]["loss"], (rows[0], rows[-1])
+    per_step = cfg.n_layers * 2  # layers x microbatches
+    assert launches["flash_attention_bwd"] == per_step * TRAIN_STEPS, launches
+    assert launches["flash_attention_sm90"] == 2 * per_step * TRAIN_STEPS, launches
+    step_s = statistics.median(r["step_time_s"] for r in rows[2:])
+    t0 = time.perf_counter()  # the host's share of a step: drawing its batch
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticLM(cfg, 2048, 4, seed=seed).batch(0).items()}
+    data_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one more step, outside the CLI, profiled
+    model = Model(cfg, torch.bfloat16, dev).init(torch.Generator(dev).manual_seed(seed))
+    opt_cfg = OptConfig(lr=3e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+    state = init_state(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(model, opt_cfg, n_microbatches=2)
+    state, _ = step(state, batch)
+    box = {}
+
+    def one_step():
+        box["state"], box["metrics"] = step(state, batch)
+
+    prof = profile_run(one_step, top=8, focus="repro_fa_bwd")
+    del model, state, step, box
+    tokens = 4 * 2048
+    return {"phase": "train", "model": QWEN, "config": "full", "dtype": "bfloat16",
+            "steps": TRAIN_STEPS, "argv": TRAIN_ARGS, "remat": True,
+            "losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+            "lr": [r["lr"] for r in rows], "step_times_s": [r["step_time_s"] for r in rows],
+            "step_s_median_2_9": step_s, "tokens_per_s": tokens / step_s,
+            "data_batch_s": data_s,
+            "first_loss_vs_ln_vocab": rows[0]["loss"] - math.log(cfg.vocab_size),
+            "wall_s": wall_s, "max_memory_allocated": peak, "launches": launches,
+            "launches_per_step": {"flash_attention_bwd": per_step,
+                                  "flash_attention_sm90": 2 * per_step},
+            "profile_one_step": prof}
+
+
+def grad_vs_plain(mods, dev: str, seed: int) -> dict:
+    """qwen3-0.6b at full width cut to 2 layers, float32, one loss on [1,
+    128] tokens: the card's gradient (the hand-written kernels forward and
+    backward) against the same weights' gradient on the CPU (the plain
+    versions and twins), every parameter within GRAD_TOL * max|g|."""
+    fa, get_config, Model = mods[0], mods[2], mods[3]
+    cfg = dataclasses.replace(get_config(QWEN), n_layers=GRAD_LAYERS)
+    gen = torch.Generator().manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, GRAD_TOKENS), generator=gen)
+    batch = {"tokens": toks[0], "labels": toks[1]}
+    grads, losses = {}, {}
+    for where in ("cpu", dev):
+        before = fa.BWD_LAUNCHES
+        model = Model(cfg, torch.float32, where)
+        if where == "cpu":
+            model.init(torch.Generator("cpu").manual_seed(seed))
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        model.requires_grad_(True)
+        loss, _ = model.loss({k: t.to(where) for k, t in batch.items()})
+        loss.backward()
+        losses[where] = float(loss.detach())
+        grads[where] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        card_bwd = fa.BWD_LAUNCHES - before  # the last run's: the card's
+        del model
+    worst, worst_name = 0.0, None
+    for name, want in grads["cpu"].items():
+        err = float((grads[dev][name] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    assert worst <= GRAD_TOL, f"gradient {worst_name}: {worst} of max|g| > {GRAD_TOL}"
+    assert card_bwd == GRAD_LAYERS, card_bwd
+    return {"phase": "train", "check": "grad_vs_cpu", "model": QWEN, "layers": GRAD_LAYERS,
+            "tokens": [1, GRAD_TOKENS], "dtype": "float32", "loss_card": losses[dev],
+            "loss_cpu": losses["cpu"], "worst_grad_err_over_max": worst,
+            "worst_param": worst_name, "tol": GRAD_TOL, "params": len(grads["cpu"])}
+
+
+def deepseek_train_step(mods, dev: str, seed: int) -> dict:
+    """deepseek-v2 at full width cut to 2 layers (1 dense-first, 1 MoE),
+    bf16, one train step on [2, 1024] tokens with 8-bit moments: the loss
+    and grad norm finite, the gather's backward launched, the attention
+    backward at (192, 128); peak memory."""
+    fa, md, get_config, Model = mods[0], mods[1], mods[2], mods[3]
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import OptConfig, init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, torch.bfloat16, dev).init(torch.Generator(dev).manual_seed(seed))
+    opt_cfg = OptConfig(quantized=True)
+    state = init_state(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(model, opt_cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticLM(cfg, 1024, 2, seed=seed).batch(0).items()}
+    widths = []
+    inner = fa.flash_attention_bwd
+
+    def recording(q, k, v, *args):
+        widths.append((q.shape[-1], v.shape[-1], str(q.dtype).split(".")[-1]))
+        return inner(q, k, v, *args)
+
+    _reset_lm_counters(fa, md)
+    fa.BWD_LAUNCHES, md.BWD_LAUNCHES = 0, 0
+    fa.flash_attention_bwd = recording
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_s = time.perf_counter() - t0
+    finally:
+        fa.flash_attention_bwd = inner
+    launches = {**_lm_counters(fa, md), "flash_attention_bwd": fa.BWD_LAUNCHES,
+                "moe_gather_bwd": md.BWD_LAUNCHES}
+    assert math.isfinite(loss) and math.isfinite(gn), (loss, gn)
+    assert launches["moe_gather_bwd"] >= 1, launches
+    mla = (cfg.resolved_head_dim + cfg.rope_head_dim, cfg.resolved_v_head_dim)  # (192, 128)
+    assert len(widths) == cfg.n_layers and all(w[:2] == mla for w in widths), widths
+    out = {"phase": "train", "model": DEEPSEEK, "layers": 2, "dtype": "bfloat16",
+           "optimizer": "adamw8bit", "tokens": [2, 1024], "loss": loss, "grad_norm": gn,
+           "step_s": step_s, "param_bytes": model.param_bytes(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
+           "attention_bwd_widths": sorted(set(widths))}
+    del model, state, step
+    return out
+
+
+def checkpoint_resume(mods, train, dev: str) -> dict:
+    """``launch.train.main`` with ``--smoke`` on the card: a 6-step run
+    saving at 3 and 6, then a call to 8 steps resumes at step 6; the same
+    run uninterrupted to 8 against it restarted from its step-6
+    checkpoint: steps 6 and 7 print the same lines and the final
+    checkpoints hold the same bits. And the manager's round trip of a
+    bf16 model's weights and 8-bit state on the card, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import OptConfig, init_state, make_train_step
+
+    fa, get_config, Model = mods[0], mods[2], mods[3]
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    smoke = ["--smoke", "--device", dev, "--seq-len", "64", "--global-batch", "4",
+             "--log-every", "1", "--ckpt-every", "3"]
+    try:
+        first, _ = _train_cli(train, smoke + ["--steps", "6", "--ckpt-dir", f"{root}/a"])
+        resumed, notes = _train_cli(train, smoke + ["--steps", "8", "--ckpt-dir", f"{root}/a"])
+        assert [int(r["step"]) for r in first] == list(range(6))
+        assert notes[0] == "# resumed from step 6" and \
+            [int(r["step"]) for r in resumed] == [6, 7], (notes, resumed)
+        whole, _ = _train_cli(train, smoke + ["--steps", "8", "--ckpt-dir", f"{root}/b"])
+        shutil.copytree(f"{root}/b/step_00000008", f"{root}/whole_8")
+        shutil.rmtree(f"{root}/b/step_00000008")
+        again, notes = _train_cli(train, smoke + ["--steps", "8", "--ckpt-dir", f"{root}/b"])
+        assert notes[0] == "# resumed from step 6", notes
+        same_lines = [(r["loss"], r["grad_norm"]) for r in again] == \
+            [(r["loss"], r["grad_norm"]) for r in whole[6:]]
+        with np.load(f"{root}/whole_8/shard_0.npz") as z:
+            want = {k: z[k] for k in z.files}
+        with np.load(f"{root}/b/step_00000008/shard_0.npz") as z:
+            differ = [k for k in z.files if not np.array_equal(z[k], want[k])]
+        assert same_lines and not differ, (same_lines, differ[:5])
+        # the manager's round trip on the card: bf16 weights, int8 moments
+        cfg = dataclasses.replace(get_config(QWEN), n_layers=1)
+        model = Model(cfg, torch.bfloat16, dev).init(torch.Generator(dev).manual_seed(1))
+        opt_cfg = OptConfig(quantized=True)
+        state = init_state(dict(model.named_parameters()), opt_cfg)
+        toks = torch.randint(0, cfg.vocab_size, (2, 2, 64), device=dev)
+        state, _ = make_train_step(model, opt_cfg)(state, {"tokens": toks[0],
+                                                           "labels": toks[1]})
+        tree = {"params": dict(model.named_parameters()), "opt": state}
+        mgr = CheckpointManager(f"{root}/c")
+        mgr.save_async(1, tree)
+        mgr.wait()
+        like = {"params": {n: torch.zeros_like(p) for n, p in tree["params"].items()},
+                "opt": {"m": {n: {key: torch.zeros_like(t) for key, t in s.items()}
+                              for n, s in state["m"].items()},
+                        "v": {n: {key: torch.zeros_like(t) for key, t in s.items()}
+                              for n, s in state["v"].items()},
+                        "step": torch.zeros_like(state["step"])}}
+        back = mgr.restore(1, like)
+        flat = [(n, back["params"][n], p) for n, p in tree["params"].items()]
+        for key in ("m", "v"):
+            flat += [(f"{key}.{n}.{q}", back["opt"][key][n][q], t)
+                     for n, s in state[key].items() for q, t in s.items()]
+        bad = [n for n, a, b in flat if a.device != b.device or not torch.equal(a, b)]
+        assert not bad and int(back["opt"]["step"]) == int(state["step"]), bad[:5]
+        del model, state, tree, back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "train", "check": "checkpoint_resume", "resumed_at": 6,
+            "steps_6_7_equal_uninterrupted": same_lines, "final_checkpoint_bits_equal": True,
+            "losses_uninterrupted": [r["loss"] for r in whole],
+            "losses_restarted_6_7": [r["loss"] for r in again],
+            "roundtrip_leaves_bit_identical": len(flat),
+            "roundtrip_dtypes": sorted({str(b.dtype).split(".")[-1] for _, _, b in flat})}
+
+
+def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str) -> tuple:
+    """Phase 4i. Returns (the two backward kernels' rows, launches on the
+    main path: the attention backward's in qwen3-0.6b's training, the
+    gather's in deepseek-v2's step, and their forward kernels')."""
+    from repro_torch.launch import train
+
+    fa, md, get_config = mods[0], mods[1], mods[2]
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows = {}
+    for name, dtype, qshape, hkv, dv, causal, window in BWD_ROWS:
+        rows[f"flash_attention_bwd_{name}"] = _bwd_row(fa, ref, name, dtype, qshape, hkv, dv,
+                                                       causal, window, gen)
+        log({"phase": "train", "kernel": f"flash_attention_bwd_{name}", "card": smi,
+             **rows[f"flash_attention_bwd_{name}"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows["moe_gather_bwd"] = _gather_bwd_row(md, ref, moe_mod, get_config(DEEPSEEK), 2048, gen)
+    log({"phase": "train", "kernel": "moe_gather_bwd", "card": smi, **rows["moe_gather_bwd"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = qwen_train(mods, train, dev, seed)
+    log({**qwen, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({**grad_vs_plain(mods, dev, seed), "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek = deepseek_train_step(mods, dev, seed)
+    log({**deepseek, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({**checkpoint_resume(mods, train, dev), "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"flash_attention_bwd": qwen["launches"]["flash_attention_bwd"],
+                "moe_gather_bwd": deepseek["launches"]["moe_gather_bwd"],
+                "flash_attention_sm90": (qwen["launches"]["flash_attention_sm90"]
+                                         + deepseek["launches"]["flash_attention_sm90"]),
+                "moe_gather": deepseek["launches"]["moe_gather"]}
+    log({"phase": "train", "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return rows, launches
+
 
 
 def state_bytes(prog, g, k: int) -> int:
@@ -2890,10 +3425,13 @@ def _real_edges(graph):
     return graph.src[real], graph.dst[real], w
 
 
-def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tuple:
-    """Phase 4d: ``StreamingSession`` over the R19 graph padded to its
-    geometric bucket, one session per program, each bound from
-    ``program.lower(graph=g, bucket=True)``. After every additions-only
+def streaming_phase(repro_torch, sources, g, g_small, sr, es, seed: int, smi: str) -> tuple:
+    """Phase 4d: ``StreamingSession`` over a graph padded to its geometric
+    bucket, one session per program, each bound from
+    ``program.lower(graph=g, bucket=True)``: the R19 graph for BFS_ECP and
+    uncached SSSP (the fresh-bind checks), ``g_small`` (rmat(16, 32)) for
+    cached SSSP, WCC and PAGERANK, whose R19 binds and refreshes (~40 s a
+    program) were cut to keep the script inside its limit. After every additions-only
     delta the query is a host repair, held bit for bit to a full run on
     the card at the same version (``ss.session.run``) and to the oracle on
     the updated graph's real edges; an unseen root is a full run that
@@ -2908,12 +3446,12 @@ def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tup
     t_phase = time.perf_counter()
     rng = np.random.default_rng(seed)
     launches = {"shuffle_reduce": 0, "edge_stream": 0}
-    plans = [  # (row name, program, target, params, a removal delta, a fresh bind)
-        ("BFS_ECP", "BFS_ECP", None, {"root": 0}, True, True),
-        ("SSSP", "SSSP", None, {"root": 0}, False, False),
-        ("SSSP_no_cache", "SSSP", Target(cache=False), {"root": 0}, False, True),
-        ("WCC", "WCC", None, {}, False, False),
-        ("PAGERANK", "PAGERANK", None, {"iters": 20}, False, False),
+    plans = [  # (row name, program, target, params, a removal delta, a fresh bind, graph)
+        ("BFS_ECP", "BFS_ECP", None, {"root": 0}, True, True, g),
+        ("SSSP", "SSSP", None, {"root": 0}, False, False, g_small),
+        ("SSSP_no_cache", "SSSP", Target(cache=False), {"root": 0}, False, True, g),
+        ("WCC", "WCC", None, {}, False, False, g_small),
+        ("PAGERANK", "PAGERANK", None, {"iters": 20}, False, False, g_small),
     ]
 
     def oracle(name, graph, params, relabel):
@@ -2947,13 +3485,13 @@ def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tup
             f"{name}: {bad} vertices differ from the oracle after an update"
         return {"exact": True}
 
-    for row_name, name, target, params, removal, fresh_bind in plans:
+    for row_name, name, target, params, removal, fresh_bind, graph in plans:
         t_prog = time.perf_counter()
         oracle_s = []
         prog = repro_torch.compile(getattr(sources, name))
         relabel = (target or Target()).cache  # the hub relabel is on
-        acc = prog.lower(target, graph=g, bucket=True)
-        padded = g.pad_to(acc.shape.n_vertices, acc.shape.n_edges)
+        acc = prog.lower(target, graph=graph, bucket=True)
+        padded = graph.pad_to(acc.shape.n_vertices, acc.shape.n_edges)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ss = StreamingSession(prog, padded, accelerator=acc)
@@ -3072,7 +3610,8 @@ def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tup
             "phase": "streaming", "program": row_name, "params": params, "card": smi,
             "target": (target or Target()).describe(),
             "bucket": [acc.shape.n_vertices, acc.shape.n_edges],
-            "logical": [g.n_vertices_logical, g.n_edges_logical],
+            "graph": "R19" if graph is g else f"rmat-{STREAM_SMALL_SCALE}-{EDGE_FACTOR}",
+            "logical": [graph.n_vertices_logical, graph.n_edges_logical],
             "bind_s": bind_s, "first_run_s": first_s, "profile_v0": profile_v0,
             "steps": steps, "es_split_chunks": chunks, "fresh_bind": fresh,
             "counters": {"version": ss.version, "updates": ss.updates,
@@ -3083,7 +3622,8 @@ def streaming_phase(repro_torch, sources, g, sr, es, seed: int, smi: str) -> tup
             # each update costs a bind (~17 s at R19): BFS_ECP's second
             # additions-only delta was cut to keep the phase near 300 s
             "reduced": ({"additions_only_deltas": [2, STREAM_ADD_DELTAS]}
-                        if row_name == "BFS_ECP" else {}),
+                        if row_name == "BFS_ECP" else {} if graph is g else
+                        {"graph": ["R19", f"rmat-{STREAM_SMALL_SCALE}-{EDGE_FACTOR}"]}),
         })
         ss.close()
         del ss, acc, padded, first
@@ -4045,7 +4585,9 @@ def main() -> int:
         launches[name] += n
 
     # -- 4d. streaming updates ------------------------------------------------
-    stream_launches = streaming_phase(repro_torch, sources, g, sr, es, args.seed, smi)
+    g_stream = generators.rmat(STREAM_SMALL_SCALE, EDGE_FACTOR, seed=args.seed, weighted=True)
+    stream_launches = streaming_phase(repro_torch, sources, g, g_stream, sr, es, args.seed, smi)
+    del g_stream
     for name, n in stream_launches.items():
         launches[name] += n
 
@@ -4112,6 +4654,17 @@ def main() -> int:
     launches["flash_decode"] += ssm_launches["flash_attention_decode"]
     f32_tile += ssm_launches["flash_attention_tile"]
     f32_decode += ssm_launches["flash_attention_decode"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4i. training: the backward kernels, qwen3-0.6b, deepseek-v2 ----------
+    train_rows, train_launches = train_phase(mods, ref, moe_mod, dev, args.seed, smi)
+    launches["flash_attention_sm90"] += train_launches["flash_attention_sm90"]
+    launches["moe_gather"] += train_launches["moe_gather"]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    launches["moe_gather_bwd"] = train_launches["moe_gather_bwd"]
+    rows["flash_attention_bwd"] = train_rows["flash_attention_bwd_qwen3"]
+    rows["moe_gather_bwd"] = train_rows["moe_gather_bwd"]
 
     # -- 6. summary ----------------------------------------------------------
     meta = {
@@ -4127,6 +4680,12 @@ def main() -> int:
                          "src/repro/kernels/flash_attention.py:103"),
         "moe_gather": ("src/repro_torch/csrc/moe_gather.cu",
                        "src/repro/kernels/moe_dispatch.py:72"),
+        # the backward kernels: no Pallas counterpart (the reference trains
+        # through XLA's autodiff); each differentiates the kernel named
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:103"),
+        "moe_gather_bwd": ("src/repro_torch/csrc/moe_gather.cu",
+                           "src/repro/kernels/moe_dispatch.py:72"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -4140,6 +4699,17 @@ def main() -> int:
         })
         if "row_rel_check" in row:
             kernels[-1]["row_rel_err"] = row["row_rel_check"]["row_rel_err"]
+        if name in ("flash_attention_bwd", "moe_gather_bwd"):
+            kernels[-1]["replaces_note"] = (
+                "the backward of the kernel named: it has no Pallas counterpart, the reference "
+                "differentiates through XLA")
+        if name == "flash_attention_bwd":  # every backward row of phase 4i
+            kernels[-1]["row_rel_err"] = row["grad_err"]
+            kernels[-1]["shapes"] = {
+                key: {k: r[k] for k in ("dtype", "kernel_ms", "plain_ms", "library_ms",
+                                        "library_backend", "bound_ms", "bound_by",
+                                        "max_abs_err", "grad_rule", "grad_err", "shape")}
+                for key, r in train_rows.items() if key.startswith("flash_attention_bwd_")}
         prefix = {"flash_attention_sm90": "flash_attention_sm90_",
                   "flash_attention": "flash_attention_tile_",
                   "flash_decode": "flash_attention_decode_"}.get(name)

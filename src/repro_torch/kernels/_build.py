@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES: Tuple[str, ...] = ("shuffle_reduce", "edge_stream", "flash_attention",
-                            "flash_attention_sm90", "moe_gather")
+                            "flash_attention_sm90", "flash_attention_bwd", "moe_gather")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -40,6 +40,16 @@ Each source is instantiated at a few widths and runs a pair at the
 narrowest that holds it, with zero columns past Dqk and Dv
 (:func:`kernel_widths` asks the source which); a pair that none holds
 raises ``ValueError`` on the card.
+
+The gradient: where one is wanted (grad mode on and q, k or v requiring
+it) :func:`flash_attention` goes through :class:`FlashAttentionFn`, whose
+forward is the route above and whose backward is :func:`flash_attention_bwd`:
+on the card the hand-written ``csrc/flash_attention_bwd.cu`` (three
+kernels: the rows' log-sum-exp and ``rowsum(dO o O)``, then dK/dV per key
+tile, then dQ per query tile; float32 FFMA, bf16 or float32 in and out;
+its own width table, :func:`bwd_widths`), on the CPU the plain twin
+:func:`.ref.flash_attention_bwd_ref`. Without a gradient nothing records a
+graph.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build, ref
 
@@ -59,6 +70,9 @@ LAUNCHES = 0
 SM90_LAUNCHES = 0
 #: launches of the float32 decode route since the last reset
 DECODE_LAUNCHES = 0
+#: launches of the backward (csrc/flash_attention_bwd.cu) since the last
+#: reset; one a call, whose three kernels run in order
+BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 # route -> (source under csrc/, C entry point)
@@ -287,6 +301,22 @@ def kernel_widths(route: str, dqk: int, dv: int) -> Tuple[int, int]:
     return out[0], out[1]
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_widths(dqk: int, dv: int) -> Tuple[int, int]:
+    """``(DK, DV)``: the instantiation of ``csrc/flash_attention_bwd.cu`` a
+    ``(dqk, dv)`` backward runs at, the narrowest of its table that holds
+    both, as its widths entry answers; ``ValueError`` where none does.
+    Builds the source on first use."""
+    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd_widths
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    if fn(dqk, dv, out) != 0:
+        raise ValueError(f"flash_attention: no backward kernel takes head dims (Dqk, Dv) = "
+                         f"{(dqk, dv)}")
+    return out[0], out[1]
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its last dim is contiguous and its base and every
     other stride are positive multiples of 16 bytes (the kernels' 16-byte
@@ -331,10 +361,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
-    route = _route(q, h // hkv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float) -> torch.Tensor:
+    route = _route(q, q.shape[1] // k.shape[1])
     if route == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     return _launch(route, q, k, v, causal, window, scale)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: the forward is :func:`flash_attention`'s
+    route (which saves q, k, v and the output), the backward
+    :func:`flash_attention_bwd`. Arguments: ``(q, k, v, causal, window,
+    scale)``, the scale resolved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        out = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.attrs = (causal, window, scale)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.attrs)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k, v)`` for the
+    output gradient ``dout``, given the forward's output ``out`` (both ``[B,
+    H, Lq, Dv]``); each in its input's shape and dtype. A CUDA tensor runs
+    ``csrc/flash_attention_bwd.cu`` (bfloat16 or float32) or raises; a CPU
+    tensor the plain twin :func:`.ref.flash_attention_bwd_ref`."""
+    b, h, lq, dqk = q.shape
+    hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if out.shape != (b, h, lq, dv) or dout.shape != out.shape:
+        raise ValueError(f"flash_attention_bwd: out and dout must be {(b, h, lq, dv)}, got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}")
+    scale = 1.0 / math.sqrt(dqk) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window, scale)
+    global BWD_LAUNCHES
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, out, dout)):
+        raise ValueError("flash_attention_bwd: all tensors must be on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in (k, v, out)):
+        raise TypeError(f"flash_attention_bwd: q, k, v, out must share float32 or bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
+    bwd_widths(dqk, dv)
+    if max(b * h * lq, b * hkv * lk) >= 2**31:
+        raise ValueError("flash_attention_bwd: sizes past int32")
+    ins = [t if t.stride(-1) == 1 else t.contiguous()
+           for t in (q, k, v, out, dout.to(q.dtype))]
+    grads = [_grad_like(t) for t in ins[:3]]
+    lse = torch.empty(b * h * lq, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 24)(*(s for t in ins + grads for s in t.stride()[:3]))
+    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    rc = fn(*(t.data_ptr() for t in ins + grads), lse.data_ptr(), delta.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, hkv, lq, lk, dqk, dv, strides, int(causal),
+            int(window), scale, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    BWD_LAUNCHES += 1
+    return tuple(grads)
+
+
+def _grad_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of ``t``'s shape and dtype laid out as ``t`` is where
+    that keeps the last dim contiguous (a ``[B, L, H, D]`` buffer for a
+    view of one), else contiguous."""
+    g = torch.empty_like(t)
+    return g if g.stride(-1) == 1 else torch.empty(t.shape, dtype=t.dtype, device=t.device)
 
 
 def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

@@ -222,14 +222,26 @@ def flash_attention_ref(
     clamps it, where a plain softmax would give NaN.
     """
     b, h, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv = k.shape[1]
     if h % hkv:
         raise ValueError(f"flash_attention: {h} query heads over {hkv} kv heads")
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
         v = v.repeat_interleave(h // hkv, dim=1)
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p, denom = _softmax_parts(q, k, causal, window, scale)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(p.dtype)) / denom
+    return out.to(q.dtype)
+
+
+def _softmax_parts(q, k, causal: bool, window: int, scale: float):
+    """``(exp(logits - rowmax), denominator)`` of the attention of ``q [B, H,
+    Lq, D]`` over ``k [B, H, Lk, D]`` (kv heads already repeated), in float32
+    (float64 for float64 inputs): masked logits are -inf, a row with no key
+    has max 0, the denominator is clamped at 1e-30."""
+    lq, lk = q.shape[2], k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
     q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
     k_pos = torch.arange(lk, device=q.device)[None, :]
     mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
@@ -241,9 +253,35 @@ def flash_attention_ref(
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m)
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom
-    return out.to(q.dtype)
+    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None):
+    """``(dq, dk, dv)``: the gradient of :func:`flash_attention_ref` at ``(q,
+    k, v)`` for the output gradient ``dout [B, H, Lq, Dv]``, given the
+    forward's output ``out``, by the explicit formula (no autograd), in
+    float32 (float64 for float64 inputs): ``P`` recomputed, ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P o (dP - rowsum(dO o O))``, ``dQ = scale dS
+    K``, ``dK = scale dS^T Q``, the query heads of each kv head summed into
+    its dK and dV. Each gradient in its input's dtype and shape."""
+    b, h, lq, dqk = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(dqk) if scale is None else scale
+    kr, vr = k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
+    p, denom = _softmax_parts(q, kr, causal, window, scale)
+    p = p / denom
+    ct = p.dtype
+    g = dout.to(ct)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, vr.to(ct))
+    ds = p * (dp - (g * out.to(ct)).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr.to(ct)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct)) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dk = dk.reshape(b, hkv, group, *dk.shape[2:]).sum(dim=2)
+    dv = dv.reshape(b, hkv, group, *dv.shape[2:]).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _fold_partials(parts, rescale: bool = True):
@@ -399,3 +437,50 @@ def moe_gather_ref(
     live = (c < sizes.long()[..., None]).reshape(g, e * capacity, 1)
     return torch.where(live, out, torch.zeros((), dtype=tokens.dtype,
                                               device=tokens.device)).reshape(g, e, capacity, d)
+
+
+def moe_gather_inverse(offsets: torch.Tensor, sizes: torch.Tensor, rows: Optional[torch.Tensor],
+                       capacity: int, n_tokens: int):
+    """The gather's slots grouped by token, for its transpose: ``(perm,
+    tok_off)`` with ``perm [G, E * C]`` each group's slots ``e * C + c``
+    sorted stably by the token row they read (dead slots, ``c >= sizes[g,
+    e]``, last) and ``tok_off [G, n_tokens + 1]``, token ``t``'s live
+    slots at ``perm[g, tok_off[g, t]:tok_off[g, t + 1]]``; both int32. The
+    slots and token rows are clamped as :func:`moe_gather_ref` clamps
+    them."""
+    g, e = offsets.shape
+    dev = offsets.device
+    n_stream = n_tokens if rows is None else rows.shape[1]
+    c = torch.arange(capacity, device=dev)
+    slot = (offsets.long()[..., None] + c).clamp(0, max(n_stream - 1, 0))  # [G, E, C]
+    tok = slot if rows is None else rows.long().gather(1, slot.reshape(g, -1)).reshape(slot.shape)
+    tok = tok.clamp(0, max(n_tokens - 1, 0))
+    key = torch.where(c < sizes.long()[..., None], tok, n_tokens).reshape(g, e * capacity)
+    _, perm = torch.sort(key, dim=1, stable=True)
+    counts = torch.zeros(g, n_tokens + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    tok_off = torch.zeros(g, n_tokens + 1, dtype=torch.int64, device=dev)
+    tok_off[:, 1:] = torch.cumsum(counts[:, :n_tokens], dim=1)
+    return perm.to(torch.int32), tok_off.to(torch.int32)
+
+
+def moe_gather_bwd_ref(dout: torch.Tensor, rows: Optional[torch.Tensor], offsets: torch.Tensor,
+                       sizes: torch.Tensor, capacity: int, n_tokens: int) -> torch.Tensor:
+    """The transpose of :func:`moe_gather_ref`: ``dx [G, n_tokens, D]`` with
+    ``dx[g, t] = sum of dout[g, e, c]`` over the live slots ``(e, c)`` that
+    read token row ``t``, added one slot after another in slot order (the
+    order of :func:`moe_gather_inverse`) in float32 (float64 for float64),
+    in dout's dtype: the kernel's order of summation, so the two agree bit
+    for bit."""
+    g, e, cap, d = dout.shape
+    perm, tok_off = moe_gather_inverse(offsets, sizes, rows, capacity, n_tokens)
+    ct = torch.promote_types(dout.dtype, torch.float32)
+    flat = dout.reshape(g, e * cap, d).to(ct)
+    start, count = tok_off[:, :-1].long(), (tok_off[:, 1:] - tok_off[:, :-1]).long()
+    acc = torch.zeros(g, n_tokens, d, dtype=ct, device=dout.device)
+    for r in range(int(count.max()) if count.numel() else 0):
+        has = count > r  # [G, T]
+        slot = perm.long().gather(1, torch.where(has, start + r, 0))
+        rows_r = flat.gather(1, slot[..., None].expand(g, n_tokens, d))
+        acc = torch.where(has[..., None], acc + rows_r, acc)
+    return acc.to(dout.dtype)

@@ -6,7 +6,11 @@ carry leading axes: ``blocks`` and ``slstm_blocks`` one (layer or group),
 the MoE family adds a ``dense_blocks`` list and zamba2 one unstacked
 ``shared_attn`` tree. With every leaf turned into a numpy array,
 :func:`params_from_numpy` loads it into the port's per-layer modules, so
-the two packages compute with the same weights.
+the two packages compute with the same weights. :func:`opt_state_from_numpy`
+splits the reference's float32 AdamW state (its ``m`` and ``v`` trees,
+stacked as the parameters are) the same way, into the port's
+:func:`repro_torch.train.init_state` layout; gradient trees map by
+:func:`_flatten` alike.
 """
 from __future__ import annotations
 
@@ -65,3 +69,36 @@ def params_from_numpy(cfg: ArchConfig, tree, device: Optional[str] = None,
                 raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def _quantized(tree) -> bool:
+    """Whether a moment tree holds the 8-bit ``{"q", "scale"}`` leaves."""
+    if isinstance(tree, dict):
+        return set(tree) == {"q", "scale"} or any(_quantized(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_quantized(v) for v in tree)
+    return False
+
+
+def opt_state_from_numpy(cfg: ArchConfig, state, device: Optional[str] = None
+                         ) -> Dict[str, object]:
+    """The port's optimizer state from the reference's float32 AdamW state
+    (numpy leaves): ``m`` and ``v`` split into per-layer leaves by
+    parameter name (float32, on ``device``), ``step`` an int32 0-d tensor
+    on the CPU (the names are the parameters', as :func:`params_from_numpy`
+    loads them). The 8-bit state cannot be carried: the reference quantises
+    each stacked leaf in blocks that run across its layers, the port each
+    layer's leaf alone, so a layer's blocks are not the reference's;
+    ``ValueError`` says so."""
+    if _quantized(state["m"]) or _quantized(state["v"]):
+        raise ValueError("the 8-bit optimizer state cannot be carried across: the reference "
+                         "quantises each stacked [n_layers, ...] leaf in blocks of 256 that "
+                         "run across layers, the port each layer's leaf on its own")
+    out: Dict[str, object] = {}
+    for key in ("m", "v"):
+        out[key] = {name: torch.tensor(np.asarray(arr, dtype=np.float32), device=device)
+                    for name, arr in _flatten(state[key]).items()}
+    if {n: t.shape for n, t in out["m"].items()} != {n: t.shape for n, t in out["v"].items()}:
+        raise ValueError(f"{cfg.name}: the m and v trees differ in names or shapes")
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)
+    return out

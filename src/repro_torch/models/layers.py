@@ -147,3 +147,17 @@ def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
     t = half // 4
     h = (half - t) // 2
     return t, h, half - t - h
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32; labels < 0 are masked out."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)

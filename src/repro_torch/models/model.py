@@ -31,10 +31,23 @@ look tokens up in ``embed``, as the reference's stubs do.
 The public surface:
     Model(cfg, dtype, device)           weights allocated, not drawn
     init(generator)                     draw every weight (in slices)
-    forward(tokens=None, embeds=None)   (logits, aux) for a whole sequence
+    forward(tokens=None, embeds=None)   (logits, aux) for a whole sequence, no graph
+    loss(batch)                         (loss, metrics), under the caller's grad mode
     init_cache(batch, max_len)          KV, latent or recurrent caches, ``pos`` = 0
     decode_step(cache, tokens)          one-token serve step -> (logits, cache);
                                         a frontend config takes embeds [B, 1, D]
+
+``forward`` and ``decode_step`` (the serving paths) run under
+``torch.no_grad`` and record no graph, whatever the caller's grad mode;
+``loss`` runs the same layer stack (``_forward``) under the caller's, so a
+train step takes its gradient. The parameters are built with
+``requires_grad=False``; the train step turns it on
+(``model.requires_grad_(True)``). With ``remat`` set, ``loss`` checkpoints
+the reference's remat units (``torch.utils.checkpoint``, non-reentrant:
+nothing inside a unit is kept, the backward runs it again): each MoE
+block, or each block of a dense model; each zamba2 group (its Mamba2
+blocks and the shared attention block); each xLSTM group. The MoE
+family's dense-first blocks are not checkpointed, as in the reference.
 
 Every attention call goes through the hand-written flash kernel and every
 MoE dispatch through the hand-written gather kernel (on a CUDA device;
@@ -48,7 +61,9 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.session import resolve_device
@@ -56,9 +71,11 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import init_normal_, mlp_apply, mlp_init, rmsnorm, weight
+from .layers import init_normal_, mlp_apply, mlp_init, rmsnorm, softmax_xent, weight
 
 Cache = Dict[str, object]
+#: the aux metrics a MoE block reports
+AUX_KEYS = ("load_balance_loss", "drop_fraction")
 
 #: a recurrent block's (init, forward, decode) by its kind
 RECURRENT = {
@@ -177,6 +194,8 @@ class Model(nn.Module):
                                         for _ in range(cfg.n_layers - n_dense))
         #: the MoE layers' aux metrics of the last forward or decode step
         self.last_aux: Dict[str, torch.Tensor] = {}
+        #: checkpoint each remat unit in :meth:`loss` (set by the train step)
+        self.remat = False
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -201,7 +220,7 @@ class Model(nn.Module):
         out = {}
         if aux:
             out = {key: torch.stack([a[key] for a in aux]).mean() for key in aux[0]}
-        self.last_aux = out
+        self.last_aux = {key: t.detach() for key, t in out.items()}
         return out
 
     # ------------------------------------------------------------------
@@ -218,7 +237,10 @@ class Model(nn.Module):
             return inputs.to(self.dtype) @ self.frontend_proj
         if inputs is None:
             raise ValueError(f"{self.cfg.name} takes tokens [B, S]")
-        return self.embed[inputs]
+        # F.embedding, not an index: its backward sums a token's rows in an
+        # order the ids fix, where an index's backward (index_put_ with
+        # accumulate) may add them in any order on the CPU
+        return F.embedding(inputs, self.embed)
 
     @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor] = None,
@@ -226,7 +248,36 @@ class Model(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B, S] (or embeds [B, S, D] for a frontend config) ->
         (logits [B, S, vocab], aux); aux holds the MoE layers' mean
-        ``load_balance_loss`` and ``drop_fraction``."""
+        ``load_balance_loss`` and ``drop_fraction``. Records no graph."""
+        return self._forward(tokens, embeds)
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's training loss of a batch of ``SyntheticLM``
+        (``tokens`` and ``labels`` [B, S], or ``embeds`` [B, S, D] and
+        ``labels`` for a frontend config, on the model's device): the mean
+        token cross-entropy (labels < 0 masked), plus ``0.01 *
+        load_balance_loss`` for a MoE config. Returns ``(loss, metrics)``
+        with ``xent``, ``loss`` and, for MoE, ``load_balance`` (0-d float32
+        tensors). Runs under the caller's grad mode."""
+        logits, aux = self._forward(batch.get("tokens"), batch.get("embeds"))
+        loss = softmax_xent(logits, batch["labels"])
+        metrics = {"xent": loss}
+        if "load_balance_loss" in aux:
+            loss = loss + 0.01 * aux["load_balance_loss"]
+            metrics["load_balance"] = aux["load_balance_loss"]
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _unit(self, fn, *args):
+        """``fn(*args)``, checkpointed when remat is on and a graph is
+        recorded."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _forward(self, tokens: Optional[torch.Tensor], embeds: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x = self._embed(embeds if self.cfg.frontend != "none" else tokens)
         b, s = x.shape[0], x.shape[1]
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -235,19 +286,30 @@ class Model(nn.Module):
         aux: List[dict] = []
         cfg = self.cfg
         if cfg.xlstm:
+            def xlstm_group(x, group, sblk):
+                for blk in group:
+                    x = blk(cfg, x)
+                return sblk(cfg, x) if cfg.slstm_every else x
             for group, sblk in zip(self.mlstm_groups, self.slstm_blocks):
-                for blk in group:
-                    x = blk(cfg, x)
-                if cfg.slstm_every:
-                    x = sblk(cfg, x)
+                x = self._unit(xlstm_group, x, group, sblk)
         elif cfg.ssm:
-            for group in self.mamba_groups:
+            def hybrid_group(x, group):
                 for blk in group:
                     x = blk(cfg, x)
-                x = self.shared_attn(cfg, x, pos, aux)
+                return self.shared_attn(cfg, x, pos, [])
+            for group in self.mamba_groups:
+                x = self._unit(hybrid_group, x, group)
         else:
-            for blk in (*self.dense_blocks, *self.blocks):
+            def block(x, blk):  # (x, then the MoE block's aux values)
+                a: List[dict] = []
+                x = blk(cfg, x, pos, a)
+                return (x, *(a[0][key] for key in AUX_KEYS)) if a else (x,)
+            for blk in self.dense_blocks:
                 x = blk(cfg, x, pos, aux)
+            for blk in self.blocks:
+                x, *a = self._unit(block, x, blk)
+                if a:
+                    aux.append(dict(zip(AUX_KEYS, a)))
         return self._head(x), self._record(aux)
 
     # ------------------------------------------------------------------

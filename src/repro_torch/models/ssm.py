@@ -12,6 +12,12 @@ state is carried from chunk to chunk by a loop over the ``nc`` chunks (the
 reference's ``lax.scan``). The recurrence is plain PyTorch, as the
 reference's is plain JAX (no Pallas kernel).
 
+Under grad mode the forward's products are taken out of place (autograd
+keeps their operands); without it, in place: one ``[B, nc, lc, lc, H]``
+float32 tensor fewer at the peak (335 MB of zamba2-2.7b's [4, 2048] bf16
+forward on an H100, at the same time; ``chip_smoke.py``'s
+``forward_forms``).
+
 Decode keeps O(1) state per layer: the last ``K - 1`` conv frames in the
 model dtype and the SSM state ``[B, N, H, P]`` in float32 (N before H, as
 the reference lays it out), both updated in place.
@@ -117,7 +123,10 @@ def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> tor
     above = torch.ones(lc, lc, dtype=torch.bool, device=x.device).triu(1)
     decay = torch.exp(diff.masked_fill_(above[None, None, :, :, None], float("-inf")))
     scores = torch.einsum("bcin,bcjn->bcij", c_c, b_c)
-    w_ij = decay.mul_(scores[..., None]).mul_(dt_c[:, :, None, :, :])  # [B, nc, i, j, H]
+    if torch.is_grad_enabled():  # autograd keeps exp's output: out of place
+        w_ij = decay * scores[..., None] * dt_c[:, :, None, :, :]  # [B, nc, i, j, H]
+    else:  # no graph: in place, one [B, nc, lc, lc, H] tensor fewer
+        w_ij = decay.mul_(scores[..., None]).mul_(dt_c[:, :, None, :, :])
     y = torch.einsum("bcijh,bcjhp->bcihp", w_ij, xs_c)
     del diff, decay, w_ij
 

@@ -12,7 +12,9 @@ layer.
 
 The head width is ``d_model * ssm_expand / n_heads`` (``_dims``), not
 ``cfg.head_dim``. ``wif`` and ``w_h`` are float32 whatever the model
-dtype, as are the states; the caches are updated in place.
+dtype, as are the states; the caches are updated in place. The mLSTM's
+forward takes its products out of place, so that autograd can keep their
+operands (in place saved no peak memory in a [4, 2048] forward).
 """
 from __future__ import annotations
 
@@ -80,10 +82,10 @@ def mlstm_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     dmat.masked_fill_(above[None, :, :, None], float("-inf"))
     m = dmat.amax(dim=2, keepdim=True)  # [B, S, 1, H] row stabiliser
     w = torch.einsum("bihd,bjhd->bijh", q, k).div_(math.sqrt(hd))
-    w.mul_(torch.exp(dmat.sub_(m)))  # [B, S, S, H]
-    del dmat
+    w = w * torch.exp(dmat - m)  # [B, S, S, H]; out of place: autograd keeps each factor
     norm = torch.maximum(w.sum(dim=2, keepdim=True).abs(), torch.exp(-m))
-    h = torch.einsum("bijh,bjhd->bihd", w.div_(norm), v).to(x.dtype)
+    w = w / norm
+    h = torch.einsum("bijh,bjhd->bihd", w, v).to(x.dtype)
     return _mlstm_out(p, cfg, h.reshape(b, s, d_in), x)
 
 

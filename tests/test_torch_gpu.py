@@ -1525,3 +1525,138 @@ def test_cuda_distributed_programs_match_cpu(cuda, algo):
     assert got.host_env == want.host_env
     assert got.stats.kernel_launches == want.stats.kernel_launches
     assert got.stats.dist_supersteps == want.stats.dist_supersteps
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and the train step on the card
+# ---------------------------------------------------------------------------
+
+# (b, h, hkv, lq, lk, dqk, dv, causal, window): GQA, ragged 64-row/key
+# tiles, a window that hides keys, bidirectional, Dv < Dqk (MLA, and the
+# smoke MLA's (48, 32)), rows with no key (Lq > Lk), a decode-shaped row
+BWD_SHAPES = [(2, 4, 2, 64, 64, 32, 32, True, 0), (1, 4, 1, 100, 100, 64, 64, True, 0),
+              (2, 6, 2, 130, 130, 128, 128, True, 0), (1, 4, 4, 65, 200, 80, 80, True, 48),
+              (1, 2, 2, 70, 70, 80, 80, False, 0), (1, 4, 4, 96, 96, 192, 128, True, 0),
+              (1, 2, 1, 40, 10, 48, 32, True, 0), (1, 4, 2, 1, 77, 128, 128, True, 0),
+              (2, 2, 2, 33, 129, 120, 120, True, 0)]
+# bf16 gradients against the float32 plain twin: max over rows of max |err|
+# / max(rms(row), GRAD_ROW_FLOOR * rms(tensor)); the floor keeps a row whose
+# gradient cancels to rounding noise (a query that sees one key) from
+# dividing by that noise
+GRAD_ROW_FLOOR = 1e-2
+
+
+def _grad_row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(dim=-1).sqrt()
+    floor = GRAD_ROW_FLOOR * w.pow(2).mean().sqrt()
+    return float(((g - w).abs().amax(dim=-1) / torch.maximum(rms, floor).clamp_min(1e-30)).max())
+
+
+def _bwd_inputs(shape, dtype, dev, seed=0):
+    b, h, hkv, lq, lk, dqk, dv, causal, window = shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k = torch.randn(b, h, lq, dqk, generator=gen), torch.randn(b, hkv, lk, dqk, generator=gen)
+    v, dout = torch.randn(b, hkv, lk, dv, generator=gen), torch.randn(b, h, lq, dv, generator=gen)
+    q, k, v, dout = (t.to(dev, dtype) for t in (q, k, v, dout))
+    out = fa.flash_attention(q, k, v, causal, window)
+    return q, k, v, out, dout, causal, window
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) +
+                         ("-causal" if s[7] else "-bidir") + (f"-w{s[8]}" if s[8] else ""))
+def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, dtype):
+    """The backward kernels against the plain twin on the card: float32
+    within 1e-4 of the gradient's scale, bfloat16 by the row-relative
+    rule; the same bits on two calls; one backward launch a call."""
+    q, k, v, out, dout, causal, window = _bwd_inputs(shape, dtype, cuda)
+    before = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, out, dout, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, causal, window)
+    assert fa.BWD_LAUNCHES - before == 2
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                       dout.float(), causal, window)
+    for name, a, b, w, x in zip("qkv", got, again, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == dtype and torch.equal(a, b), name
+        assert torch.isfinite(a).all(), name
+        if dtype == torch.float32:
+            tol = 1e-4 * max(1.0, float(w.abs().max()))
+            assert float((a - w).abs().max()) <= tol, name
+        else:
+            assert _grad_row_rel(a, w) <= SM90_ROW_REL_TOL, name
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_autograd_through_views(cuda):
+    """FlashAttentionFn on [B, L, H, D] activations viewed as [B, H, L, D]
+    (the model's layout): the card's gradients equal the CPU's plain twin's
+    within float32 rounding, in the leaves' own layout."""
+    gen = torch.Generator().manual_seed(3)
+    base = [torch.randn(2, 96, h, 64, generator=gen) for h in (8, 2, 2)]
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev, copy=True).requires_grad_(True) for t in base]
+        out = fa.flash_attention(*(t.transpose(1, 2) for t in leaves), causal=True)
+        (out.transpose(1, 2) ** 2).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads[cuda], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_rows", [True, False])
+def test_cuda_moe_gather_bwd_matches_plain(cuda, dtype, with_rows):
+    """The gather's transpose on the card: bit for bit its plain twin (the
+    same float32 adds in slot order), twice, and the gradient autograd
+    takes through MoeGatherFn."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g, t, d, e, k = 4, 96, 200, 8, 2
+    cap = 20
+    top_e = torch.rand(g, t, e, generator=gen, device=cuda).topk(k, dim=-1).indices
+    _, order, offsets, sizes = moe_mod.route(top_e, e, cap)
+    offsets, sizes = offsets.to(torch.int32), sizes.to(torch.int32)
+    rows = (order // k).to(torch.int32) if with_rows else None
+    dout = torch.randn(g, e, cap, d, generator=gen, device=cuda).to(dtype)
+    before = md.BWD_LAUNCHES
+    got = md.moe_gather_bwd(dout, offsets, sizes, cap, t, rows)
+    again = md.moe_gather_bwd(dout, offsets, sizes, cap, t, rows)
+    assert md.BWD_LAUNCHES - before == 2
+    want = ref.moe_gather_bwd_ref(dout, rows, offsets, sizes, cap, t)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    x = torch.randn(g, t, d, generator=gen, device=cuda).to(dtype).requires_grad_(True)
+    md.moe_gather(x, offsets, sizes, cap, rows).backward(dout)
+    assert torch.equal(x.grad, want)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda):
+    """Three float32 train steps of qwen3's smoke config (remat, two
+    microbatches) on the card and on the CPU from the same weights: the
+    losses agree within 1e-4 relative; each step launches 2 forward and 1
+    backward attention kernels per layer and microbatch."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import OptConfig, init_state, make_train_step
+
+    cfg = smoke_config("qwen3-0.6b")
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = Model(cfg, torch.float32, device=dev)
+        model.load_state_dict(Model(cfg, torch.float32, device="cpu")
+                              .init(torch.Generator().manual_seed(0)).state_dict())
+        opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+        state = init_state(dict(model.named_parameters()), opt)
+        step = make_train_step(model, opt, n_microbatches=2)
+        data = SyntheticLM(cfg, 64, 4, seed=0)
+        fa.LAUNCHES, fa.BWD_LAUNCHES = 0, 0
+        losses[dev] = []
+        for i in range(3):
+            batch = {key: torch.from_numpy(a).to(dev) for key, a in data.batch(i).items()}
+            state, metrics = step(state, batch)
+            losses[dev].append(float(metrics["loss"]))
+        if dev == cuda:
+            assert fa.BWD_LAUNCHES == 3 * 2 * cfg.n_layers
+            assert fa.LAUNCHES == 2 * fa.BWD_LAUNCHES
+    np.testing.assert_allclose(losses[cuda], losses["cpu"], rtol=1e-4)
