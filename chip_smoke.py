@@ -225,7 +225,9 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    of the SSD's products, in place (serving) and out of place (grad mode,
    no graph), each timed with its transient peak memory.
    Then (4i, ``{"phase": "train", ...}`` lines) training. First the
-   backward kernels (``csrc/flash_attention_bwd.cu``) at qwen3-0.6b's
+   backward kernels (bf16: ``csrc/flash_attention_bwd_sm90.cu`` on the
+   tensor cores, with the log-sum-exp the forward saves; f32:
+   ``csrc/flash_attention_bwd.cu``) at qwen3-0.6b's
    layer (bf16 and f32 [4, 16, 2048, 128], kv 8, causal), deepseek-v2's
    MLA (bf16 [2, 128, 1024, (192, 128)]), zamba2's width under a window
    that hides keys (bf16 [2, 32, 2048, 80], window 512) and hubert's
@@ -236,14 +238,19 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    bf16-rounded inputs), the time beside the bound of the least work (2 *
    (3 Dqk + 2 Dv) FLOPs a visible pair, or q, k, v, out, dout read and
    dq, dk, dv written once) and SDPA's backward alone on a retained graph
-   (queued CUDA events, backend named); the gather's transpose at deepseek-v2's dispatch, bit
+   (queued CUDA events, backend named); each bf16 row also gives its time
+   on the CUDA-core backward this source replaced, its factor against
+   SDPA's backward and the ``ptxas`` registers and spills of the
+   instantiation it ran, and holds the forward's output with its
+   log-sum-exp to the same bits as without; the gather's transpose at deepseek-v2's dispatch, bit
    for bit its twin, beside its byte bound and ``index_add_``. Then
    qwen3-0.6b at its full config in bf16 through
    ``repro_torch.launch.train.main``: 10 steps of [4, 2048] tokens in two
    microbatches, remat on; every loss and grad norm finite, step 0's loss
    within 1.0 of ln(vocab), the last below the first, 28 x 2 backward and
    twice as many forward attention launches a step (remat); step time,
-   tokens/s, peak memory and a profiled step. The f32 gradient of qwen3 at
+   tokens/s, peak memory and a profiled step with the backward kernels'
+   share of its device busy time. The f32 gradient of qwen3 at
    full width cut to 2 layers ([1, 128] tokens) on the card against the
    CPU's, each parameter within 1e-3 of its max. deepseek-v2 at full width
    cut to 2 layers, one bf16 step with 8-bit moments on [2, 1024] tokens:
@@ -260,6 +267,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -2563,12 +2571,33 @@ GRAD_ROW_FLOOR = 1e-2
 #: 1e-5; the twin on bf16-rounded inputs reads ~2e-3 to 4e-3, and each
 #: float32 row asserts that this control fails
 GRAD_F32_TOL = 1e-4
+#: the bf16 rows' times on the CUDA-core (SIMT) backward that
+#: csrc/flash_attention_bwd_sm90.cu replaced, ms (PERF.md section 6; H100
+#: 80GB HBM3, 700 W, queued CUDA events)
+SIMT_BWD_MS = {"qwen3": 15.03, "deepseek_v2_mla": 21.34, "zamba2_window": 5.951,
+               "hubert": 2.958}
 #: the backward rows: (name, dtype, q [B, H, L, Dqk], kv heads, Dv, causal, window)
 BWD_ROWS = [("qwen3", torch.bfloat16, (4, 16, 2048, 128), 8, 128, True, 0),
             ("qwen3_f32", torch.float32, (4, 16, 2048, 128), 8, 128, True, 0),
             ("deepseek_v2_mla", torch.bfloat16, (2, 128, 1024, 192), 128, 128, True, 0),
             ("zamba2_window", torch.bfloat16, (2, 32, 2048, 80), 32, 80, True, 512),
             ("hubert", torch.bfloat16, (2, 16, 1024, 80), 16, 80, False, 0)]
+
+
+def bwd_resources(ptxas: list, widths) -> dict:
+    """``ptxas`` registers and spills of the tensor-core backward's dkdv and
+    dq kernels at the instantiation ``widths`` (DQK, DV); None for a cached
+    build (no log)."""
+    if not ptxas:
+        return None
+    pat = f"ILi{widths[0]}ELi{widths[1]}E"
+    out = {}
+    for kernel in ("dkdv_kernel", "dq_kernel"):
+        hits = [r for r in ptxas if kernel in r["entry"] and pat in r["entry"]]
+        assert len(hits) == 1, f"ptxas: {len(hits)} entries match {kernel} {pat}"
+        out[kernel] = {k: hits[0].get(k) for k in ("registers", "spill_store_bytes",
+                                                    "spill_load_bytes")}
+    return out
 
 
 def grad_row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2601,7 +2630,7 @@ def attention_bwd_control(ref, q, k, v, out, dout, causal: bool, window: int, ke
     return dq, dk, dv
 
 
-def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen) -> dict:
+def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen, ptxas) -> dict:
     """One backward row: the kernels against the plain twin on the card
     (dq, dk and dv; bf16 by the row-relative rule, float32 by max |err| /
     max |g|), the same bits twice, a fault control that must fail (a key
@@ -2610,7 +2639,10 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen) -> dict
     backward alone on one retained graph (the library, queued alike) and
     the bound of the least work: 2 * (3 Dqk + 2 Dv) FLOPs a visible
     (query, key) pair, and q, k, v, out and dout read once, dq, dk and dv
-    written once."""
+    written once. In bf16 the forward also gives its log-sum-exp (its
+    output the same bits as without), which the timed backward takes, as
+    training does; the first of the two calls takes none and so runs the
+    forward for it. ``ptxas``: the tensor-core backward's build entries."""
     b, h, lq, dqk = qshape
     dev = gen.device
     q = torch.randn(b, h, lq, dqk, generator=gen, device=dev).to(dtype)
@@ -2618,17 +2650,23 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen) -> dict
     v = torch.randn(b, hkv, lq, dv, generator=gen, device=dev).to(dtype)
     dout = torch.randn(b, h, lq, dv, generator=gen, device=dev).to(dtype)
     out = fa.flash_attention(q, k, v, causal, window)
+    bf16 = dtype == torch.bfloat16
+    lse = None
+    if bf16:
+        with_lse, lse = fa._launch("sm90", q, k, v, causal, window, 1.0 / math.sqrt(dqk),
+                                   with_lse=True)
+        assert torch.equal(with_lse, out), f"{name}: the forward's bits differ with lse"
+        del with_lse
 
     def kernel():
-        return fa.flash_attention_bwd(q, k, v, out, dout, causal, window)
+        return fa.flash_attention_bwd(q, k, v, out, dout, causal, window, lse=lse)
 
     before = fa.BWD_LAUNCHES
-    got, again = kernel(), kernel()
+    got, again = fa.flash_attention_bwd(q, k, v, out, dout, causal, window), kernel()
     assert fa.BWD_LAUNCHES - before == 2
     assert all(torch.equal(x, y) for x, y in zip(got, again)), f"{name}: bits differ"
     inputs = (q, k, v, out, dout)
     want = ref.flash_attention_bwd_ref(*(t.float() for t in inputs), causal, window)
-    bf16 = dtype == torch.bfloat16
     rule, tol = (grad_row_rel, ROW_REL_TOL) if bf16 else (grad_max_rel, GRAD_F32_TOL)
     errs = {f"d{x}": rule(a, w) for x, a, w in zip("qkv", got, want)}
     max_abs = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
@@ -2669,7 +2707,14 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen) -> dict
         lib_bwd()
     library_ms = queued_event_ms(lib_bwd, 10)
     del lib_out, leaves
+    widths = fa.bwd_widths(dqk, dv, dtype)
+    extra = {}
+    if bf16:
+        extra = {"source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                 "simt_ms": SIMT_BWD_MS[name], "speedup_vs_simt": SIMT_BWD_MS[name] / kernel_ms,
+                 "ptxas": bwd_resources(ptxas, widths), "forward_lse_same_bits": True}
     return {"route": "cuda", "dtype": str(dtype).split(".")[-1], "kernel_ms": kernel_ms,
+            **extra, "library_factor": kernel_ms / library_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_call": "torch.autograd.grad of scaled_dot_product_attention("
                             "enable_gqa=True" + "".join(f", {key}" for key in mask)
@@ -2679,7 +2724,7 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen) -> dict
             "visible_pairs": pairs, "max_abs_err": max_abs,
             "grad_rule": "row_rel" if bf16 else "max_rel", "grad_err": errs, "grad_tol": tol,
             "control": {"keys_dropped": list(keys), "grad_err": caught},
-            "same_bits_twice": True, "widths": list(fa.bwd_widths(dqk, dv)),
+            "same_bits_twice": True, "widths": list(widths),
             "shape": {"q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
                       "causal": causal, "window": window}}
 
@@ -2799,7 +2844,7 @@ def qwen_train(mods, train, dev: str, seed: int) -> dict:
     def one_step():
         box["state"], box["metrics"] = step(state, batch)
 
-    prof = profile_run(one_step, top=8, focus="repro_fa_bwd")
+    prof = profile_run(one_step, top=8, focus="repro_fa_bwd")  # both backward sources
     del model, state, step, box
     tokens = 4 * 2048
     return {"phase": "train", "model": QWEN, "config": "full", "dtype": "bfloat16",
@@ -2812,7 +2857,8 @@ def qwen_train(mods, train, dev: str, seed: int) -> dict:
             "wall_s": wall_s, "max_memory_allocated": peak, "launches": launches,
             "launches_per_step": {"flash_attention_bwd": per_step,
                                   "flash_attention_sm90": 2 * per_step},
-            "profile_one_step": prof}
+            "bwd_share_of_busy": prof.get("focus_share_of_busy"),
+            "bwd_ms": prof.get("focus_ms"), "profile_one_step": prof}
 
 
 def grad_vs_plain(mods, dev: str, seed: int) -> dict:
@@ -2851,7 +2897,8 @@ def grad_vs_plain(mods, dev: str, seed: int) -> dict:
     return {"phase": "train", "check": "grad_vs_cpu", "model": QWEN, "layers": GRAD_LAYERS,
             "tokens": [1, GRAD_TOKENS], "dtype": "float32", "loss_card": losses[dev],
             "loss_cpu": losses["cpu"], "worst_grad_err_over_max": worst,
-            "worst_param": worst_name, "tol": GRAD_TOL, "params": len(grads["cpu"])}
+            "worst_param": worst_name, "tol": GRAD_TOL, "params": len(grads["cpu"]),
+            "card_bwd_launches": card_bwd}
 
 
 def deepseek_train_step(mods, dev: str, seed: int) -> dict:
@@ -2874,9 +2921,9 @@ def deepseek_train_step(mods, dev: str, seed: int) -> dict:
     widths = []
     inner = fa.flash_attention_bwd
 
-    def recording(q, k, v, *args):
+    def recording(q, k, v, *args, **kwargs):
         widths.append((q.shape[-1], v.shape[-1], str(q.dtype).split(".")[-1]))
-        return inner(q, k, v, *args)
+        return inner(q, k, v, *args, **kwargs)
 
     _reset_lm_counters(fa, md)
     fa.BWD_LAUNCHES, md.BWD_LAUNCHES = 0, 0
@@ -2971,10 +3018,12 @@ def checkpoint_resume(mods, train, dev: str) -> dict:
             "roundtrip_dtypes": sorted({str(b.dtype).split(".")[-1] for _, _, b in flat})}
 
 
-def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str) -> tuple:
-    """Phase 4i. Returns (the two backward kernels' rows, launches on the
-    main path: the attention backward's in qwen3-0.6b's training, the
-    gather's in deepseek-v2's step, and their forward kernels')."""
+def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str, bwd_ptxas: list) -> tuple:
+    """Phase 4i. Returns (the backward kernels' rows, launches on the main
+    path: the bf16 attention backward's in qwen3-0.6b's training, the f32
+    one's in the gradient against the CPU, the gather's in deepseek-v2's
+    step, and their forward kernels'). ``bwd_ptxas``: the build entries of
+    the tensor-core backward."""
     from repro_torch.launch import train
 
     fa, md, get_config = mods[0], mods[1], mods[2]
@@ -2983,7 +3032,7 @@ def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str) -> tuple:
     rows = {}
     for name, dtype, qshape, hkv, dv, causal, window in BWD_ROWS:
         rows[f"flash_attention_bwd_{name}"] = _bwd_row(fa, ref, name, dtype, qshape, hkv, dv,
-                                                       causal, window, gen)
+                                                       causal, window, gen, bwd_ptxas)
         log({"phase": "train", "kernel": f"flash_attention_bwd_{name}", "card": smi,
              **rows[f"flash_attention_bwd_{name}"]})
         gc.collect()
@@ -2996,7 +3045,8 @@ def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str) -> tuple:
     log({**qwen, "card": smi})
     gc.collect()
     torch.cuda.empty_cache()
-    log({**grad_vs_plain(mods, dev, seed), "card": smi})
+    grad = grad_vs_plain(mods, dev, seed)
+    log({**grad, "card": smi})
     gc.collect()
     torch.cuda.empty_cache()
     deepseek = deepseek_train_step(mods, dev, seed)
@@ -3007,6 +3057,7 @@ def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     launches = {"flash_attention_bwd": qwen["launches"]["flash_attention_bwd"],
+                "flash_attention_bwd_f32": grad["card_bwd_launches"],
                 "moe_gather_bwd": deepseek["launches"]["moe_gather_bwd"],
                 "flash_attention_sm90": (qwen["launches"]["flash_attention_sm90"]
                                          + deepseek["launches"]["flash_attention_sm90"]),
@@ -4441,6 +4492,23 @@ def main() -> int:
                                              built["flash_attention_sm90"]["log"].splitlines()
                                              if "warning" in line]})
 
+    bwd90_lib = _build.load("flash_attention_bwd_sm90")
+    bwd90_lib.repro_flash_attention_bwd_sm90_smem_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    bwd90 = ptxas_kernels(built["flash_attention_bwd_sm90"]["log"])
+    bwd90_smem = {}
+    for dqk, dv in ((32, 32), (64, 64), (128, 128), (192, 128)):
+        pair = (ctypes.c_int * 2)()
+        assert bwd90_lib.repro_flash_attention_bwd_sm90_smem_bytes(dqk, dv, pair) == 0
+        bwd90_smem[f"{dqk}x{dv}"] = {"dkdv": pair[0], "dq": pair[1]}
+    spilled = [r["entry"] for r in bwd90 if r.get("spill_store_bytes")]
+    log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+         "kernels": bwd90, "dynamic_smem_bytes": bwd90_smem, "spilled": spilled,
+         "ptxas_warnings": [line.strip() for line in
+                            built["flash_attention_bwd_sm90"]["log"].splitlines()
+                            if "warning" in line]})
+    assert not spilled, f"the tensor-core backward spills: {spilled}"
+
     # -- graph and the SSSP bind (whose bindings give the main-path shape) --
     t0 = time.perf_counter()
     g = generators.rmat(args.scale, EDGE_FACTOR, seed=args.seed, weighted=True)
@@ -4658,12 +4726,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4i. training: the backward kernels, qwen3-0.6b, deepseek-v2 ----------
-    train_rows, train_launches = train_phase(mods, ref, moe_mod, dev, args.seed, smi)
+    train_rows, train_launches = train_phase(mods, ref, moe_mod, dev, args.seed, smi, bwd90)
     launches["flash_attention_sm90"] += train_launches["flash_attention_sm90"]
     launches["moe_gather"] += train_launches["moe_gather"]
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    launches["flash_attention_bwd_f32"] = train_launches["flash_attention_bwd_f32"]
     launches["moe_gather_bwd"] = train_launches["moe_gather_bwd"]
     rows["flash_attention_bwd"] = train_rows["flash_attention_bwd_qwen3"]
+    rows["flash_attention_bwd_f32"] = train_rows["flash_attention_bwd_qwen3_f32"]
     rows["moe_gather_bwd"] = train_rows["moe_gather_bwd"]
 
     # -- 6. summary ----------------------------------------------------------
@@ -4682,8 +4752,10 @@ def main() -> int:
                        "src/repro/kernels/moe_dispatch.py:72"),
         # the backward kernels: no Pallas counterpart (the reference trains
         # through XLA's autodiff); each differentiates the kernel named
-        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
                                 "src/repro/kernels/flash_attention.py:103"),
+        "flash_attention_bwd_f32": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/flash_attention.py:103"),
         "moe_gather_bwd": ("src/repro_torch/csrc/moe_gather.cu",
                            "src/repro/kernels/moe_dispatch.py:72"),
     }
@@ -4699,17 +4771,19 @@ def main() -> int:
         })
         if "row_rel_check" in row:
             kernels[-1]["row_rel_err"] = row["row_rel_check"]["row_rel_err"]
-        if name in ("flash_attention_bwd", "moe_gather_bwd"):
+        if name in ("flash_attention_bwd", "flash_attention_bwd_f32", "moe_gather_bwd"):
             kernels[-1]["replaces_note"] = (
                 "the backward of the kernel named: it has no Pallas counterpart, the reference "
                 "differentiates through XLA")
-        if name == "flash_attention_bwd":  # every backward row of phase 4i
-            kernels[-1]["row_rel_err"] = row["grad_err"]
+        if name.startswith("flash_attention_bwd"):  # phase 4i's backward rows of its dtype
+            kernels[-1]["row_rel_err" if name == "flash_attention_bwd" else "grad_err"] = \
+                row["grad_err"]
             kernels[-1]["shapes"] = {
                 key: {k: r[k] for k in ("dtype", "kernel_ms", "plain_ms", "library_ms",
                                         "library_backend", "bound_ms", "bound_by",
                                         "max_abs_err", "grad_rule", "grad_err", "shape")}
-                for key, r in train_rows.items() if key.startswith("flash_attention_bwd_")}
+                for key, r in train_rows.items()
+                if key.startswith("flash_attention_bwd_") and r["dtype"] == row["dtype"]}
         prefix = {"flash_attention_sm90": "flash_attention_sm90_",
                   "flash_attention": "flash_attention_tile_",
                   "flash_decode": "flash_attention_decode_"}.get(name)

@@ -1,13 +1,14 @@
 // Backward pass of blocked softmax attention (FlashAttention-2 order) for
-// Hopper, float32 arithmetic on the CUDA cores, bfloat16 or float32 in and
-// out.
+// Hopper, float32 in and out, float32 arithmetic on the CUDA cores. Every
+// float32 attention backward of the port runs here; bfloat16 runs
+// csrc/flash_attention_bwd_sm90.cu on the tensor cores.
 //
 // Replaces no TPU kernel: the reference trains through plain JAX, where
 // XLA differentiates its naive attention (models/attention.py, _sdpa). The
-// port's forward runs every attention through the hand-written kernels
-// (flash_attention.cu, flash_attention_sm90.cu), which autograd cannot see
-// into, so kernels/flash_attention.py wraps them in FlashAttentionFn and
-// its backward launches this source.
+// port's forward runs every float32 attention through the hand-written
+// flash_attention.cu, which autograd cannot see into, so
+// kernels/flash_attention.py wraps it in FlashAttentionFn and its backward
+// launches this source.
 //
 // What it computes, for the forward's semantics (scale, causal mask,
 // sliding window, query i at position Lk - Lq + i, GQA with H a multiple
@@ -22,7 +23,7 @@
 // a visible (query, key) pair that the backward cannot avoid, 2 * (3 Dqk +
 // 2 Dv) FLOPs (S, dP, dV, dQ, dK); this source recomputes S three times
 // and dP twice, 2 * (5 Dqk + 3 Dv) FLOPs a pair, on the CUDA cores
-// (67 TFLOP/s in float32; the tensor cores are later work).
+// (67 TFLOP/s in float32).
 //
 // Three kernels, launched in order on the caller's stream:
 // (a) row_stats: one block per (batch, head, 64 query rows). It walks the
@@ -49,13 +50,12 @@
 // loops run in order; the two 16-lane shuffles always pair the same
 // lanes), so the same inputs give the same bits on every call.
 //
-// Widths. The kernels are instantiated at the (DK, DV) of
+// Widths. The kernels are instantiated, in float32 only, at the (DK, DV) of
 // REPRO_FA_BWD_WIDTHS; a call takes the narrowest that holds its
 // (Dqk, Dv) (pick, asked through repro_flash_attention_bwd_widths). The
 // dot products run over the real Dqk and Dv; the padding columns are
 // zeros and are not stored.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -73,9 +73,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // rows [r0, r0 + kTile) of one (batch, head) slice into shared memory as
 // float32, kTile x (D + 1): columns past `width` and rows past `n` are zeros
@@ -550,8 +548,8 @@ static bool pick(int dqk, int dv, int* widths) {
 
 // q [B, H, Lq, Dqk], k [B, Hkv, Lk, Dqk], v [B, Hkv, Lk, Dv], o and dout
 // [B, H, Lq, Dv] (the forward's output and its gradient); dq, dk, dv the
-// gradients, each the shape of its input. All share one dtype (dtype 0:
-// float32, 1: bfloat16), given by their data pointers and strides[24] =
+// gradients, each the shape of its input. All float32, given by their
+// data pointers and strides[24] =
 // (batch, head, position) element strides of q, k, v, o, dout, dq, dk, dv
 // in that order, the last dim contiguous. lse and delta: float32 scratch
 // of B * H * Lq each, which the kernels write and read. (Dqk, Dv) is a pair
@@ -560,8 +558,7 @@ static bool pick(int dqk, int dv, int* widths) {
 // CUDA error (0 on success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, void* dq, void* dk,
-                                         void* dv_out, void* lse, void* delta, int dtype,
-                                         int batch, int n_heads, int n_kv_heads, int lq, int lk,
+                                         void* dv_out, void* lse, void* delta, int batch, int n_heads, int n_kv_heads, int lq, int lk,
                                          int dqk, int dv, const int64_t* strides, int causal,
                                          int window, float scale, void* stream) {
   using namespace repro_fa_bwd;
@@ -575,18 +572,11 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   float* delta_f = static_cast<float*>(delta);
-#define REPRO_FA_BWD_CASE(DK, DV)                                                             \
-  if (w[0] == DK && w[1] == DV) {                                                             \
-    if (dtype == 0)                                                                           \
-      return launch<float, DK, DV>(q, k, v, o, dout, dq, dk, dv_out, lse_f, delta_f, batch,   \
-                                   n_heads, n_kv_heads, lq, lk, dqk, dv, st, causal, window,  \
-                                   scale, s);                                                 \
-    if (dtype == 1)                                                                           \
-      return launch<__nv_bfloat16, DK, DV>(q, k, v, o, dout, dq, dk, dv_out, lse_f, delta_f,  \
-                                           batch, n_heads, n_kv_heads, lq, lk, dqk, dv, st,   \
-                                           causal, window, scale, s);                         \
-    return cudaErrorInvalidValue;                                                             \
-  }
+#define REPRO_FA_BWD_CASE(DK, DV)                                                            \
+  if (w[0] == DK && w[1] == DV)                                                              \
+    return launch<float, DK, DV>(q, k, v, o, dout, dq, dk, dv_out, lse_f, delta_f, batch,    \
+                                 n_heads, n_kv_heads, lq, lk, dqk, dv, st, causal, window,   \
+                                 scale, s);
   REPRO_FA_BWD_WIDTHS(REPRO_FA_BWD_CASE)
 #undef REPRO_FA_BWD_CASE
   return cudaErrorInvalidValue;

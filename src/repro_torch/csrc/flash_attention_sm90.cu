@@ -60,7 +60,12 @@
 // descriptor); O is rescaled once per tile. Keys outside a row tile's
 // range are skipped whole. No atomics and no split over keys: two calls
 // on the same inputs give the same bits. Warp specialisation and two
-// consumer warpgroups are later work.
+// consumer warpgroups are later work. For training the caller may ask for
+// each row's log-sum-exp (lse, log2 domain: m + log2(l) of the scaled
+// scores), which the epilogue already holds and which the backward
+// (flash_attention_bwd_sm90.cu) then takes instead of recomputing it; O's
+// bits are the same with or without it. The building blocks (wgmma,
+// tiles, TMA) live in sm90.cuh, shared with the backward.
 //
 // Widths. The kernel is instantiated at the widths of FA90_WIDTHS: DQK (Q
 // and K rows in shared memory, whole 64-element swizzle atoms; 32 stays
@@ -78,9 +83,7 @@
 // stages within the 227 KB of a block. A width that is no multiple of 8
 // (16-byte rows) or wider than every instantiation is refused.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90.cuh"
 
 #include <atomic>
 #include <climits>
@@ -89,253 +92,11 @@
 
 namespace repro_fa90 {
 
+using namespace repro_sm90;
+
 constexpr int kRows = 64;      // query rows per block: wgmma's M
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  int64_t b, h, l;  // element strides of the batch, head and position dims
-};
-
-// ---------------------------------------------------------------------------
-// wgmma wrappers: every accumulator register is named in the asm, so the
-// arrays are indexed with constants only. ss: A and B from shared memory,
-// both K-major. rs<kTransB>: A from registers (bf16 pairs), B from shared
-// memory K-major (kTransB = 0: K in S = Q.K^T) or MN-major (kTransB = 1:
-// V in O += P.V).
-// ---------------------------------------------------------------------------
-
-#define FA90_D8(i)                                                                           \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FA90_D32(i) FA90_D8(i), FA90_D8(i + 8), FA90_D8(i + 16), FA90_D8(i + 24)
-// the A fragment, B's descriptor, the transpose immediate and scale-d (1: accumulate)
-#define FA90_RS_IN "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kTransB), "r"(1)
-
-template <int N> struct Wgmma;
-
-template <> struct Wgmma<32> {
-  // d[16] += A (shared, K-major) * B (shared, K-major), m64n32k16
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15},"
-        " %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : FA90_D8(0), FA90_D8(8)
-        : "l"(da), "l"(db), "r"(1));
-  }
-  // d[16] += A (registers) * B (shared), m64n32k16
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15},"
-        " {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
-        : FA90_D8(0), FA90_D8(8)
-        : FA90_RS_IN);
-  }
-};
-
-template <> struct Wgmma<64> {
-  // d[32] += A (shared, K-major) * B (shared, K-major), m64n64k16
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : FA90_D32(0)
-        : "l"(da), "l"(db), "r"(1));
-  }
-  // d[32] += A (registers) * B (shared), m64n64k16
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-        : FA90_D32(0)
-        : FA90_RS_IN);
-  }
-};
-
-template <> struct Wgmma<128> {
-  // d[64] += A (registers) * B (shared), m64n128k16
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55,"
-        " %56, %57, %58, %59, %60, %61, %62, %63},"
-        " {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
-        : FA90_D32(0), FA90_D32(32)
-        : FA90_RS_IN);
-  }
-};
-
-template <> struct Wgmma<256> {
-  // d[128] += A (registers) * B (shared), m64n256k16
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %134, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55,"
-        " %56, %57, %58, %59, %60, %61, %62, %63,"
-        " %64, %65, %66, %67, %68, %69, %70, %71,"
-        " %72, %73, %74, %75, %76, %77, %78, %79,"
-        " %80, %81, %82, %83, %84, %85, %86, %87,"
-        " %88, %89, %90, %91, %92, %93, %94, %95,"
-        " %96, %97, %98, %99, %100, %101, %102, %103,"
-        " %104, %105, %106, %107, %108, %109, %110, %111,"
-        " %112, %113, %114, %115, %116, %117, %118, %119,"
-        " %120, %121, %122, %123, %124, %125, %126, %127},"
-        " {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
-        : FA90_D32(0), FA90_D32(32), FA90_D32(64), FA90_D32(96)
-        : FA90_RS_IN);
-  }
-};
-
-#undef FA90_RS_IN
-#undef FA90_D32
-#undef FA90_D8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// cp.async writes through the generic proxy; wgmma reads through the async one
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// spins until the barrier's phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// TMA: the box at coordinates (c0 innermost .. c3) of the tensor map into
-// shared memory, completion counted in bytes on the barrier
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {  // 2^x within 2 ulp; +0 at -inf
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Shared-memory layout of a ROWS-row bf16 tile of DH columns (Q, or one
-// stage of K or V): the columns are cut into atoms of one swizzle width
-// (64 elements, 128 bytes; 32 and 64 bytes at DH 32), each atom ROWS rows
-// of that width, and the 16-byte chunks of row j are permuted by XOR with
-// the row's bits, as wgmma's 128B (64B) swizzle mode expects. Q and K are
-// read K-major (Dqk contiguous is the reduction dim), V MN-major (Dv is
-// the output dim).
-template <int DH, int ROWS> struct Tile {
-  static_assert(DH == 32 || DH % 64 == 0, "a tile is whole swizzle atoms");
-  static constexpr int kRowBytes = DH >= 64 ? 128 : 64;
-  static constexpr int kChunksPerRow = kRowBytes / 16;
-  static constexpr int kElemsPerRow = kRowBytes / 2;
-  static constexpr int kAtoms = DH / kElemsPerRow;
-  static constexpr int kAtomBytes = ROWS * kRowBytes;
-  static constexpr int kBytes = ROWS * DH * 2;
-  static constexpr uint64_t kMode = DH >= 64 ? 1 : 2;  // descriptor: 1 = 128B swizzle, 2 = 64B
-
-  // byte offset of 16-byte chunk c (of DH / 8) of row j
-  static __device__ __forceinline__ uint32_t offset(int j, int c) {
-    const uint32_t lin = (c / kChunksPerRow) * kAtomBytes + j * kRowBytes + (c % kChunksPerRow) * 16;
-    return lin ^ ((lin >> 3) & ((kChunksPerRow - 1) << 4));
-  }
-  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-           (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-           (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (kMode << 62);
-  }
-  // k-step kk (16 elements of Dh) of a K-major operand: inside one atom the
-  // start moves by 32 bytes; SBO is the stride of 8-row groups
-  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int kk) {
-    const int e = kk * 16;
-    return desc(base + (e / kElemsPerRow) * kAtomBytes + (e % kElemsPerRow) * 2, 16,
-                8 * kRowBytes);
-  }
-  // k-step kk (16 keys) of the MN-major V: LBO is the stride between atoms
-  // along Dv, SBO the stride of 8-key groups
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
-    return desc(base + kk * 16 * kRowBytes, kAtomBytes, 8 * kRowBytes);
-  }
-};
 
 // One instantiation: Q/K rows of DQK (padded) columns, a value slice of DV
 // columns, KEYS keys a K/V stage.
@@ -356,8 +117,8 @@ __global__ void __launch_bounds__(kThreads, Shape<DQK, DV, KEYS>::kQInRegs ? 3 :
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-                            int n_kv_heads, int group, int lq, int lk, int dqk, int dv,
-                            int row_tiles, int bh_count, Strides sq, Strides so, int causal,
+                            float* __restrict__ lse, int n_kv_heads, int group, int lq, int lk,
+                            int dqk, int dv,                            int row_tiles, int bh_count, Strides sq, Strides so, int causal,
                             int window, float scale_log2) {
   using S = Shape<DQK, DV, KEYS>;
   using TQ = typename S::TQ;
@@ -488,7 +249,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
         Wgmma<KEYS>::ss(s, TQ::k_major(q_smem, kk), TK::k_major(k_smem(stage), kk));
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     const int k0 = k_begin + t * KEYS;
@@ -534,13 +295,15 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
     for (int kk = 0; kk < KEYS / 16; ++kk)
       Wgmma<DV>::template rs<1>(o, a[kk], TV::mn_major(v_smem(stage), kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
     __syncthreads();  // every thread is done with this stage before it is refilled
   }
 
   // O / max(l, 1e-30) in bf16 through the out strides; rows past Lq * group
-  // and columns past Dv are dropped
+  // and columns past Dv are dropped. With lse, each row's log-sum-exp in
+  // the log2 domain of the scaled scores, m + log2(l) (+inf for a row that
+  // saw no key), into lse[b, head, position]
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     float sum = l[rr];
@@ -549,7 +312,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
     const float denom = fmaxf(sum, 1e-30f);
     const int r = r0 + 16 * warp + lane / 4 + 8 * rr;
     if (r >= rows_total) continue;
-    __nv_bfloat16* row = out + b * so.b + (kvh * group + r / lq) * so.h + (r % lq) * so.l;
+    const int head = kvh * group + r / lq;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<int64_t>(b) * n_kv_heads * group + head) * lq + r % lq] =
+          sum > 0.f ? m[rr] + log2f(sum) : INFINITY;
+    __nv_bfloat16* row = out + b * so.b + head * so.h + (r % lq) * so.l;
 #pragma unroll
     for (int c8 = 0; c8 < DV / 8; ++c8) {
       const int i = 4 * c8 + 2 * rr;
@@ -561,59 +328,19 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [B, Hkv, Lk, width] through its strides as a 4-d map (width, Lk, Hkv, B),
-// one box = one swizzle atom of a tile T (a box past the width fills zeros)
-template <typename T>
-static bool encode_kv(CUtensorMap* map, const void* base, int batch, int n_kv_heads, int lk,
-                      int width, const Strides& st) {
-  constexpr int DH = T::kElemsPerRow * T::kAtoms;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(lk),
-                              static_cast<cuuint64_t>(n_kv_heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.l) * 2, static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {T::kElemsPerRow, T::kAtomBytes / T::kRowBytes, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                DH >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <int DQK, int DV, int KEYS>
-static cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
+static cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int batch,
                           int n_kv_heads, int group, int lq, int lk, int dqk, int dv,
                           int row_tiles, int bh_count, int blocks, const Strides* st, int causal,
                           int window, float scale_log2, cudaStream_t stream) {
   using S = Shape<DQK, DV, KEYS>;
   static_assert(S::kSmemBytes <= 227 * 1024, "a block's shared memory");
-  if (dqk > DQK || dv > dqk) return cudaErrorInvalidValue;
+  if (dqk > DQK || dv > dqk || (lse != nullptr && dv > DV)) return cudaErrorInvalidValue;
   CUtensorMap k_map{}, v_map{};  // never read when there is no key
   if (lk > 0 &&
-      !(encode_kv<typename S::TK>(&k_map, k, batch, n_kv_heads, lk, dqk, st[1]) &&
-        encode_kv<typename S::TV>(&v_map, v, batch, n_kv_heads, lk, dv, st[2])))
+      !(encode_4d<typename S::TK>(&k_map, k, batch, n_kv_heads, lk, dqk, st[1]) &&
+        encode_4d<typename S::TV>(&v_map, v, batch, n_kv_heads, lk, dv, st[2])))
     return cudaErrorInvalidValue;
   const int smem = S::kSmemBytes;
   // the dynamic shared-memory limit is raised once per head dim and device
@@ -630,7 +357,7 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
   }
   const dim3 grid(blocks, (dv + DV - 1) / DV);  // y: the slices of the value columns
   flash_attention_sm90_kernel<DQK, DV, KEYS><<<grid, kThreads, smem, stream>>>(
-      k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
+      k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), lse,
       n_kv_heads, group, lq, lk, dqk, dv, row_tiles, bh_count, st[0], st[3], causal, window,
       scale_log2);
   return cudaGetLastError();
@@ -671,13 +398,16 @@ static bool pick(int dqk, int dv, int* widths) {
 // Dv], all bfloat16, given by their data pointers and strides[12] = (batch,
 // head, position) element strides of q, k, v, out in that order: the last
 // dim contiguous, every base and stride a multiple of 16 bytes (cp.async
-// and TMA). (Dqk, Dv) is a pair pick takes; H is a multiple of Hkv. Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for another pair or when the K/V tensor maps cannot
-// be encoded.
+// and TMA). (Dqk, Dv) is a pair pick takes; H is a multiple of Hkv. lse:
+// nullptr, or float32 [B, H, Lq] contiguous, which then takes each row's
+// log-sum-exp (log2 domain, see the kernel's epilogue) for the backward;
+// only a call whose Dv fits one value slice (at most 256) takes it.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for another pair, an lse the call cannot take, or
+// when the K/V tensor maps cannot be encoded.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const void* v, void* out,
-                                          int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                                          int dqk, int dv, const int64_t* strides, int causal,
+                                          float* lse, int batch, int n_heads, int n_kv_heads,
+                                          int lq, int lk, int dqk, int dv, const int64_t* strides, int causal,
                                           int window, float scale, void* stream) {
   using namespace repro_fa90;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
@@ -697,7 +427,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const vo
   if (!pick(dqk, dv, w)) return cudaErrorInvalidValue;
 #define FA90_LAUNCH(PK, PV, KEYS)                                                         \
   if (w[0] == PK && w[1] == PV)                                                           \
-    return launch<PK, PV, KEYS>(q, k, v, out, batch, n_kv_heads, group, lq, lk, dqk, dv,  \
+    return launch<PK, PV, KEYS>(q, k, v, out, lse, batch, n_kv_heads, group, lq, lk, dqk, dv, \
                                 tiles, bhc, blocks, st, causal, window, sl2, s);
   FA90_WIDTHS(FA90_LAUNCH)
 #undef FA90_LAUNCH

@@ -43,13 +43,17 @@ raises ``ValueError`` on the card.
 
 The gradient: where one is wanted (grad mode on and q, k or v requiring
 it) :func:`flash_attention` goes through :class:`FlashAttentionFn`, whose
-forward is the route above and whose backward is :func:`flash_attention_bwd`:
-on the card the hand-written ``csrc/flash_attention_bwd.cu`` (three
-kernels: the rows' log-sum-exp and ``rowsum(dO o O)``, then dK/dV per key
-tile, then dQ per query tile; float32 FFMA, bf16 or float32 in and out;
-its own width table, :func:`bwd_widths`), on the CPU the plain twin
-:func:`.ref.flash_attention_bwd_ref`. Without a gradient nothing records a
-graph.
+forward is the route above and whose backward is :func:`flash_attention_bwd`.
+On the card, bfloat16 runs ``csrc/flash_attention_bwd_sm90.cu`` (three
+kernels: ``rowsum(dO o O)``, then dK/dV per key tile, then dQ per query
+tile, every product on the tensor cores through ``wgmma``, tiles by TMA),
+which takes each row's log-sum-exp from the forward: the bf16 forward
+under :class:`FlashAttentionFn` asks the tensor-core kernel for it and
+saves it. float32 runs ``csrc/flash_attention_bwd.cu`` (the same three
+kernels on the CUDA cores in float32 FFMA, the first recomputing the
+log-sum-exp). Each source has its own width table (:func:`bwd_widths`). On
+the CPU the plain twin :func:`.ref.flash_attention_bwd_ref`. Without a
+gradient nothing records a graph.
 """
 from __future__ import annotations
 
@@ -70,8 +74,9 @@ LAUNCHES = 0
 SM90_LAUNCHES = 0
 #: launches of the float32 decode route since the last reset
 DECODE_LAUNCHES = 0
-#: launches of the backward (csrc/flash_attention_bwd.cu) since the last
-#: reset; one a call, whose three kernels run in order
+#: launches of the backward (csrc/flash_attention_bwd_sm90.cu for bfloat16,
+#: csrc/flash_attention_bwd.cu for float32) since the last reset; one a
+#: call, whose three kernels run in order
 BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -81,7 +86,11 @@ KERNELS = {"sm90": ("flash_attention_sm90", "repro_flash_attention_sm90"),
            "decode": ("flash_attention", "repro_flash_attention_decode")}
 # source -> its C entry point that names the instantiation a (Dqk, Dv) runs at
 WIDTHS = {"flash_attention_sm90": "repro_flash_attention_sm90_widths",
-          "flash_attention": "repro_flash_attention_widths"}
+          "flash_attention": "repro_flash_attention_widths",
+          "flash_attention_bwd_sm90": "repro_flash_attention_bwd_sm90_widths",
+          "flash_attention_bwd": "repro_flash_attention_bwd_widths"}
+# the backward's source by dtype
+BWD_SOURCES = {torch.bfloat16: "flash_attention_bwd_sm90", torch.float32: "flash_attention_bwd"}
 
 #: float32 attention takes the decode route when ``group * Lq`` (the query
 #: rows of one kv head) is at most this, and always at ``Lq == 1``.
@@ -104,12 +113,14 @@ DECODE_ROWS = 8  # query rows a decode block holds at most (kDecodeRowsMax)
 TILE_THREADS = 256
 TILE_GROUPS = 16
 
-# q, k, v, out, batch, heads, kv_heads, lq, lk, dqk, dv, strides, causal, window, scale
-_COMMON = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int64)]
-           + [ctypes.c_int] * 2 + [ctypes.c_float])
-# ..., then the tile route's row tile, or the decode route's scratch (partial
-# acc, partial (m, l)), row tile, n_splits, chunk; the stream last
-_ARGTYPES = {"sm90": _COMMON + [ctypes.c_void_p],
+# batch, heads, kv_heads, lq, lk, dqk, dv, strides, causal, window, scale
+_SHAPE = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 2 + [
+    ctypes.c_float]
+# q, k, v, out (and for sm90 lse), the shape, then the tile route's row tile,
+# or the decode route's scratch (partial acc, partial (m, l)), row tile,
+# n_splits, chunk; the stream last
+_COMMON = [ctypes.c_void_p] * 4 + _SHAPE
+_ARGTYPES = {"sm90": [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_void_p],
              "cuda_core": _COMMON + [ctypes.c_int, ctypes.c_void_p],
              "decode": _COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p]}
@@ -302,18 +313,20 @@ def kernel_widths(route: str, dqk: int, dv: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_widths(dqk: int, dv: int) -> Tuple[int, int]:
-    """``(DK, DV)``: the instantiation of ``csrc/flash_attention_bwd.cu`` a
-    ``(dqk, dv)`` backward runs at, the narrowest of its table that holds
-    both, as its widths entry answers; ``ValueError`` where none does.
-    Builds the source on first use."""
-    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd_widths
+def bwd_widths(dqk: int, dv: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(DK, DV)``: the instantiation a ``(dqk, dv)`` backward in ``dtype``
+    runs at (bfloat16: ``csrc/flash_attention_bwd_sm90.cu``, float32:
+    ``csrc/flash_attention_bwd.cu``), the narrowest of the source's table
+    that holds both, as its widths entry answers; ``ValueError`` where none
+    does. Builds the source on first use."""
+    source = BWD_SOURCES[dtype]
+    fn = getattr(_build.load(source), WIDTHS[source])
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     if fn(dqk, dv, out) != 0:
-        raise ValueError(f"flash_attention: no backward kernel takes head dims (Dqk, Dv) = "
-                         f"{(dqk, dv)}")
+        raise ValueError(f"flash_attention: no {dtype} backward kernel takes head dims "
+                         f"(Dqk, Dv) = {(dqk, dv)}")
     return out[0], out[1]
 
 
@@ -375,33 +388,42 @@ def _forward(q, k, v, causal: bool, window: int, scale: float) -> torch.Tensor:
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a gradient: the forward is :func:`flash_attention`'s
-    route (which saves q, k, v and the output), the backward
-    :func:`flash_attention_bwd`. Arguments: ``(q, k, v, causal, window,
-    scale)``, the scale resolved."""
+    route, which saves q, k, v and the output (and on the tensor-core route
+    each row's log-sum-exp, which the kernel then writes beside the output),
+    the backward :func:`flash_attention_bwd`. Arguments: ``(q, k, v,
+    causal, window, scale)``, the scale resolved."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
-        out = _forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out)
+        if _route(q, q.shape[1] // k.shape[1]) == "sm90":
+            out, lse = _launch("sm90", q, k, v, causal, window, scale, with_lse=True)
+        else:
+            out, lse = _forward(q, k, v, causal, window, scale), None
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.attrs = (causal, window, scale)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.attrs)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.attrs, lse=lse)
         return dq, dk, dv, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True, window: int = 0,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, lse: Optional[torch.Tensor] = None):
     """``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k, v)`` for the
     output gradient ``dout``, given the forward's output ``out`` (both ``[B,
     H, Lq, Dv]``); each in its input's shape and dtype. A CUDA tensor runs
-    ``csrc/flash_attention_bwd.cu`` (bfloat16 or float32) or raises; a CPU
-    tensor the plain twin :func:`.ref.flash_attention_bwd_ref`."""
+    ``csrc/flash_attention_bwd_sm90.cu`` (bfloat16) or
+    ``csrc/flash_attention_bwd.cu`` (float32) or raises; a CPU tensor the
+    plain twin :func:`.ref.flash_attention_bwd_ref`. ``lse``: the bf16
+    forward's log-sum-exp of each row (float32 ``[B, H, Lq]``, as
+    :class:`FlashAttentionFn` saves it); where it is not given, a bfloat16
+    call on the card first runs the forward with it. float32 and the CPU
+    take none."""
     b, h, lq, dqk = q.shape
     hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
     if out.shape != (b, h, lq, dv) or dout.shape != out.shape:
@@ -417,28 +439,57 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
             t.dtype != q.dtype for t in (k, v, out)):
         raise TypeError(f"flash_attention_bwd: q, k, v, out must share float32 or bfloat16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
-    bwd_widths(dqk, dv)
+    bwd_widths(dqk, dv, q.dtype)
     if max(b * h * lq, b * hkv * lk) >= 2**31:
         raise ValueError("flash_attention_bwd: sizes past int32")
-    ins = [t if t.stride(-1) == 1 else t.contiguous()
-           for t in (q, k, v, out, dout.to(q.dtype))]
-    grads = [_grad_like(t) for t in ins[:3]]
-    lse = torch.empty(b * h * lq, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        if lse is None:
+            lse = _launch("sm90", q, k, v, causal, window, scale, with_lse=True)[1]
+        if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: lse must be float32 {(b, h, lq)} "
+                             f"contiguous, got {lse.dtype} {tuple(lse.shape)}")
+        ins = [_aligned(t) for t in (q, k, v, out, dout.to(q.dtype))]
+        grads = [_grad_like(t) for t in ins[:3]]
+        scratch = torch.empty(_bwd_entry("scratch")(b, h, lq), dtype=torch.float32,
+                              device=q.device)
+        # q, k, v, out, dout, lse, dq, dk, dv, the scratch
+        ptrs = [*(t.data_ptr() for t in ins), lse.data_ptr(),
+                *(t.data_ptr() for t in grads), scratch.data_ptr()]
+        fn = _bwd_entry("sm90")
+    else:
+        ins = [t if t.stride(-1) == 1 else t.contiguous()
+               for t in (q, k, v, out, dout.to(q.dtype))]
+        grads = [_grad_like(t) for t in ins[:3]]
+        stats = torch.empty(2, b * h * lq, dtype=torch.float32, device=q.device)
+        # q, k, v, out, dout, dq, dk, dv, lse and delta scratch
+        ptrs = [*(t.data_ptr() for t in ins + grads), stats[0].data_ptr(), stats[1].data_ptr()]
+        fn = _bwd_entry("f32")
     strides = (ctypes.c_int64 * 24)(*(s for t in ins + grads for s in t.stride()[:3]))
-    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    rc = fn(*(t.data_ptr() for t in ins + grads), lse.data_ptr(), delta.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, hkv, lq, lk, dqk, dv, strides, int(causal),
-            int(window), scale, torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(*ptrs, b, h, hkv, lq, lk, dqk, dv, strides, int(causal), int(window), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
     return tuple(grads)
+
+
+def _bwd_entry(name: str):
+    """A C entry point of the backward sources, its argument types set:
+    ``"sm90"`` and ``"f32"`` launch a backward (ten pointers, the shape,
+    the strides, causal, window, scale, the stream), ``"scratch"`` gives
+    the floats of the bf16 backward's scratch for ``(B, H, Lq)``."""
+    source, entry = {"sm90": ("flash_attention_bwd_sm90", "repro_flash_attention_bwd_sm90"),
+                     "f32": ("flash_attention_bwd", "repro_flash_attention_bwd"),
+                     "scratch": ("flash_attention_bwd_sm90",
+                                 "repro_flash_attention_bwd_sm90_scratch")}[name]
+    fn = getattr(_build.load(source), entry)
+    if fn.argtypes is None:
+        if name == "scratch":
+            fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int64
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 10 + _SHAPE + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return fn
 
 
 def _grad_like(t: torch.Tensor) -> torch.Tensor:
@@ -450,11 +501,15 @@ def _grad_like(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int, scale: Optional[float] = None) -> torch.Tensor:
+            window: int, scale: Optional[float] = None, with_lse: bool = False):
     """Run ``route``'s kernel(s) on CUDA tensors whose shapes
     :func:`flash_attention` has checked. :func:`flash_attention` passes the
     route :func:`_route` chose; chip_smoke.py also calls it with the other
-    float32 route, to time both at one shape."""
+    float32 route, to time both at one shape. ``with_lse`` (the ``"sm90"``
+    route only, Dv at most 256): return ``(out, lse)``, ``lse`` each row's
+    log-sum-exp as the backward takes it (float32 ``[B, H, Lq]``, log2
+    domain of the scaled scores, +inf for a row that sees no key); the
+    output is the same bits as without it."""
     global LAUNCHES, SM90_LAUNCHES, DECODE_LAUNCHES
     b, h, lq, dh = q.shape
     hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -466,16 +521,25 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if (route == "sm90") != (q.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention: route {route} does not take {q.dtype}")
-    dk = kernel_widths(route, dh, dv)[0]
+    if with_lse and route != "sm90":
+        raise ValueError(f"flash_attention: only the sm90 route gives the log-sum-exp, "
+                         f"asked of {route}")
+    dk, dv_slice = kernel_widths(route, dh, dv)
+    if with_lse and dv > dv_slice:
+        raise ValueError(f"flash_attention: the log-sum-exp needs Dv <= {dv_slice} (one value "
+                         f"slice), got Dv {dv}")
     if max(b * h * lq, lk) >= 2**31:
         raise ValueError("flash_attention: sizes past int32")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = _aligned(_out_like(q, dv))
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, dh, dv,
-            strides, int(causal), int(window), scale]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if route == "sm90":
+        ptrs.append(lse.data_ptr() if with_lse else None)
+    args = [*ptrs, b, h, hkv, lq, lk, dh, dv, strides, int(causal), int(window), scale]
     if route == "cuda_core":
         args.append(tile_plan(b, hkv, h // hkv * lq, dk, _sm_count(q.device.index))[0])
     elif route == "decode":
@@ -497,4 +561,4 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
         SM90_LAUNCHES += 1
     elif route == "decode":
         DECODE_LAUNCHES += 1
-    return out
+    return (out, lse) if with_lse else out

@@ -14,10 +14,11 @@ row gives the same bits as the one-row version on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+LOG2E = 1.4426950408889634  # the kernels' log2(e): exp(x) = exp2(x * LOG2E)
 _OPS = ("+", "min", "max", "|")
 _APPLY = ("add", "mul", "src")
 
@@ -282,6 +283,74 @@ def flash_attention_bwd_ref(q, k, v, out, dout, causal: bool = True, window: int
     dk = dk.reshape(b, hkv, group, *dk.shape[2:]).sum(dim=2)
     dv = dv.reshape(b, hkv, group, *dv.shape[2:]).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Each query row's log-sum-exp as the tensor-core forward writes it
+    for the backward (``csrc/flash_attention_sm90.cu`` with ``lse``):
+    float32 ``[B, H, Lq]`` in the log2 domain of the scaled scores, ``m +
+    log2(sum(exp2(x - m)))`` over the keys the row sees, where ``x = scale *
+    log2(e) * q.k``; ``+inf`` for a row that sees no key (its P is then 0).
+    ``lse * ln(2)`` is the natural log-sum-exp of ``scale * q.k``."""
+    h, hkv = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+    kr = k.repeat_interleave(h // hkv, dim=1) if hkv != h else k
+    x = _masked_logits(q.float(), kr.float(), causal, window) * (scale * LOG2E)
+    m = x.amax(dim=-1)
+    live = torch.isfinite(m)
+    m0 = torch.where(live, m, torch.zeros_like(m))
+    lse = m0 + torch.log2(torch.exp2(x - m0[..., None]).sum(dim=-1))
+    return torch.where(live, lse, torch.full_like(lse, float("inf")))
+
+
+def flash_attention_bwd_sm90_ref(q, k, v, out, dout, lse, causal: bool = True, window: int = 0,
+                                 scale: Optional[float] = None,
+                                 drop_keys: Optional[Tuple[int, int]] = None):
+    """``(dq, dk, dv)`` as ``csrc/flash_attention_bwd_sm90.cu`` computes
+    them, for the tests and chip_smoke.py: the formula of
+    :func:`flash_attention_bwd_ref` with the kernels' numerics. P comes
+    from the forward's ``lse`` (:func:`attention_lse_ref`), ``exp2(scale *
+    log2(e) * q.k - lse)`` where visible; ``delta = rowsum(dO o O)``; P is
+    rounded to bf16 before ``dV = P^T dO`` and ``dS = P o (dP - delta)``
+    (from the float32 P) before ``dQ = scale dS K`` and ``dK = scale dS^T
+    Q``; every product of bf16 values summed in float32. Each gradient in
+    its input's dtype and shape. ``drop_keys = (lo, hi)`` zeroes P at keys
+    ``[lo, hi)`` (a key tile skipped): the fault a control must catch."""
+    h, hkv = q.shape[1], k.shape[1]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+    kr, vr = (t.float().repeat_interleave(group, dim=1) for t in (k, v))
+    x = _masked_logits(q.float(), kr, causal, window) * (scale * LOG2E)
+    p = torch.exp2(x - lse.float()[..., None])
+    if drop_keys is not None:
+        p[..., drop_keys[0]:drop_keys[1]] = 0.0
+    g = dout.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, vr)
+    ds = p * (dp - (g * out.float()).sum(dim=-1, keepdim=True))
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds16, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds16, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p16, g)
+    dk = dk.unflatten(1, (hkv, group)).sum(dim=2)
+    dv = dv.unflatten(1, (hkv, group)).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _masked_logits(q, k, causal: bool, window: int) -> torch.Tensor:
+    """``q.k`` of ``q [B, H, Lq, D]`` and ``k [B, H, Lk, D]`` (kv heads
+    repeated), unscaled, with the pairs a row does not see at -inf
+    (query ``i`` at position ``Lk - Lq + i``)."""
+    lq, lk = q.shape[2], k.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return logits.masked_fill(~mask, float("-inf"))
 
 
 def _fold_partials(parts, rescale: bool = True):

@@ -7,9 +7,13 @@ autograd) and ``ref.moe_gather_bwd_ref``. The attention twin is held to
 (scale ``1/sqrt(Dqk)``) within ``1e-5`` of the gradient's scale; the
 gather's transpose to the reference's ``moe_scatter_ref`` (``rows=None``)
 and to torch autograd of the port's ``moe_gather_ref`` (with rows); both
-Functions pass ``torch.autograd.gradcheck`` in float64. The CUDA kernels
-are held to these twins on the card by ``tests/test_torch_gpu.py``, which
-imports no JAX.
+Functions pass ``torch.autograd.gradcheck`` in float64. The tensor-core
+backward's numerics (P from the forward's log-sum-exp, P and dS rounded
+to bf16 before their products) are modelled by
+``ref.flash_attention_bwd_sm90_ref``, held to ``jax.vjp`` on bf16-valued
+inputs; the log-sum-exp the plain forward gives, to
+``jax.nn.logsumexp``. The CUDA kernels are held to these twins on the
+card by ``tests/test_torch_gpu.py``, which imports no JAX.
 """
 import jax
 import jax.numpy as jnp
@@ -157,3 +161,111 @@ def test_moe_gather_fn_gradcheck():
     x = torch.randn(2, 6, 4, generator=gen, dtype=torch.float64, requires_grad=True)
     assert torch.autograd.gradcheck(
         lambda a: md.moe_gather(a, offsets.to(torch.int32), sizes.to(torch.int32), 3, rows), (x,))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core backward's numerics (csrc/flash_attention_bwd_sm90.cu),
+# modelled by ref.flash_attention_bwd_sm90_ref with the forward's lse
+# (ref.attention_lse_ref), on bf16-valued inputs
+# ---------------------------------------------------------------------------
+
+# CASES, and a GQA group of 8 and Lq > Lk under a causal mask (the first
+# eight rows see no key)
+SM90_CASES = CASES + [(1, 8, 1, 24, 24, 32, 32, True, 0), (1, 4, 2, 20, 12, 32, 16, True, 0)]
+#: the model against jax.vjp, both on the same bf16-valued inputs: max over
+#: rows of max |err| / max(rms(row), 1e-2 rms(tensor)) (the card's rule).
+#: What differs is the model's two bf16 roundings (P before dV, dS before
+#: dK and dQ; 2^-9 relative each) summed over a row's keys: the worst row
+#: reads ~1.2e-2 at these sizes, a dropped key tile 0.7-3.9
+SM90_MODEL_TOL = 2e-2
+GRAD_ROW_FLOOR = 1e-2
+
+
+def _row_rel(got, want) -> float:
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rms = np.sqrt((w ** 2).mean(axis=-1))
+    floor = GRAD_ROW_FLOOR * np.sqrt((w ** 2).mean())
+    return float((np.abs(g - w).max(axis=-1) / np.maximum(np.maximum(rms, floor), 1e-30)).max())
+
+
+def _bf16_inputs(case, seed=0):
+    """q, k, v, dout of ``case`` rounded to bf16 values (float32 arrays)."""
+    return [torch.from_numpy(a).bfloat16().float().numpy() for a in _inputs(case, seed)]
+
+
+def _empty_rows(case) -> int:
+    """Leading query rows that see no key: under a causal mask, the rows at
+    negative positions when Lq > Lk."""
+    lq, lk, causal = case[3], case[4], case[7]
+    return max(0, lq - lk) if causal else 0
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=_ids)
+def test_attention_lse_matches_jax_logsumexp(case):
+    """The plain forward's log-sum-exp (log2 domain, as the kernel writes
+    it) times ln(2) is jax.nn.logsumexp of the masked scaled scores within
+    float32 rounding; a row that sees no key has +inf (its P is 0)."""
+    b, h, hkv, lq, lk, dqk, _, causal, window = case
+    q, k, _, _ = _bf16_inputs(case)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", q, jnp.repeat(k, h // hkv, axis=1)) / np.sqrt(dqk)
+    qpos = jnp.arange(lq)[:, None] + lk - lq
+    kpos = jnp.arange(lk)[None, :]
+    mask = jnp.ones((lq, lk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, logits, -jnp.inf), axis=-1))
+    got = ref.attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), causal, window).numpy()
+    assert got.shape == (b, h, lq) and got.dtype == np.float32
+    n0 = _empty_rows(case)
+    assert np.all(got[:, :, :n0] == np.inf) and np.isfinite(got[:, :, n0:]).all()
+    np.testing.assert_allclose(got[:, :, n0:] * np.log(2), want[:, :, n0:], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=_ids)
+def test_attention_bwd_sm90_model_matches_jax_vjp(case):
+    """The model of the tensor-core backward against jax.vjp of the
+    reference's attention on bf16-valued inputs, within SM90_MODEL_TOL by
+    the row-relative rule; dq of a row that sees no key is 0. The model
+    takes the reference's own float32 output, so delta is that of the
+    function jax differentiates (on the card the kernels and the plain twin
+    share the kernel's bf16 output)."""
+    causal, window = case[7], case[8]
+    q, k, v, dout = _bf16_inputs(case)
+    n0 = _empty_rows(case)
+    out_j, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal, window),
+                         jnp.asarray(q[:, :, n0:]), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(dout[:, :, n0:]))]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out = ref.flash_attention_ref(tq, tk, tv, causal, window)
+    np.testing.assert_allclose(out[:, :, n0:].numpy(), np.asarray(out_j), rtol=RTOL, atol=RTOL)
+    lse = ref.attention_lse_ref(tq, tk, causal, window)
+    dq, dk, dv = ref.flash_attention_bwd_sm90_ref(tq, tk, tv, out, tdo, lse, causal, window)
+    assert dq.shape == tq.shape and dk.shape == tk.shape and dv.shape == tv.shape
+    assert torch.all(dq[:, :, :n0] == 0)
+    errs = {"dq": _row_rel(dq[:, :, n0:], want[0]), "dk": _row_rel(dk, want[1]),
+            "dv": _row_rel(dv, want[2])}
+    assert all(e <= SM90_MODEL_TOL for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=_ids)
+def test_attention_bwd_sm90_model_control_fails(case):
+    """The control: the model with a tile of 16 keys dropped from P (at
+    these sizes a key tile) fails the rule the sound model passes, in every
+    one of dq, dk and dv."""
+    causal, window, lk = case[7], case[8], case[4]
+    q, k, v, dout = _bf16_inputs(case)
+    n0 = _empty_rows(case)
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal, window),
+                     jnp.asarray(q[:, :, n0:]), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(dout[:, :, n0:]))]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out = ref.flash_attention_ref(tq, tk, tv, causal, window)
+    lse = ref.attention_lse_ref(tq, tk, causal, window)
+    keys = (max(0, lk // 2 - 8), lk // 2 + 8)
+    dq, dk, dv = ref.flash_attention_bwd_sm90_ref(tq, tk, tv, out, tdo, lse, causal, window,
+                                                  drop_keys=keys)
+    errs = {"dq": _row_rel(dq[:, :, n0:], want[0]), "dk": _row_rel(dk, want[1]),
+            "dv": _row_rel(dv, want[2])}
+    assert all(e > SM90_MODEL_TOL for e in errs.values()), errs

@@ -1568,9 +1568,12 @@ def _bwd_inputs(shape, dtype, dev, seed=0):
 @pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) +
                          ("-causal" if s[7] else "-bidir") + (f"-w{s[8]}" if s[8] else ""))
 def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, dtype):
-    """The backward kernels against the plain twin on the card: float32
-    within 1e-4 of the gradient's scale, bfloat16 by the row-relative
-    rule; the same bits on two calls; one backward launch a call."""
+    """The backward kernels against the plain twin on the card, at every
+    width of both tables (80, 120 and (48, 32) rounded up): float32
+    (csrc/flash_attention_bwd.cu) within 1e-4 of the gradient's scale,
+    bfloat16 (csrc/flash_attention_bwd_sm90.cu, the forward run first for
+    its lse) by the row-relative rule; the same bits on two calls; one
+    backward launch a call."""
     q, k, v, out, dout, causal, window = _bwd_inputs(shape, dtype, cuda)
     before = fa.BWD_LAUNCHES
     got = fa.flash_attention_bwd(q, k, v, out, dout, causal, window)
@@ -1586,6 +1589,99 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, dtype):
             assert float((a - w).abs().max()) <= tol, name
         else:
             assert _grad_row_rel(a, w) <= SM90_ROW_REL_TOL, name
+
+
+#: sha256 of (dq, dk, dv) of the float32 backward at BWD_SHAPES[2] (seed
+#: 0), as csrc/flash_attention_bwd.cu gave them before its bfloat16
+#: instantiations went to the tensor-core source (H100 80GB HBM3)
+F32_BWD_DIGEST = "06858758441196697b6c09ccdf79ca94134c1b12baa7dfc5fa05cf7b1ca81c99"
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_bwd_f32_keeps_its_bits(cuda):
+    """The float32 backward gives the bits it gave before the bf16 route
+    moved out of its source, twice."""
+    import hashlib
+
+    q, k, v, out, dout, causal, window = _bwd_inputs(BWD_SHAPES[2], torch.float32, cuda)
+    digests = []
+    for _ in range(2):
+        h = hashlib.sha256()
+        for g in fa.flash_attention_bwd(q, k, v, out, dout, causal, window):
+            h.update(g.cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    assert digests == [F32_BWD_DIGEST] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) +
+                         ("-causal" if s[7] else "-bidir") + (f"-w{s[8]}" if s[8] else ""))
+def test_cuda_flash_attention_forward_lse_keeps_output_bits(cuda, shape):
+    """The bf16 forward asked for its log-sum-exp writes the same output
+    bits as without it; the lse is the plain one (log2 domain) within
+    float32 rounding of the hardware's exp2, +inf for a row with no key."""
+    b, h, hkv, lq, lk, dqk, dv, causal, window = shape
+    q, k, v, _, _, _, _ = _bwd_inputs(shape, torch.bfloat16, cuda)
+    scale = 1.0 / math.sqrt(dqk)
+    plain_out = fa._launch("sm90", q, k, v, causal, window, scale)
+    out, lse = fa._launch("sm90", q, k, v, causal, window, scale, with_lse=True)
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (b, h, lq) and lse.dtype == torch.float32
+    want = ref.attention_lse_ref(q, k, causal, window)
+    live = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), live) and bool((lse[~live] == math.inf).all())
+    if bool(live.any()):
+        err = float((lse[live] - want[live]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want[live].abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+def test_cuda_flash_attention_bwd_sm90_reads_strided_views(cuda, hkv):
+    """The bf16 backward on [B, L, H, D] activations viewed as [B, H, L, D]
+    (the model's layout) gives the bits it gives on contiguous copies, and
+    the gradients come back in the views' layout."""
+    gen = torch.Generator().manual_seed(hkv)
+    h, lq, dqk = 8, 150, 128
+    base = [torch.randn(2, lq, n, dqk, generator=gen) for n in (h, hkv, hkv, h)]
+    q, k, v, dout = (t.to(cuda, torch.bfloat16).transpose(1, 2) for t in base)
+    out, lse = fa._launch("sm90", q, k, v, True, 0, 1.0 / math.sqrt(dqk), with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, True, 0, lse=lse)
+    flat = fa.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, out, dout)), True, 0,
+                                  lse=lse)
+    for g, c, x in zip(got, flat, (q, k, v)):
+        assert torch.equal(g, c) and g.stride() == x.stride()
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                       dout.float(), True, 0)
+    for a, w in zip(got, want):
+        assert _grad_row_rel(a, w) <= SM90_ROW_REL_TOL
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_fn_bf16_saves_lse_and_checkpoints(cuda):
+    """FlashAttentionFn in bf16: the backward takes the lse the forward
+    saved (one sm90 launch a forward, none in the backward), and under
+    torch.utils.checkpoint (non-reentrant, as the model's remat) it gives
+    the same gradient bits as without, the forward run twice."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = torch.Generator().manual_seed(7)
+    base = [torch.randn(2, 200, n, 128, generator=gen) for n in (8, 2, 2)]
+    grads = {}
+    for remat in (False, True):
+        leaves = [t.to(cuda, torch.bfloat16).requires_grad_(True) for t in base]
+
+        def attend(q, k, v):
+            out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            return out.transpose(1, 2).float().pow(2).sum()
+
+        fa.SM90_LAUNCHES, fa.BWD_LAUNCHES = 0, 0
+        loss = checkpoint(attend, *leaves, use_reentrant=False) if remat else attend(*leaves)
+        loss.backward()
+        assert (fa.SM90_LAUNCHES, fa.BWD_LAUNCHES) == (2 if remat else 1, 1)
+        grads[remat] = [t.grad for t in leaves]
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

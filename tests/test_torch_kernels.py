@@ -341,6 +341,42 @@ def test_flash_attention_sm90_source_keeps_its_contract():
     assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", text)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bwd_routes_by_dtype_to_built_sources(dtype):
+    """The backward's source follows the dtype: bfloat16 the tensor-core
+    source, float32 the CUDA-core one; each is built and has its launch and
+    widths entries."""
+    source = fa.BWD_SOURCES[dtype]
+    assert source == ("flash_attention_bwd_sm90" if dtype == torch.bfloat16
+                      else "flash_attention_bwd")
+    assert source in _build.SOURCES
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    assert f'extern "C" int repro_{source}(' in text
+    assert f'extern "C" int {fa.WIDTHS[source]}(' in text
+
+
+def test_flash_attention_bwd_sources_keep_their_contract():
+    """No atomics in either backward: the group is summed inside a block
+    and no key is split, so two calls give the same bits. The tensor-core
+    source multiplies through wgmma on tiles that arrive by TMA and takes
+    the forward's lse; the CUDA-core source is float32 only."""
+    sm90 = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    f32 = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for text in (sm90, f32):
+        assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", text)
+    assert "Wgmma<" in sm90 and "tma_load_4d(" in sm90 and "const float* lse" in sm90
+    assert "__nv_bfloat16" not in f32 and "dtype" not in f32
+
+
+def test_flash_attention_lse_only_from_the_tensor_core_route():
+    """Only the bf16 forward writes the log-sum-exp the backward takes: a
+    float32 route asked for it raises before it reaches a kernel."""
+    t = torch.zeros(1, 2, 4, 32)
+    for route in ("cuda_core", "decode"):
+        with pytest.raises(ValueError, match="log-sum-exp"):
+            fa._launch(route, t, t, t, True, 0, with_lse=True)
+
+
 def test_flash_attention_alignment_is_counted_in_bytes():
     """The kernels copy 16 bytes at a time: a row stride of 36 elements is
     aligned in float32 (144 bytes) but not in bfloat16 (72 bytes); the
