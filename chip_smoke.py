@@ -35,10 +35,16 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    route the wrapper takes by dtype and shape: bfloat16 through the
    tensor-core (sm90) kernel, float32 through the CUDA-core kernel's decode
    route (few query rows per kv head) or its tile route; each call's route
-   is read from the three launch counters. The float32 decode route also
-   runs at qwen3-0.6b's decode shape (its [4, 32, 8, 128] cache read in
-   place) and over a 4,096-key cache, each with its splits, the same bits
-   on two calls and the ``ptxas`` resources of its two kernels; at the long
+   is read from the three launch counters. Each bf16 row gives the
+   instantiation it ran at and its row form (``sm90``: 64 rows a block, one
+   consumer warpgroup, or 128, two), ``kernel_over_library`` and its share
+   of the bound; the build phase prints the tensor-core forward's
+   registers, spills and dynamic shared memory per instantiation and form
+   (a spill fails the run) and ptxas's notes where it serialises wgmma.
+   The float32 decode route also runs at qwen3-0.6b's decode shape (its
+   [4, 32, 8, 128] cache read in place) and over a 4,096-key cache, each
+   with its splits, the same bits on two calls and the ``ptxas``
+   resources of its two kernels; at the long
    cache a fault control (the splits folded without their exp(m_s - m)
    weights, in plain PyTorch) must fail the float32 check. A route sweep
    times both float32 routes at 2-32 query rows a kv head (the threshold's
@@ -1371,6 +1377,9 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
     }
     if rel is not None:
         row["row_rel_check"] = rel
+    if route == "sm90":  # the instantiation and the rows a block holds (64: one consumer, 128: two)
+        row["sm90"] = {"instantiation": list(fa.kernel_widths(route, dh, dv)),
+                       "form_rows": fa.sm90_form(dh, dv, h // k.shape[1] * lq)}
     if route == "decode":
         r, tiles, n, chunk = fa.decode_plan(b, k.shape[1], h // k.shape[1] * lq, k.shape[2],
                                             fa.kernel_widths(route, dh, dv)[0], fa._sm_count(0))
@@ -4479,18 +4488,23 @@ def main() -> int:
     log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention.cu",
          "tile_kernels": tile_resources(fa_ptxas, fa)})
     sm90_lib = _build.load("flash_attention_sm90")
-    sm90 = ptxas_kernels(built["flash_attention_sm90"]["log"])
-    for row in sm90:  # the template arguments: padded Dqk, value slice, keys a stage
-        row["dqk_pad"], row["dv_slice"], row["keys"] = (
-            int(x) for x in re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", row["entry"]).groups())
-    smem = {f"{row['dqk_pad']}x{row['dv_slice']}":
-            sm90_lib.repro_flash_attention_sm90_smem_bytes(row["dqk_pad"], row["dv_slice"])
-            for row in sm90}
+    sm90_log = built["flash_attention_sm90"]["log"]
+    sm90 = ptxas_kernels(sm90_log)
+    for row in sm90:  # the template arguments: Dqk, value slice, keys a stage, consumers
+        row["dqk"], row["dv_slice"], row["keys"], row["consumers"] = (
+            int(x) for x in re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                                      row["entry"]).groups())
+        # the form's dynamic shared memory: a kv head of 1 row takes one
+        # consumer, of 65 two where the instantiation has that form
+        row["dynamic_smem_bytes"] = sm90_lib.repro_flash_attention_sm90_smem_bytes(
+            row["dqk"], row["dv_slice"], 1 if row["consumers"] == 1 else 65)
+    spilled = [r["entry"] for r in sm90 if r.get("spill_store_bytes")]
     log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
-         "kernels": sm90, "dynamic_smem_bytes": smem,
-         "ptxas_warnings": [line.strip() for line in
-                                             built["flash_attention_sm90"]["log"].splitlines()
-                                             if "warning" in line]})
+         "kernels": sm90, "spilled": spilled,
+         "ptxas_warnings": [line.strip() for line in sm90_log.splitlines() if "warning" in line],
+         # ptxas's notes where it serialises wgmma (C7515, C7520): none expected
+         "wgmma_notes": [line.strip() for line in sm90_log.splitlines() if "wgmma" in line]})
+    assert not spilled, f"the tensor-core forward spills: {spilled}"
 
     bwd90_lib = _build.load("flash_attention_bwd_sm90")
     bwd90_lib.repro_flash_attention_bwd_sm90_smem_bytes.argtypes = [

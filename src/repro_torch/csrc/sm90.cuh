@@ -32,6 +32,7 @@ struct Strides {
 #define SM90_D8(i)                                                                           \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define SM90_D32(i) SM90_D8(i), SM90_D8(i + 8), SM90_D8(i + 16), SM90_D8(i + 24)
 // the A fragment, B's descriptor, the transpose immediate and scale-d (1: accumulate)
 #define SM90_RS_IN "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kTransB), "r"(1)
@@ -90,6 +91,45 @@ template <> struct Wgmma<64> {
         " %24, %25, %26, %27, %28, %29, %30, %31},"
         " {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
         : SM90_D32(0)
+        : SM90_RS_IN);
+  }
+};
+
+template <> struct Wgmma<80> {
+  // d[40] += A (registers) * B (shared), m64n80k16
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39},"
+        " {%40, %41, %42, %43}, %44, p, 1, 1, %45;\n}\n"
+        : SM90_D32(0), SM90_D8(32)
+        : SM90_RS_IN);
+  }
+};
+
+template <> struct Wgmma<120> {
+  // d[60] += A (registers) * B (shared), m64n120k16
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[60], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59},"
+        " {%60, %61, %62, %63}, %64, p, 1, 1, %65;\n}\n"
+        : SM90_D32(0), SM90_D8(32), SM90_D8(40), SM90_D8(48), SM90_D4(56)
         : SM90_RS_IN);
   }
 };
@@ -172,6 +212,7 @@ template <> struct Wgmma<256> {
 #undef SM90_RS_IN
 #undef SM90_D32
 #undef SM90_D8
+#undef SM90_D4
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -231,6 +272,34 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       "r"(parity)
       : "memory");
 }
+// a barrier whose phase completes after `count` arrivals (and the bytes any
+// expect_tx announces)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// one arrival where `pred` holds, releasing this thread's earlier reads and
+// writes to the waiters; predicated inside the asm, so that no branch
+// diverges between a wgmma and its wait (ptxas would serialise the wgmma)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier `id`
+// (1-15; 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// a warpgroup's per-thread register budget, raised or lowered; every warp of
+// the warpgroup executes it
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
 // TMA: the box at coordinates (c0 innermost .. c3) of the tensor map into
 // shared memory, completion counted in bytes on the barrier
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -250,6 +319,27 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory, lane L giving the address of
+// row L % 8 of matrix L / 8; thread t gets row t / 4, columns 2(t % 4) and
+// 2(t % 4) + 1 of each (wgmma's A fragment when the four are the (rows
+// 0-7, 8-15) x (columns 0-7, 8-15) blocks of a warp's 16 x 16 k-step)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_b128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {  // 2^x within 2 ulp; +0 at -inf
@@ -289,6 +379,20 @@ template <int DH, int ROWS> struct Tile {
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
            (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
            (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (kMode << 62);
+  }
+  // byte offset of k-step kk (16 elements of DH) from a tile's start
+  static __host__ __device__ constexpr uint32_t k_offset(int kk) {
+    return (kk * 16 / kElemsPerRow) * kAtomBytes + (kk * 16 % kElemsPerRow) * 2;
+  }
+  // k-step kk of a K-major operand from the descriptor of its k-step 0: only
+  // the start address field moves (a shared-memory address >> 4 stays below
+  // 2^14, so the sum never carries out of the field)
+  static __device__ __forceinline__ uint64_t k_step(uint64_t desc0, int kk) {
+    return desc0 + (k_offset(kk) >> 4);
+  }
+  // the same for k-step kk (16 rows) of an MN-major operand
+  static __device__ __forceinline__ uint64_t mn_step(uint64_t desc0, int kk) {
+    return desc0 + ((kk * 16 * kRowBytes) >> 4);
   }
   // k-step kk (16 elements of DH) of a K-major operand: inside one atom the
   // start moves by 32 bytes; SBO is the stride of 8-row groups

@@ -10,9 +10,12 @@ the shape alone (:func:`_route`); it is not a knob, and nothing falls back
 from one kernel to another:
 
 - bfloat16 on the card: ``csrc/flash_attention_sm90.cu``, one block per
-  (batch, kv head, 64 query rows), both products on the tensor cores
+  (batch, kv head, tile of query rows), warp specialised: a producer
+  thread streams K and V by TMA into shared-memory rings, and one or two
+  consumer warpgroups of 64 rows each (:func:`sm90_form`: two where a kv
+  head has more than 64 rows) run both products on the tensor cores
   (``wgmma``, bf16 operands, float32 accumulators; P is rounded to bf16
-  before ``P.V``), K/V by TMA into two shared-memory stages;
+  before ``P.V``) at the call's exact widths;
 - float32 on the card with few query rows per kv head (``group * Lq <=
   DECODE_MAX_ROWS``, or ``Lq == 1``: a decode step): the decode route of
   ``csrc/flash_attention.cu``. A block holds a tile of up to 8 of a kv
@@ -310,6 +313,24 @@ def kernel_widths(route: str, dqk: int, dv: int) -> Tuple[int, int]:
         raise ValueError(f"flash_attention: no {route} kernel takes head dims (Dqk, Dv) = "
                          f"{(dqk, dv)}")
     return out[0], out[1]
+
+
+def sm90_form(dqk: int, dv: int, rows: int) -> int:
+    """The query rows a block of the tensor-core kernel holds for a
+    ``(dqk, dv)`` call whose kv heads have ``rows = group * Lq`` query rows
+    each, as the source chooses them (``form_consumers`` in
+    ``csrc/flash_attention_sm90.cu``): 128 (two consumer warpgroups of 64
+    rows) where a kv head has more than 64 rows and the instantiation takes
+    both forms, else 64 (one); ``ValueError`` for a pair the kernel does not
+    take. Builds the source on first use."""
+    fn = _build.load(KERNELS["sm90"][0]).repro_flash_attention_sm90_form
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    got = fn(dqk, dv, rows)
+    if got < 0:
+        raise ValueError(f"flash_attention: no sm90 kernel takes head dims (Dqk, Dv) = "
+                         f"{(dqk, dv)}")
+    return got
 
 
 @functools.lru_cache(maxsize=None)

@@ -337,6 +337,102 @@ def flash_attention_bwd_sm90_ref(q, k, v, out, dout, lse, causal: bool = True, w
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_sm90_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True, window: int = 0,
+                             scale: Optional[float] = None, *, block_rows: int = 128,
+                             keys: int = 64, fault: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core forward's schedule in plain PyTorch, for the CPU
+    tests: ``(out, lse)`` as ``csrc/flash_attention_sm90.cu`` computes them,
+    taken in its steps. A kv head's ``group x Lq`` query rows are numbered
+    head-major (row ``r``: head ``r // Lq`` of the group, position ``r %
+    Lq``) and cut into blocks of ``block_rows`` (128: two consumer
+    warpgroups; 64: one); each block streams the key tiles of ``keys`` keys
+    from the first key any of its rows sees (``k_begin``), and each 64-row
+    half (a consumer) folds the tiles its own rows see into its running
+    ``(m, l, O)``: the scores of the bf16 values summed in float32, scaled
+    into the exp2 domain (``scale * log2(e)``), masked key by key only on
+    its first tile and on the tiles not inside every one of its rows' keys,
+    the tile's max, ``alpha = exp2(m_old - m_new)``, ``P = exp2(x -
+    m_new)`` summed into ``l`` in float32 and rounded to bf16 before ``O =
+    alpha O + P V``, one rescale of O a tile. ``out = O / max(l, 1e-30)`` in
+    q's dtype; ``lse = m + log2(l)`` (``+inf`` for a row that sees no key),
+    float32 ``[B, H, Lq]``. ``fault`` breaks the last consumer of every
+    block, for the tests' control: ``"skip_rescale"`` leaves its O
+    unrescaled, ``"next_stage"`` multiplies each P by the next tile's V
+    (zeros past the last)."""
+    b, h, lq, dqk = q.shape
+    hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
+    group = h // hkv
+    rows = group * lq
+    scale = 1.0 / math.sqrt(dqk) if scale is None else scale
+    sl2 = scale * LOG2E
+    qf = q.float().reshape(b, hkv, rows, dqk)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros(b, hkv, rows, dv)
+    lse = torch.full((b, hkv, rows), float("inf"))
+    pos0 = lk - lq
+
+    def keys_of(r0, r1):  # (lo, hi, max_lo, min_hi) of rows [r0, r1), as the kernel's keys_of
+        min_i, max_i = (r0 % lq, (r1 - 1) % lq) if r0 // lq == (r1 - 1) // lq else (0, lq - 1)
+        hi = min(lk, pos0 + max_i + 1) if causal else lk
+        lo = max(0, pos0 + min_i - window + 1) if window > 0 else 0
+        min_hi = min(lk, pos0 + min_i + 1) if causal else lk
+        max_lo = max(0, pos0 + max_i - window + 1) if window > 0 else 0
+        return lo, hi, max_lo, min_hi
+
+    for r0 in range(0, rows, block_rows):
+        k_begin, k_end, _, _ = keys_of(r0, min(r0 + block_rows, rows))
+        n_tiles = -(-(k_end - k_begin) // keys) if k_end > k_begin else 0
+        halves = range(r0, min(r0 + block_rows, rows), 64)
+        for c, rc0 in enumerate(halves):
+            rc1 = min(rc0 + 64, rows)
+            lo, hi, max_lo, min_hi = keys_of(rc0, rc1)
+            if hi <= lo:
+                continue
+            ta, tb = (lo - k_begin) // keys, -(-(hi - k_begin) // keys)
+            e0 = -(-(max_lo - k_begin) // keys) if max_lo > k_begin else 0
+            e1 = (min_hi - k_begin) // keys if min_hi > k_begin else 0
+            u0 = min(max(e0, ta + 1), tb)
+            u1 = min(max(e1, u0), tb)
+            broken = fault if c == len(halves) - 1 else None
+            p_of_row = torch.arange(rc0, rc1) % lq + pos0
+            row_lo = (p_of_row - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(
+                p_of_row)
+            row_hi = (p_of_row + 1).clamp(max=lk) if causal else torch.full_like(p_of_row, lk)
+            qt = qf[:, :, rc0:rc1]
+            m = torch.full((b, hkv, rc1 - rc0), float("-inf"))
+            l_sum = torch.zeros_like(m)
+            acc = torch.zeros(b, hkv, rc1 - rc0, dv)
+            for t in range(ta, tb):
+                k0 = k_begin + t * keys
+                k1 = min(k0 + keys, lk)
+                x = torch.einsum("bhqd,bhkd->bhqk", qt, kf[:, :, k0:k1]) * sl2
+                if t == ta or not u0 <= t < u1:  # an edge tile: each key checked
+                    kp = torch.arange(k0, k1)[None, :]
+                    seen = (kp >= row_lo[:, None]) & (kp < row_hi[:, None])
+                    x = x.masked_fill(~seen, float("-inf"))
+                m_new = torch.maximum(m, x.amax(dim=-1))
+                base = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+                alpha = torch.exp2(m - base)
+                p = torch.exp2(x - base[..., None])
+                l_sum = l_sum * alpha + p.sum(dim=-1)
+                if broken != "skip_rescale":
+                    acc = acc * alpha[..., None]
+                vt = vf[:, :, k0:k1]
+                if broken == "next_stage":
+                    n0, n1 = k0 + keys, min(k0 + 2 * keys, lk)
+                    vt = torch.zeros_like(vt)
+                    if t + 1 < n_tiles and n1 > n0:
+                        vt[:, :, :n1 - n0] = vf[:, :, n0:n1]
+                acc = acc + torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vt)
+                m = m_new
+            out[:, :, rc0:rc1] = acc * (1.0 / l_sum.clamp_min(1e-30))[..., None]
+            lse[:, :, rc0:rc1] = torch.where(l_sum > 0, m + torch.log2(l_sum),
+                                             torch.full_like(m, float("inf")))
+    return (out.reshape(b, h, lq, dv).to(q.dtype), lse.reshape(b, h, lq))
+
+
 def _masked_logits(q, k, causal: bool, window: int) -> torch.Tensor:
     """``q.k`` of ``q [B, H, Lq, D]`` and ``k [B, H, Lk, D]`` (kv heads
     repeated), unscaled, with the pairs a row does not see at -inf

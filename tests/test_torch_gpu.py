@@ -831,6 +831,83 @@ def test_cuda_attention_refuses_a_pair_no_route_takes(cuda):
                                rtol=FA_TOL[torch.float32], atol=FA_TOL[torch.float32])
 
 
+# a (Dqk, Dv) pair of each instantiation of the tensor-core kernel
+# (csrc/flash_attention_sm90.cu, FA90_WIDTHS), the configs' pairs among them
+SM90_PAIRS = [(32, 32), (48, 32), (64, 64), (80, 64), (80, 80), (120, 120), (128, 128),
+              (192, 128), (256, 256), (576, 512)]
+# rows a block holds -> (group, Lq): a kv head of 52 rows (one consumer
+# warpgroup) and of 200 (two, 128 rows a block, the last block's second
+# warpgroup with 8 rows)
+SM90_FORMS = {64: (4, 13), 128: (2, 100)}
+SM90_MASKS = [(True, 0), (True, 48), (False, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", SM90_PAIRS)
+@pytest.mark.parametrize("form", sorted(SM90_FORMS))
+def test_cuda_sm90_forms_repeat_their_bits_with_and_without_lse(cuda, dqk, dv, form):
+    """Every instantiation in both row forms (256 and 576 take the 64-row
+    form only), causal, windowed and bidirectional, Lk > Lq: the plain version
+    within bf16's 3e-2, the same bits on a second call, and, where Dv fits
+    one value slice, the same output bits when the log-sum-exp is asked for,
+    which is the plain one."""
+    group, lq = SM90_FORMS[form]
+    assert fa.sm90_form(dqk, dv, group * lq) == (64 if dqk >= 256 else form)
+    gen = torch.Generator(device=cuda).manual_seed(dqk + dv + form)
+    scale = _pair_scale(dqk, dv)
+    for causal, window in SM90_MASKS:
+        q, k, v = _pair_inputs(gen, cuda, dqk, dv, torch.bfloat16, group, lq, lq + 37)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal, window=window,
+                                                   scale=scale))
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_ref(q, k, v, causal, window, scale).float(),
+            rtol=3e-2, atol=3e-2, msg=lambda m: f"causal={causal} window={window}: {m}")
+        if dv > 256:
+            continue
+        out, lse = fa._launch("sm90", q, k, v, causal, window,
+                              scale if scale is not None else 1.0 / math.sqrt(dqk), with_lse=True)
+        assert torch.equal(out, got)
+        want = ref.attention_lse_ref(q, k, causal, window, scale)
+        assert torch.equal(torch.isfinite(lse), torch.isfinite(want))
+        live = torch.isfinite(want)
+        err = float((lse[live] - want[live]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want[live].abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", [(80, 80), (192, 128), (256, 256), (576, 512)])
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 1e-3])
+def test_cuda_sm90_takes_any_scale(cuda, dqk, dv, scale):
+    """The kernel folds the scale's sign into Q (a scale of 0 zeroes it),
+    with Q in registers (80, (192, 128)) and in shared memory (256, 576):
+    a negative, a zero and a small scale each match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(dqk + 5)
+    q, k, v = _pair_inputs(gen, cuda, dqk, dv, torch.bfloat16, 2, 70, 130)
+    for causal, window in SM90_MASKS:
+        got = fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_ref(q, k, v, causal, window, scale).float(),
+            rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", [p for p in SM90_PAIRS if p[0] < 256])
+@pytest.mark.parametrize("causal,window", SM90_MASKS)
+def test_cuda_sm90_row_forms_agree(cuda, dqk, dv, causal, window):
+    """Where both forms can run: two query heads a kv head over 64
+    positions (128 rows: the two-consumer form, a warpgroup a head) against
+    each head alone (64 rows: the one-consumer form), within bf16's 3e-2."""
+    gen = torch.Generator(device=cuda).manual_seed(dqk + 3 * dv)
+    q, k, v = _pair_inputs(gen, cuda, dqk, dv, torch.bfloat16, 2, 64, 150)
+    scale = _pair_scale(dqk, dv)
+    assert fa.sm90_form(dqk, dv, 128) == 128 and fa.sm90_form(dqk, dv, 64) == 64
+    both = fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    for g in range(2):
+        one = fa.flash_attention(q[:, g::2], k, v, causal=causal, window=window, scale=scale)
+        torch.testing.assert_close(both[:, g::2].float(), one.float(), rtol=3e-2, atol=3e-2)
+
+
 # the float32 tile route's masks: a window shorter than either key tile
 TILE_MASKS = [(True, 0), (False, 0), (True, 5), (False, 5)]
 
