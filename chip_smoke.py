@@ -2,6 +2,11 @@
 
     python3 chip_smoke.py            # R19 (rmat-19-32), the paper's graph size
     python3 chip_smoke.py --scale 12 # a quick run on a small RMAT graph
+    python3 chip_smoke.py --phases train  # development: the build, then 4i only
+
+``--phases`` (a comma-separated subset of ``PHASES``) runs only those phases
+after the device and the build; the ``kernels`` line then names only the
+kernels they ran. With no argument every phase runs.
 
 Phases (any failure raises and exits nonzero; no phase's error is caught):
 
@@ -232,10 +237,13 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    no graph), each timed with its transient peak memory.
    Then (4i, ``{"phase": "train", ...}`` lines) training. First the
    backward kernels (bf16: ``csrc/flash_attention_bwd_sm90.cu`` on the
-   tensor cores, with the log-sum-exp the forward saves; f32:
-   ``csrc/flash_attention_bwd.cu``) at qwen3-0.6b's
-   layer (bf16 and f32 [4, 16, 2048, 128], kv 8, causal), deepseek-v2's
-   MLA (bf16 [2, 128, 1024, (192, 128)]), zamba2's width under a window
+   tensor cores, with the log-sum-exp the tensor-core forward saves; f32:
+   ``csrc/flash_attention_bwd.cu`` on the CUDA cores, with the one the
+   tile route saves; the build phase prints each f32 kernel's registers,
+   spills and the block's shared memory, and a spill fails the run) at
+   qwen3-0.6b's layer (bf16 and f32 [4, 16, 2048, 128], kv 8, causal),
+   deepseek-v2's MLA (bf16 and f32 [2, 128, 1024, (192, 128)]), zamba2's
+   width under a window
    that hides keys (bf16 [2, 32, 2048, 80], window 512) and hubert's
    bidirectional frames (bf16 [2, 16, 1024, 80]): dq, dk and dv held to
    the plain twin on the card (bf16 by a row-relative rule, float32 by
@@ -244,11 +252,12 @@ Phases (any failure raises and exits nonzero; no phase's error is caught):
    bf16-rounded inputs), the time beside the bound of the least work (2 *
    (3 Dqk + 2 Dv) FLOPs a visible pair, or q, k, v, out, dout read and
    dq, dk, dv written once) and SDPA's backward alone on a retained graph
-   (queued CUDA events, backend named); each bf16 row also gives its time
-   on the CUDA-core backward this source replaced, its factor against
-   SDPA's backward and the ``ptxas`` registers and spills of the
-   instantiation it ran, and holds the forward's output with its
-   log-sum-exp to the same bits as without; the gather's transpose at deepseek-v2's dispatch, bit
+   (queued CUDA events, backend named); each row also gives its time on
+   the first CUDA-core backward (where it was timed), its
+   factor against SDPA's backward and the ``ptxas`` registers and spills
+   of the instantiation it ran, and holds the forward's output with its
+   log-sum-exp to the same bits as without; the f32 rows give their tiles
+   and the bytes of their dQ parts; the gather's transpose at deepseek-v2's dispatch, bit
    for bit its twin, beside its byte bound and ``index_add_``. Then
    qwen3-0.6b at its full config in bf16 through
    ``repro_torch.launch.train.main``: 10 steps of [4, 2048] tokens in two
@@ -2580,29 +2589,39 @@ GRAD_ROW_FLOOR = 1e-2
 #: 1e-5; the twin on bf16-rounded inputs reads ~2e-3 to 4e-3, and each
 #: float32 row asserts that this control fails
 GRAD_F32_TOL = 1e-4
-#: the bf16 rows' times on the CUDA-core (SIMT) backward that
-#: csrc/flash_attention_bwd_sm90.cu replaced, ms (PERF.md section 6; H100
-#: 80GB HBM3, 700 W, queued CUDA events)
+#: the rows' times on the first CUDA-core (SIMT) backward: for bf16 the
+#: one csrc/flash_attention_bwd_sm90.cu replaced, for float32 the design
+#: csrc/flash_attention_bwd.cu had before its register-blocked one (None:
+#: never timed), ms (PERF.md section 6; H100 80GB HBM3, 700 W, queued CUDA
+#: events)
 SIMT_BWD_MS = {"qwen3": 15.03, "deepseek_v2_mla": 21.34, "zamba2_window": 5.951,
-               "hubert": 2.958}
+               "hubert": 2.958, "qwen3_f32": 15.45, "deepseek_v2_mla_f32": None}
 #: the backward rows: (name, dtype, q [B, H, L, Dqk], kv heads, Dv, causal, window)
 BWD_ROWS = [("qwen3", torch.bfloat16, (4, 16, 2048, 128), 8, 128, True, 0),
             ("qwen3_f32", torch.float32, (4, 16, 2048, 128), 8, 128, True, 0),
             ("deepseek_v2_mla", torch.bfloat16, (2, 128, 1024, 192), 128, 128, True, 0),
+            ("deepseek_v2_mla_f32", torch.float32, (2, 128, 1024, 192), 128, 128, True, 0),
             ("zamba2_window", torch.bfloat16, (2, 32, 2048, 80), 32, 80, True, 512),
             ("hubert", torch.bfloat16, (2, 16, 1024, 80), 16, 80, False, 0)]
 
 
-def bwd_resources(ptxas: list, widths) -> dict:
-    """``ptxas`` registers and spills of the tensor-core backward's dkdv and
-    dq kernels at the instantiation ``widths`` (DQK, DV); None for a cached
-    build (no log)."""
+#: the kernels of each backward source (by dtype) a call runs; those
+#: templated on the widths are read at the call's instantiation
+BWD_KERNELS = {torch.bfloat16: ("dkdv_kernel", "dq_kernel"),
+               torch.float32: ("delta_kernel", "dkdv_kernel", "dq_reduce_kernel")}
+
+
+def bwd_resources(ptxas: list, widths, kernels=BWD_KERNELS[torch.bfloat16]) -> dict:
+    """``ptxas`` registers and spills of a backward source's ``kernels`` at
+    the instantiation ``widths`` (DQK, DV), from that source's build
+    entries; None for a cached build (no log)."""
     if not ptxas:
         return None
     pat = f"ILi{widths[0]}ELi{widths[1]}E"
     out = {}
-    for kernel in ("dkdv_kernel", "dq_kernel"):
-        hits = [r for r in ptxas if kernel in r["entry"] and pat in r["entry"]]
+    for kernel in kernels:
+        hits = [r for r in ptxas if kernel in r["entry"] and (pat in r["entry"] or
+                                                              "ILi" not in r["entry"])]
         assert len(hits) == 1, f"ptxas: {len(hits)} entries match {kernel} {pat}"
         out[kernel] = {k: hits[0].get(k) for k in ("registers", "spill_store_bytes",
                                                     "spill_load_bytes")}
@@ -2648,10 +2667,11 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen, ptxas) 
     backward alone on one retained graph (the library, queued alike) and
     the bound of the least work: 2 * (3 Dqk + 2 Dv) FLOPs a visible
     (query, key) pair, and q, k, v, out and dout read once, dq, dk and dv
-    written once. In bf16 the forward also gives its log-sum-exp (its
-    output the same bits as without), which the timed backward takes, as
-    training does; the first of the two calls takes none and so runs the
-    forward for it. ``ptxas``: the tensor-core backward's build entries."""
+    written once. The forward also gives its log-sum-exp (its output the
+    same bits as without; bf16 the tensor-core route's, float32 the tile
+    route's), which the timed backward takes, as training does; the first
+    of the two calls takes none and so runs the forward for it. ``ptxas``:
+    the build entries of the row's backward source."""
     b, h, lq, dqk = qshape
     dev = gen.device
     q = torch.randn(b, h, lq, dqk, generator=gen, device=dev).to(dtype)
@@ -2660,12 +2680,10 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen, ptxas) 
     dout = torch.randn(b, h, lq, dv, generator=gen, device=dev).to(dtype)
     out = fa.flash_attention(q, k, v, causal, window)
     bf16 = dtype == torch.bfloat16
-    lse = None
-    if bf16:
-        with_lse, lse = fa._launch("sm90", q, k, v, causal, window, 1.0 / math.sqrt(dqk),
-                                   with_lse=True)
-        assert torch.equal(with_lse, out), f"{name}: the forward's bits differ with lse"
-        del with_lse
+    with_lse, lse = fa._launch("sm90" if bf16 else "cuda_core", q, k, v, causal, window,
+                               1.0 / math.sqrt(dqk), with_lse=True)
+    assert torch.equal(with_lse, out), f"{name}: the forward's bits differ with lse"
+    del with_lse
 
     def kernel():
         return fa.flash_attention_bwd(q, k, v, out, dout, causal, window, lse=lse)
@@ -2717,11 +2735,14 @@ def _bwd_row(fa, ref, name, dtype, qshape, hkv, dv, causal, window, gen, ptxas) 
     library_ms = queued_event_ms(lib_bwd, 10)
     del lib_out, leaves
     widths = fa.bwd_widths(dqk, dv, dtype)
-    extra = {}
-    if bf16:
-        extra = {"source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
-                 "simt_ms": SIMT_BWD_MS[name], "speedup_vs_simt": SIMT_BWD_MS[name] / kernel_ms,
-                 "ptxas": bwd_resources(ptxas, widths), "forward_lse_same_bits": True}
+    simt = SIMT_BWD_MS[name]
+    extra = {"source": "src/repro_torch/csrc/" + fa.BWD_SOURCES[dtype] + ".cu",
+             "simt_ms": simt, "speedup_vs_simt": simt / kernel_ms if simt else None,
+             "ptxas": bwd_resources(ptxas, widths, BWD_KERNELS[dtype]),
+             "forward_lse_same_bits": True}
+    if not bf16:
+        extra["tiles"] = dict(zip(("keys", "rows"), fa.bwd_tiles(widths[0])))
+        extra["dq_part_bytes"] = 4 * fa._bwd_entry("part")(b, h, lq, lq, dqk, dv)
     return {"route": "cuda", "dtype": str(dtype).split(".")[-1], "kernel_ms": kernel_ms,
             **extra, "library_factor": kernel_ms / library_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -3027,12 +3048,12 @@ def checkpoint_resume(mods, train, dev: str) -> dict:
             "roundtrip_dtypes": sorted({str(b.dtype).split(".")[-1] for _, _, b in flat})}
 
 
-def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str, bwd_ptxas: list) -> tuple:
+def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str, bwd_ptxas: dict) -> tuple:
     """Phase 4i. Returns (the backward kernels' rows, launches on the main
     path: the bf16 attention backward's in qwen3-0.6b's training, the f32
     one's in the gradient against the CPU, the gather's in deepseek-v2's
     step, and their forward kernels'). ``bwd_ptxas``: the build entries of
-    the tensor-core backward."""
+    each backward source by dtype."""
     from repro_torch.launch import train
 
     fa, md, get_config = mods[0], mods[1], mods[2]
@@ -3041,7 +3062,8 @@ def train_phase(mods, ref, moe_mod, dev: str, seed: int, smi: str, bwd_ptxas: li
     rows = {}
     for name, dtype, qshape, hkv, dv, causal, window in BWD_ROWS:
         rows[f"flash_attention_bwd_{name}"] = _bwd_row(fa, ref, name, dtype, qshape, hkv, dv,
-                                                       causal, window, gen, bwd_ptxas)
+                                                       causal, window, gen,
+                                                       bwd_ptxas.get(dtype, []))
         log({"phase": "train", "kernel": f"flash_attention_bwd_{name}", "card": smi,
              **rows[f"flash_attention_bwd_{name}"]})
         gc.collect()
@@ -4425,13 +4447,27 @@ def pagerank(n: int, src, dst, iters: int, damp: float = 0.85) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+#: the phases after the device and the build, in the order they run:
+#: 3 (``kernels``), 4-4f (``graph``: R19's main path, batches, artifacts,
+#: streaming, serving, the distributed engine), 5 (``lm``), 4g
+#: (``lm_families``), 4h (``ssm_families``), 4i (``train``)
+PHASES = ("kernels", "graph", "lm", "lm_families", "ssm_families", "train")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=19, help="RMAT scale (19 = R19)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--load-artifact", metavar="DIR",
                     help="phase 4c's fresh process: load DIR, bind the graph, one BFS_ECP run")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="for development runs, a comma-separated subset of "
+                         f"{','.join(PHASES)} to run after the device and the build (default: "
+                         "all; the last lines then name only the kernels those phases ran)")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"--phases: unknown {sorted(phases - set(PHASES))}; choose from {PHASES}")
     t_start = time.perf_counter()
 
     # -- 1. device ----------------------------------------------------------
@@ -4442,15 +4478,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     if args.load_artifact:
         return artifact_child(args.load_artifact, args.scale, args.seed)
-    import repro_torch
-    from repro_torch.algorithms import sources
-    from repro_torch.graph import generators
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import edge_stream as es
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
-    from repro_torch.kernels import shuffle_reduce as sr
     from repro_torch.launch import serve
     from repro_torch.models import Model
     from repro_torch.models import moe as moe_mod
@@ -4522,6 +4553,126 @@ def main() -> int:
                             built["flash_attention_bwd_sm90"]["log"].splitlines()
                             if "warning" in line]})
     assert not spilled, f"the tensor-core backward spills: {spilled}"
+    bwd32_lib = _build.load("flash_attention_bwd")
+    bwd32_lib.repro_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    bwd32 = ptxas_kernels(built["flash_attention_bwd"]["log"])
+    bwd32_smem = {f"{dqk}x{dv}": bwd32_lib.repro_flash_attention_bwd_smem_bytes(dqk, dv)
+                  for dqk, dv in ((32, 32), (64, 64), (128, 128), (192, 128))}
+    spilled = [r["entry"] for r in bwd32 if r.get("spill_store_bytes")]
+    log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "kernels": bwd32, "dynamic_smem_bytes": bwd32_smem, "spilled": spilled,
+         "ptxas_warnings": [line.strip() for line in
+                            built["flash_attention_bwd"]["log"].splitlines()
+                            if "warning" in line]})
+    assert not spilled, f"the float32 backward spills: {spilled}"
+
+    rows, launches, family_rows = {}, {}, {}
+    f32_tile = f32_decode = 0
+
+    def count(name: str, n: int) -> None:
+        launches[name] = launches.get(name, 0) + n
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    if phases & {"kernels", "graph"}:
+        graph_phases(args, phases, smi, here, built, rows, launches)
+
+    # -- 5. the LM path -------------------------------------------------------
+    mods = (fa, md, get_config, Model, serve)
+    if "lm" in phases:
+        kimi = lm_phase(mods, dev, args.seed)
+        log(kimi)
+        count("flash_attention_sm90", kimi["launches"]["flash_attention_sm90"])
+        count("moe_gather", kimi["launches"]["moe_gather"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        qwen = qwen_phase(mods, dev, args.seed)
+        log(qwen)
+        count("flash_attention", qwen["launches"]["flash_attention_tile"]  # the f32 path
+              + qwen["launches"]["flash_attention_decode"])
+        count("flash_decode", qwen["launches"]["flash_attention_decode"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(qwen_prefill_phase(mods, ref, dev, args.seed))
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefill_f32 = qwen_prefill_f32_phase(mods, ref, dev, args.seed)
+        log(prefill_f32)
+        f32_tile += qwen["launches"]["flash_attention_tile"] + \
+            prefill_f32["launches_per_forward"]["flash_attention_tile"]
+        count("flash_attention", prefill_f32["launches_per_forward"]["flash_attention_tile"])
+        f32_decode += qwen["launches"]["flash_attention_decode"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 4g. MLA, the ring-buffer decode, M-RoPE and the frontend stubs -------
+    if "lm_families" in phases:
+        _, family, family_launches = lm_families_phase(mods, ref, dev, args.seed, smi)
+        family_rows.update(family)
+        count("flash_attention_sm90", family_launches["flash_attention_sm90"])
+        count("moe_gather", family_launches["moe_gather"])
+        count("flash_attention", family_launches["flash_attention_tile"]
+              + family_launches["flash_attention_decode"])
+        count("flash_decode", family_launches["flash_attention_decode"])
+        f32_tile += family_launches["flash_attention_tile"]
+        f32_decode += family_launches["flash_attention_decode"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 4h. Mamba2 with zamba2's shared windowed attention, and xLSTM --------
+    if "ssm_families" in phases:
+        _, ssm_rows, ssm_launches = ssm_families_phase(mods, ref, dev, args.seed, smi)
+        family_rows.update(ssm_rows)
+        count("flash_attention_sm90", ssm_launches["flash_attention_sm90"])
+        count("flash_attention", ssm_launches["flash_attention_tile"]
+              + ssm_launches["flash_attention_decode"])
+        count("flash_decode", ssm_launches["flash_attention_decode"])
+        f32_tile += ssm_launches["flash_attention_tile"]
+        f32_decode += ssm_launches["flash_attention_decode"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 4i. training: the backward kernels, qwen3-0.6b, deepseek-v2 ----------
+    if "train" in phases:
+        train_rows, train_launches = train_phase(
+            mods, ref, moe_mod, dev, args.seed, smi,
+            {torch.bfloat16: bwd90, torch.float32: bwd32})
+        for name in ("flash_attention_sm90", "moe_gather", "flash_attention_bwd",
+                     "flash_attention_bwd_f32", "moe_gather_bwd"):
+            count(name, train_launches[name])
+        rows["flash_attention_bwd"] = train_rows["flash_attention_bwd_qwen3"]
+        rows["flash_attention_bwd_f32"] = train_rows["flash_attention_bwd_qwen3_f32"]
+        rows["moe_gather_bwd"] = train_rows["moe_gather_bwd"]
+    kernels = summary(rows, launches, family_rows, f32_tile, f32_decode,
+                      train_rows if "train" in phases else {})
+    log({"phase": "done", "elapsed_s": time.perf_counter() - t_start, "phases": sorted(phases),
+         "profiler": PROFILE_WINDOWS})
+    log({"kernels": kernels})
+    log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+def graph_phases(args, phases: set, smi: str, here: str, built: dict, rows: dict,
+                 launches: dict) -> None:
+    """Phases 3 (``kernels``: every kernel against its plain version on
+    the graph's and the LM's shapes) and 4-4f (``graph``: the main path on
+    R19, its profiles, batches, artifacts, streaming, serving and the
+    distributed engine), as ``phases`` asks; fills ``rows`` and
+    ``launches``."""
+    import repro_torch
+    from repro_torch.algorithms import sources
+    from repro_torch.graph import generators
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import edge_stream as es
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import shuffle_reduce as sr
+    from repro_torch.models import moe as moe_mod
+
+    dev = "cuda"
+    fa_ptxas = ptxas_kernels(built["flash_attention"]["log"])
 
     # -- graph and the SSSP bind (whose bindings give the main-path shape) --
     t0 = time.perf_counter()
@@ -4535,38 +4686,40 @@ def main() -> int:
          "bind_s": round(bind_s["SSSP"], 3)})
 
     # -- 3. kernels vs plain versions ----------------------------------------
-    small = kernel_tests(sr, es, ref, dev)
-    log({"phase": "kernels", "reference_shapes": small})
-    eng = sessions["SSSP"].engine
-    rows = main_shape_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev)
-    for name, row in rows.items():
-        log({"phase": "kernels", "kernel": name, **row})
-    es_ptxas = ptxas_kernels(built["edge_stream"]["log"])
-    for name, row in batched_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev,
-                                     es_ptxas).items():
-        log({"phase": "kernels", "kernel": name, **row})
-    gc.collect()
-    torch.cuda.empty_cache()
-    log({"phase": "kernels", "skewed_edge_stream": skewed_edge_stream(sr, es, ref, dev)})
-    log({"phase": "kernels", "skewed_shuffle_reduce": skewed_shuffle_reduce(sr, ref, dev)})
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
-    torch.backends.cudnn.allow_tf32 = False
-    log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})
-    lm_rows = lm_main_shape_kernels(fa, md, ref, moe_mod, get_config(KIMI), dev)
-    lm_rows["flash_attention_qwen3_forward"] = qwen_forward_row(fa, ref, get_config(QWEN), dev)
-    lm_rows["flash_attention_decode"]["ptxas"] = decode_resources(
-        fa_ptxas, 128, lm_rows["flash_attention_decode"]["decode"]["row_tile"])
-    lm_rows.update(f32_decode_rows(fa, ref, get_config(QWEN), dev, fa_ptxas))
-    for name, row in lm_rows.items():
-        log({"phase": "kernels", "kernel": name, **row})
-    rows.update(lm_rows)
-    log({"phase": "kernels", "flash_attention_route_sweep": route_sweep(fa, ref, dev),
-         "decode_max_rows": fa.DECODE_MAX_ROWS})
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
+    if "kernels" in phases:
+        small = kernel_tests(sr, es, ref, dev)
+        log({"phase": "kernels", "reference_shapes": small})
+        eng = sessions["SSSP"].engine
+        graph_rows = main_shape_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev)
+        rows.update(graph_rows)
+        for name, row in graph_rows.items():
+            log({"phase": "kernels", "kernel": name, **row})
+        es_ptxas = ptxas_kernels(built["edge_stream"]["log"])
+        for name, row in batched_kernels(sr, es, ref, eng.gb, eng.state["__weight__"], dev,
+                                         es_ptxas).items():
+            log({"phase": "kernels", "kernel": name, **row})
+        gc.collect()
+        torch.cuda.empty_cache()
+        log({"phase": "kernels", "skewed_edge_stream": skewed_edge_stream(sr, es, ref, dev)})
+        log({"phase": "kernels", "skewed_shuffle_reduce": skewed_shuffle_reduce(sr, ref, dev)})
+        log({"phase": "kernels", "reference_shapes_lm": lm_kernel_tests(fa, md, ref, dev)})
+        lm_rows = lm_main_shape_kernels(fa, md, ref, moe_mod, get_config(KIMI), dev)
+        lm_rows["flash_attention_qwen3_forward"] = qwen_forward_row(fa, ref, get_config(QWEN), dev)
+        lm_rows["flash_attention_decode"]["ptxas"] = decode_resources(
+            fa_ptxas, 128, lm_rows["flash_attention_decode"]["decode"]["row_tile"])
+        lm_rows.update(f32_decode_rows(fa, ref, get_config(QWEN), dev, fa_ptxas))
+        for name, row in lm_rows.items():
+            log({"phase": "kernels", "kernel": name, **row})
+        rows.update(lm_rows)
+        log({"phase": "kernels", "flash_attention_route_sweep": route_sweep(fa, ref, dev),
+             "decode_max_rows": fa.DECODE_MAX_ROWS})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
 
     # -- 4. the main path ---------------------------------------------------
+    if "graph" not in phases:
+        return
     src_np, dst_np = g.src, g.dst
     oracles = {
         "BFS_ECP": ("old_level", lambda: bfs_levels(g.n_vertices, src_np, dst_np, 0)),
@@ -4596,7 +4749,7 @@ def main() -> int:
             warm_runs_s.append(time.perf_counter() - t0)
         peak[name] = torch.cuda.max_memory_allocated()
         results[name] = (cold, warm, cold_s, warm_runs_s)
-    launches = {"shuffle_reduce": sr.LAUNCHES, "edge_stream": es.LAUNCHES}
+    launches.update({"shuffle_reduce": sr.LAUNCHES, "edge_stream": es.LAUNCHES})
     for name, (cold, warm, cold_s, warm_runs_s) in results.items():
         warm_s = statistics.median(warm_runs_s)
         prop, oracle = oracles[name]
@@ -4684,73 +4837,15 @@ def main() -> int:
                                       params, batch_rows, sr, es, args.seed, smi, here)
     for name, n in dist_launches.items():
         launches[name] += n
-    del sessions, eng, results
+    del sessions, results
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 5. the LM path -------------------------------------------------------
-    mods = (fa, md, get_config, Model, serve)
-    kimi = lm_phase(mods, dev, args.seed)
-    log(kimi)
-    launches["flash_attention_sm90"] = kimi["launches"]["flash_attention_sm90"]
-    launches["moe_gather"] = kimi["launches"]["moe_gather"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    qwen = qwen_phase(mods, dev, args.seed)
-    log(qwen)
-    launches["flash_attention"] = (qwen["launches"]["flash_attention_tile"]  # the f32 path
-                                   + qwen["launches"]["flash_attention_decode"])
-    launches["flash_decode"] = qwen["launches"]["flash_attention_decode"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(qwen_prefill_phase(mods, ref, dev, args.seed))
-    gc.collect()
-    torch.cuda.empty_cache()
-    prefill_f32 = qwen_prefill_f32_phase(mods, ref, dev, args.seed)
-    log(prefill_f32)
-    f32_tile = qwen["launches"]["flash_attention_tile"] + \
-        prefill_f32["launches_per_forward"]["flash_attention_tile"]
-    launches["flash_attention"] += prefill_f32["launches_per_forward"]["flash_attention_tile"]
-    f32_decode = qwen["launches"]["flash_attention_decode"]
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    # -- 4g. MLA, the ring-buffer decode, M-RoPE and the frontend stubs -------
-    _, family_rows, family_launches = lm_families_phase(mods, ref, dev, args.seed, smi)
-    launches["flash_attention_sm90"] += family_launches["flash_attention_sm90"]
-    launches["moe_gather"] += family_launches["moe_gather"]
-    launches["flash_attention"] += (family_launches["flash_attention_tile"]
-                                    + family_launches["flash_attention_decode"])
-    launches["flash_decode"] += family_launches["flash_attention_decode"]
-    f32_tile += family_launches["flash_attention_tile"]
-    f32_decode += family_launches["flash_attention_decode"]
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # -- 4h. Mamba2 with zamba2's shared windowed attention, and xLSTM --------
-    _, ssm_rows, ssm_launches = ssm_families_phase(mods, ref, dev, args.seed, smi)
-    family_rows.update(ssm_rows)
-    launches["flash_attention_sm90"] += ssm_launches["flash_attention_sm90"]
-    launches["flash_attention"] += (ssm_launches["flash_attention_tile"]
-                                    + ssm_launches["flash_attention_decode"])
-    launches["flash_decode"] += ssm_launches["flash_attention_decode"]
-    f32_tile += ssm_launches["flash_attention_tile"]
-    f32_decode += ssm_launches["flash_attention_decode"]
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # -- 4i. training: the backward kernels, qwen3-0.6b, deepseek-v2 ----------
-    train_rows, train_launches = train_phase(mods, ref, moe_mod, dev, args.seed, smi, bwd90)
-    launches["flash_attention_sm90"] += train_launches["flash_attention_sm90"]
-    launches["moe_gather"] += train_launches["moe_gather"]
-    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
-    launches["flash_attention_bwd_f32"] = train_launches["flash_attention_bwd_f32"]
-    launches["moe_gather_bwd"] = train_launches["moe_gather_bwd"]
-    rows["flash_attention_bwd"] = train_rows["flash_attention_bwd_qwen3"]
-    rows["flash_attention_bwd_f32"] = train_rows["flash_attention_bwd_qwen3_f32"]
-    rows["moe_gather_bwd"] = train_rows["moe_gather_bwd"]
-
-    # -- 6. summary ----------------------------------------------------------
+def summary(rows: dict, launches: dict, family_rows: dict, f32_tile: int, f32_decode: int,
+            train_rows: dict) -> list:
+    """The kernels line: each kernel of the run's phases with its row (the
+    one its phase timed) and its launches on the main path."""
     meta = {
         "shuffle_reduce": ("src/repro_torch/csrc/shuffle_reduce.cu",
                            "src/repro/kernels/shuffle_reduce.py:146"),
@@ -4775,7 +4870,10 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        row = rows["flash_attention_decode_qwen3" if name == "flash_decode" else name]
+        key = "flash_attention_decode_qwen3" if name == "flash_decode" else name
+        if key not in rows or name not in launches:  # a phase --phases left out
+            continue
+        row = rows[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": row["max_abs_err"],
@@ -4824,12 +4922,7 @@ def main() -> int:
                                 "timing": ("device" if row.get("device_timing") == "profiler"
                                            else "events"),
                                 "splits": row["decode"]["splits"]})
-    log({"phase": "done", "elapsed_s": time.perf_counter() - t_start,
-         "profiler": PROFILE_WINDOWS})
-    log({"kernels": kernels})
-    log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                "count": torch.cuda.device_count()}})
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -66,6 +66,11 @@
 //    not inside the second. The first B x Hkv blocks take the last query
 //    tile of each kv head, and so on down, so the tiles with the most keys
 //    start first.
+// Asked for it (FlashAttentionFn under a gradient), the tile route also
+// writes each row's log-sum-exp for the backward (csrc/flash_attention_bwd.cu)
+// in the log2 domain its softmax runs in: m + log2(l) of the row's running
+// max and sum, +inf for a row that saw no key. The output's arithmetic is
+// the same either way, and so are its bits.
 // Shared memory (floats: BM Dh of Q, two stages x BN Dh each of K and V,
 // BN (BM + 4) of P) and tiles per Dh: up to Dh 128 BM = 128, BN = 64
 // (R = 8, C = 4; 230,400 bytes at Dh 128, one block an SM); at Dh 256
@@ -221,7 +226,8 @@ __device__ __forceinline__ int keys_hi(int p, int off, int lk, int causal) {
 template <int DK, int DV, bool kSmall>
 __global__ void __launch_bounds__(kTileThreads, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int n_heads,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int n_heads,
                        int n_kv_heads, int n_bh, int lq, int lk, Strides sq, Strides sk,
                        Strides sv, Strides so, int dqk, int dv, int causal, int window,
                        float scale_log2) {
@@ -400,6 +406,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int o = kGroups / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     const int g = g0 + rg + kGroups * i;
     if (g >= rows_total) continue;
+    if (lse != nullptr && cg == 0)  // log2 domain; +inf for a row that saw no key
+      lse[(static_cast<int64_t>(b) * n_heads + kvh * group + g % group) * lq + g / group] =
+          sum > 0.f ? m[i] + log2f(sum) : INFINITY;
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     float* o_row = out + b * so.b + (kvh * group + g % group) * so.h +
                    static_cast<int64_t>(g / group) * so.l;
@@ -417,7 +426,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DK, int DV, bool kSmall>
 static cudaError_t launch_tile(const float* q, const float* k, const float* v, float* out,
-                               int batch, int n_heads, int n_kv_heads, int lq, int lk,
+                               float* lse, int batch, int n_heads, int n_kv_heads, int lq, int lk,
                                int dqk, int dv, const Strides* st, int causal, int window,
                                float scale, cudaStream_t stream) {
   using T = Tile<DK, DV, kSmall>;
@@ -441,7 +450,7 @@ static cudaError_t launch_tile(const float* q, const float* k, const float* v, f
     raised.fetch_or(bit, std::memory_order_release);
   }
   flash_attention_kernel<DK, DV, kSmall><<<static_cast<unsigned>(blocks), kTileThreads, smem, stream>>>(
-      q, k, v, out, n_heads, n_kv_heads, static_cast<int>(n_bh), lq, lk, st[0], st[1], st[2],
+      q, k, v, out, lse, n_heads, n_kv_heads, static_cast<int>(n_bh), lq, lk, st[0], st[1], st[2],
       st[3], dqk, dv, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -478,20 +487,20 @@ static bool pick(int dqk, int dv, int* widths) {
 }
 
 static cudaError_t launch(int dqk, int dv, int row_tile, const float* q, const float* k,
-                          const float* v, float* out, int batch, int n_heads, int n_kv_heads,
-                          int lq, int lk, const Strides* st, int causal, int window, float scale,
-                          cudaStream_t stream) {
+                          const float* v, float* out, float* lse, int batch, int n_heads,
+                          int n_kv_heads, int lq, int lk, const Strides* st, int causal,
+                          int window, float scale, cudaStream_t stream) {
   int w[2];
   if (!pick(dqk, dv, w)) return cudaErrorInvalidValue;
 #define REPRO_FA_CASE(DK, DV)                                                                \
   if (w[0] == DK && w[1] == DV) {                                                            \
     switch (tile_kind<DK, DV>(row_tile)) {                                                   \
       case 1:                                                                                \
-        return launch_tile<DK, DV, false>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk,  \
-                                          dqk, dv, st, causal, window, scale, stream);       \
+        return launch_tile<DK, DV, false>(q, k, v, out, lse, batch, n_heads, n_kv_heads, lq, \
+                                          lk, dqk, dv, st, causal, window, scale, stream);   \
       case 0:                                                                                \
-        return launch_tile<DK, DV, true>(q, k, v, out, batch, n_heads, n_kv_heads, lq, lk,   \
-                                         dqk, dv, st, causal, window, scale, stream);        \
+        return launch_tile<DK, DV, true>(q, k, v, out, lse, batch, n_heads, n_kv_heads, lq,  \
+                                         lk, dqk, dv, st, causal, window, scale, stream);    \
       default:                                                                               \
         return cudaErrorInvalidValue;                                                        \
     }                                                                                        \
@@ -856,10 +865,14 @@ static cudaError_t launch_decode(int dqk, int dv, int row_tile, const float* q, 
 // is the query rows a block holds, the large or the small tile of the
 // pair's instantiation (Tile<DK, DV, kSmall>::BM; any other value is
 // cudaErrorInvalidValue). Returns cudaGetLastError() after the launch (0
-// on success).
+// on success). lse: null, or float32 [B, H, Lq] contiguous, into which the
+// kernel writes each row's log-sum-exp as the backward takes it
+// (csrc/flash_attention_bwd.cu): log2 domain of the scaled scores, m +
+// log2(l) of the row's running max and sum, +inf for a row that sees no
+// key. The output's bits are the same with and without it.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int batch, int n_heads, int n_kv_heads, int lq, int lk,
-                                     int dqk, int dv, const int64_t* strides, int causal,
+                                     void* lse, int batch, int n_heads, int n_kv_heads, int lq,
+                                     int lk, int dqk, int dv, const int64_t* strides, int causal,
                                      int window, float scale, int row_tile, void* stream) {
   using namespace repro_fa;
   if (batch <= 0 || lq <= 0) return cudaSuccess;
@@ -867,8 +880,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   Strides st[4];
   for (int t = 0; t < 4; ++t) st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   return launch(dqk, dv, row_tile, static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<float*>(out), batch, n_heads,
-                n_kv_heads, lq, lk, st, causal, window, scale, static_cast<cudaStream_t>(stream));
+                static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
+                batch, n_heads, n_kv_heads, lq, lk, st, causal, window, scale,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The decode route: the same arguments as repro_flash_attention, then

@@ -52,11 +52,17 @@ kernels: ``rowsum(dO o O)``, then dK/dV per key tile, then dQ per query
 tile, every product on the tensor cores through ``wgmma``, tiles by TMA),
 which takes each row's log-sum-exp from the forward: the bf16 forward
 under :class:`FlashAttentionFn` asks the tensor-core kernel for it and
-saves it. float32 runs ``csrc/flash_attention_bwd.cu`` (the same three
-kernels on the CUDA cores in float32 FFMA, the first recomputing the
-log-sum-exp). Each source has its own width table (:func:`bwd_widths`). On
-the CPU the plain twin :func:`.ref.flash_attention_bwd_ref`. Without a
-gradient nothing records a graph.
+saves it. float32 runs ``csrc/flash_attention_bwd.cu`` (three kernels on
+the CUDA cores in float32 FFMA: delta; dK, dV and each key tile's part of
+dQ per 64 keys, register-blocked, the query tiles through two cp.async
+stages (:func:`bwd_tiles`); the parts summed in key-tile order), which
+takes the log-sum-exp that the float32 tile route writes when
+:class:`FlashAttentionFn` asks for it. Both log-sum-exps are in the log2
+domain of the scaled scores. A direct call without ``lse`` runs the
+forward's lse route first. Each source has its own width table
+(:func:`bwd_widths`). On the CPU the plain twin
+:func:`.ref.flash_attention_bwd_ref`. Without a gradient nothing records a
+graph.
 """
 from __future__ import annotations
 
@@ -119,14 +125,15 @@ TILE_GROUPS = 16
 # batch, heads, kv_heads, lq, lk, dqk, dv, strides, causal, window, scale
 _SHAPE = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 2 + [
     ctypes.c_float]
-# q, k, v, out (and for sm90 lse), the shape, then the tile route's row tile,
-# or the decode route's scratch (partial acc, partial (m, l)), row tile,
-# n_splits, chunk; the stream last
-_COMMON = [ctypes.c_void_p] * 4 + _SHAPE
+# q, k, v, out (and for sm90 and the tile route lse), the shape, then the
+# tile route's row tile, or the decode route's scratch (partial acc, partial
+# (m, l)), row tile, n_splits, chunk; the stream last
 _ARGTYPES = {"sm90": [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_void_p],
-             "cuda_core": _COMMON + [ctypes.c_int, ctypes.c_void_p],
-             "decode": _COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p]}
+             "cuda_core": [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_int, ctypes.c_void_p],
+             "decode": [ctypes.c_void_p] * 4 + _SHAPE + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+#: the routes whose kernel writes each row's log-sum-exp when asked
+LSE_ROUTES = ("sm90", "cuda_core")
 
 
 def _route(q, group: int = 1) -> str:
@@ -351,6 +358,15 @@ def bwd_widths(dqk: int, dv: int, dtype: torch.dtype) -> Tuple[int, int]:
     return out[0], out[1]
 
 
+def bwd_tiles(dk: int) -> Tuple[int, int]:
+    """``(keys, rows)`` of the float32 backward at the instantiation of
+    Q/K width ``dk`` (``csrc/flash_attention_bwd.cu``, ``Shape<DK, DV>``):
+    each of its blocks holds ``keys`` keys (a key tile, whose part of dQ it
+    writes) and streams query tiles of ``rows`` rows. A thread holds 4 keys
+    against ``rows / 16`` query rows: 4 up to 128, 2 at 192."""
+    return 64, 16 * (4 if dk <= 128 else 2)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its last dim is contiguous and its base and every
     other stride are positive multiples of 16 bytes (the kernels' 16-byte
@@ -409,15 +425,16 @@ def _forward(q, k, v, causal: bool, window: int, scale: float) -> torch.Tensor:
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a gradient: the forward is :func:`flash_attention`'s
-    route, which saves q, k, v and the output (and on the tensor-core route
-    each row's log-sum-exp, which the kernel then writes beside the output),
-    the backward :func:`flash_attention_bwd`. Arguments: ``(q, k, v,
-    causal, window, scale)``, the scale resolved."""
+    route, which saves q, k, v and the output (and on the tensor-core and
+    float32 tile routes each row's log-sum-exp, which the kernel then
+    writes beside the output), the backward :func:`flash_attention_bwd`.
+    Arguments: ``(q, k, v, causal, window, scale)``, the scale resolved."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
-        if _route(q, q.shape[1] // k.shape[1]) == "sm90":
-            out, lse = _launch("sm90", q, k, v, causal, window, scale, with_lse=True)
+        route = _route(q, q.shape[1] // k.shape[1])
+        if route in LSE_ROUTES:
+            out, lse = _launch(route, q, k, v, causal, window, scale, with_lse=True)
         else:
             out, lse = _forward(q, k, v, causal, window, scale), None
         ctx.save_for_backward(q, k, v, out, lse)
@@ -440,11 +457,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     H, Lq, Dv]``); each in its input's shape and dtype. A CUDA tensor runs
     ``csrc/flash_attention_bwd_sm90.cu`` (bfloat16) or
     ``csrc/flash_attention_bwd.cu`` (float32) or raises; a CPU tensor the
-    plain twin :func:`.ref.flash_attention_bwd_ref`. ``lse``: the bf16
-    forward's log-sum-exp of each row (float32 ``[B, H, Lq]``, as
-    :class:`FlashAttentionFn` saves it); where it is not given, a bfloat16
-    call on the card first runs the forward with it. float32 and the CPU
-    take none."""
+    plain twin :func:`.ref.flash_attention_bwd_ref`. ``lse``: the
+    forward's log-sum-exp of each row (float32 ``[B, H, Lq]``, log2 domain
+    of the scaled scores, as :class:`FlashAttentionFn` saves it: the
+    tensor-core route's for bfloat16, the tile route's for float32); where
+    it is not given, a call on the card first runs that route with it (a
+    float32 forward on the decode route saves none). The CPU takes none."""
     b, h, lq, dqk = q.shape
     hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
     if out.shape != (b, h, lq, dv) or dout.shape != out.shape:
@@ -464,13 +482,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if max(b * h * lq, b * hkv * lk) >= 2**31:
         raise ValueError("flash_attention_bwd: sizes past int32")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if lse is None:
+        route = "sm90" if q.dtype == torch.bfloat16 else "cuda_core"
+        lse = _launch(route, q, k, v, causal, window, scale, with_lse=True)[1]
+    if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be float32 {(b, h, lq)} "
+                         f"contiguous, got {lse.dtype} {tuple(lse.shape)}")
+    ins = [_aligned(t) for t in (q, k, v, out, dout.to(q.dtype))]
     if q.dtype == torch.bfloat16:
-        if lse is None:
-            lse = _launch("sm90", q, k, v, causal, window, scale, with_lse=True)[1]
-        if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():
-            raise ValueError(f"flash_attention_bwd: lse must be float32 {(b, h, lq)} "
-                             f"contiguous, got {lse.dtype} {tuple(lse.shape)}")
-        ins = [_aligned(t) for t in (q, k, v, out, dout.to(q.dtype))]
         grads = [_grad_like(t) for t in ins[:3]]
         scratch = torch.empty(_bwd_entry("scratch")(b, h, lq), dtype=torch.float32,
                               device=q.device)
@@ -479,12 +498,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                 *(t.data_ptr() for t in grads), scratch.data_ptr()]
         fn = _bwd_entry("sm90")
     else:
-        ins = [t if t.stride(-1) == 1 else t.contiguous()
-               for t in (q, k, v, out, dout.to(q.dtype))]
         grads = [_grad_like(t) for t in ins[:3]]
-        stats = torch.empty(2, b * h * lq, dtype=torch.float32, device=q.device)
-        # q, k, v, out, dout, dq, dk, dv, lse and delta scratch
-        ptrs = [*(t.data_ptr() for t in ins + grads), stats[0].data_ptr(), stats[1].data_ptr()]
+        delta = torch.empty(b * h * lq, dtype=torch.float32, device=q.device)
+        part = torch.empty(_bwd_entry("part")(b, h, lq, lk, dqk, dv), dtype=torch.float32,
+                           device=q.device)
+        # q, k, v, out, dout, dq, dk, dv, lse, the delta and dQ-part scratch
+        ptrs = [*(t.data_ptr() for t in ins + grads), lse.data_ptr(), delta.data_ptr(),
+                part.data_ptr()]
         fn = _bwd_entry("f32")
     strides = (ctypes.c_int64 * 24)(*(s for t in ins + grads for s in t.stride()[:3]))
     rc = fn(*ptrs, b, h, hkv, lq, lk, dqk, dv, strides, int(causal), int(window), scale, stream)
@@ -496,19 +516,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 def _bwd_entry(name: str):
     """A C entry point of the backward sources, its argument types set:
-    ``"sm90"`` and ``"f32"`` launch a backward (ten pointers, the shape,
-    the strides, causal, window, scale, the stream), ``"scratch"`` gives
-    the floats of the bf16 backward's scratch for ``(B, H, Lq)``."""
+    ``"sm90"`` and ``"f32"`` launch a backward (ten or eleven pointers,
+    the shape, the strides, causal, window, scale, the stream),
+    ``"scratch"`` gives the floats of the bf16 backward's scratch for
+    ``(B, H, Lq)``, ``"part"`` those of the f32 backward's dQ parts for
+    ``(B, H, Lq, Lk, Dqk, Dv)``."""
     source, entry = {"sm90": ("flash_attention_bwd_sm90", "repro_flash_attention_bwd_sm90"),
                      "f32": ("flash_attention_bwd", "repro_flash_attention_bwd"),
                      "scratch": ("flash_attention_bwd_sm90",
-                                 "repro_flash_attention_bwd_sm90_scratch")}[name]
+                                 "repro_flash_attention_bwd_sm90_scratch"),
+                     "part": ("flash_attention_bwd", "repro_flash_attention_bwd_part_floats")
+                     }[name]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        if name == "scratch":
-            fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int64
+        if name in ("scratch", "part"):
+            fn.argtypes = [ctypes.c_int] * (3 if name == "scratch" else 6)
+            fn.restype = ctypes.c_int64
         else:
-            fn.argtypes = [ctypes.c_void_p] * 10 + _SHAPE + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * (10 if name == "sm90" else 11) + _SHAPE + [
+                ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return fn
 
@@ -527,10 +553,11 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     :func:`flash_attention` has checked. :func:`flash_attention` passes the
     route :func:`_route` chose; chip_smoke.py also calls it with the other
     float32 route, to time both at one shape. ``with_lse`` (the ``"sm90"``
-    route only, Dv at most 256): return ``(out, lse)``, ``lse`` each row's
-    log-sum-exp as the backward takes it (float32 ``[B, H, Lq]``, log2
-    domain of the scaled scores, +inf for a row that sees no key); the
-    output is the same bits as without it."""
+    route, Dv at most 256, and the float32 tile route ``"cuda_core"``):
+    return ``(out, lse)``, ``lse`` each row's log-sum-exp as the backward
+    takes it (float32 ``[B, H, Lq]``, log2 domain of the scaled scores,
+    +inf for a row that sees no key); the output is the same bits as
+    without it."""
     global LAUNCHES, SM90_LAUNCHES, DECODE_LAUNCHES
     b, h, lq, dh = q.shape
     hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -542,11 +569,11 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if (route == "sm90") != (q.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention: route {route} does not take {q.dtype}")
-    if with_lse and route != "sm90":
-        raise ValueError(f"flash_attention: only the sm90 route gives the log-sum-exp, "
-                         f"asked of {route}")
+    if with_lse and route not in LSE_ROUTES:
+        raise ValueError(f"flash_attention: only the routes {LSE_ROUTES} give the "
+                         f"log-sum-exp, asked of {route}")
     dk, dv_slice = kernel_widths(route, dh, dv)
-    if with_lse and dv > dv_slice:
+    if with_lse and route == "sm90" and dv > dv_slice:
         raise ValueError(f"flash_attention: the log-sum-exp needs Dv <= {dv_slice} (one value "
                          f"slice), got Dv {dv}")
     if max(b * h * lq, lk) >= 2**31:
@@ -558,7 +585,7 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
         return (out, lse) if with_lse else out
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if route == "sm90":
+    if route in LSE_ROUTES:
         ptrs.append(lse.data_ptr() if with_lse else None)
     args = [*ptrs, b, h, hkv, lq, lk, dh, dv, strides, int(causal), int(window), scale]
     if route == "cuda_core":

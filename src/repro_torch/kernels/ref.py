@@ -337,6 +337,67 @@ def flash_attention_bwd_sm90_ref(q, k, v, out, dout, lse, causal: bool = True, w
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_simt_ref(q, k, v, out, dout, lse, causal: bool = True, window: int = 0,
+                                 scale: Optional[float] = None, *, keys: int = 64,
+                                 rows: int = 64, fault: Optional[str] = None):
+    """``(dq, dk, dv)`` as ``csrc/flash_attention_bwd.cu`` computes them in
+    float32, taken in its steps, for the tests and chip_smoke.py. P comes
+    from the forward's ``lse`` (log2 domain, :func:`attention_lse_ref`),
+    ``exp2(scale * log2(e) * q.k - lse)`` where visible, else 0; ``delta =
+    rowsum(dO o O)``, ``dS = P o (dP - delta)``. Each block of ``keys``
+    keys of a kv head walks the query tiles of ``rows`` rows that see any of
+    its keys, the group's heads in order and each head's tiles in order,
+    summing ``P^T dO`` into dV and ``dS^T Q`` into dK (scaled once at the
+    end), and writes its part ``dS K`` of each tile's dQ; dQ of a row is
+    ``scale`` times the parts of the key tiles its query tile meets, summed
+    in key-tile order (:func:`.flash_attention.bwd_tiles` gives both
+    sizes). Each gradient in its input's dtype and shape.
+    ``fault="lse_row"``: each row reads the next row's lse (a row statistic
+    copied one row off), the fault the tests' control must catch."""
+    b, h, lq, dqk = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(dqk) if scale is None else scale
+    off = lk - lq
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    lse = lse.float()
+    if fault == "lse_row":
+        lse = torch.cat([lse[..., 1:], lse[..., -1:]], dim=-1)
+    elif fault is not None:
+        raise ValueError(f"flash_attention_bwd_simt_ref: unknown fault {fault!r}")
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (kf, vf))
+    x = _masked_logits(qf, kr, causal, window)
+    p = torch.where(torch.isfinite(x), torch.exp2(x * (scale * LOG2E) - lse[..., None]),
+                    torch.zeros_like(x))
+    delta = (gf * out.float()).sum(dim=-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vr) - delta[..., None])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in range(0, lk, keys):  # (b) dK and dV of each key tile
+        k1 = min(k0 + keys, lk)
+        i_lo = max(0, k0 - off) if causal else 0
+        i_hi = min(lq, k1 - 1 + window - off) if window > 0 else lq
+        acc_k = torch.zeros(b, hkv, k1 - k0, dqk, device=q.device)
+        acc_v = torch.zeros(b, hkv, k1 - k0, vf.shape[-1], device=q.device)
+        for gi in range(group if i_lo < i_hi else 0):
+            heads = slice(gi, h, group)  # head gi of every kv head's group
+            for r0 in range((i_lo // rows) * rows, i_hi, rows):
+                rs = slice(r0, min(r0 + rows, lq))
+                acc_v += torch.einsum("bhqk,bhqd->bhkd", p[:, heads, rs, k0:k1], gf[:, heads, rs])
+                acc_k += torch.einsum("bhqk,bhqd->bhkd", ds[:, heads, rs, k0:k1], qf[:, heads, rs])
+        dk[:, :, k0:k1], dv[:, :, k0:k1] = acc_k * scale, acc_v
+    dq = torch.zeros_like(qf)
+    for r0 in range(0, lq, rows):  # (c) dQ: the key tiles' parts, in order
+        r1 = min(r0 + rows, lq)
+        lo = max(0, off + r0 - window + 1) if window > 0 else 0
+        hi = min(lk, off + r1) if causal else lk
+        acc = torch.zeros(b, h, r1 - r0, dqk, device=q.device)
+        for k0 in range((lo // keys) * keys, hi if lo < hi else 0, keys):
+            ks = slice(k0, min(k0 + keys, lk))
+            acc += torch.einsum("bhqk,bhkd->bhqd", ds[:, :, r0:r1, ks], kr[:, :, ks])
+        dq[:, :, r0:r1] = acc * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_sm90_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, window: int = 0,
                              scale: Optional[float] = None, *, block_rows: int = 128,
@@ -525,8 +586,8 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, window: int = 0, *, bm: int, bn: int,
-                             rescale: bool = True,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             rescale: bool = True, scale: Optional[float] = None,
+                             with_lse: bool = False):
     """The float32 tile route's schedule in plain PyTorch, for the CPU
     tests: what :func:`flash_attention_ref` computes, taken in the kernel's
     steps. A kv head's ``group x Lq`` query rows are numbered
@@ -538,7 +599,11 @@ def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``l`` and ``acc`` by ``exp(m_old - m_new)``, then ``P`` and ``P V``; a
     row that sees no key comes out 0. ``rescale=False`` leaves out the
     rescale (a fault: tiles taken against different maxima are mixed), the
-    fault control of ``chip_smoke.py``."""
+    fault control of ``chip_smoke.py``. ``with_lse``: return ``(out,
+    lse)``, ``lse`` each row's log-sum-exp as the kernel writes it for the
+    backward, ``m + log2(l)`` of the row's running max and sum in the log2
+    domain of the scaled scores (the natural ones here times log2(e)),
+    ``+inf`` for a row that sees no key, float32 ``[B, H, Lq]``."""
     from .flash_attention import key_tiles  # the wrapper imports this module
 
     b, h, lq, dh = q.shape
@@ -549,6 +614,7 @@ def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos = torch.arange(rows, device=q.device) // group + (lk - lq)
     dv = v.shape[-1]
     out = torch.zeros(b, hkv, rows, dv, device=q.device)
+    lse = torch.full((b, hkv, rows), float("inf"), device=q.device)
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     for tile in range(-(-rows // bm)):
         r0, r1 = tile * bm, min((tile + 1) * bm, rows)
@@ -575,7 +641,11 @@ def flash_attention_tile_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, k0:k1])
             m = m_new
         out[:, :, r0:r1] = acc / l_sum.clamp_min(1e-30)[..., None]
-    return out.reshape(b, hkv, lq, group, dv).transpose(2, 3).reshape(b, h, lq, dv).to(q.dtype)
+        lse[:, :, r0:r1] = torch.where(l_sum > 0, m * LOG2E + torch.log2(l_sum), lse[:, :, r0:r1])
+    out = out.reshape(b, hkv, lq, group, dv).transpose(2, 3).reshape(b, h, lq, dv).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, lse.reshape(b, hkv, lq, group).transpose(2, 3).reshape(b, h, lq)
 
 
 def moe_gather_ref(

@@ -25,6 +25,8 @@ from repro.kernels import ops as ref_ops
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention as fa
 
+from _csrc import defined as _defined, returned as _returned
+
 SOURCE = (_build.CSRC / "flash_attention_sm90.cu").read_text()
 SMEM_LIMIT = 232448  # shared memory a block may use on sm_90 (227 KB)
 TOL = 3e-2  # bf16's tolerance, the reference tests'
@@ -44,39 +46,6 @@ def _widths():
 
 
 WIDTHS = _widths()
-
-
-def _c_eval(expr: str, env: dict) -> int:
-    """An integer constant expression of the source (``+ - * /``,
-    comparisons, ``&&``, ``||``, ``?:``, ``A::b`` names read as ``A_b``)
-    evaluated over ``env``, whatever its layout."""
-    e = " ".join(expr.replace("::", "_").split())
-    depth = 0
-    for i, ch in enumerate(e):
-        depth += (ch == "(") - (ch == ")")
-        if ch == "?" and depth == 0:
-            rest, d, nest = e[i + 1:], 0, 0
-            for j, c in enumerate(rest):
-                d += (c == "(") - (c == ")")
-                if d == 0 and c == "?":
-                    nest += 1
-                elif d == 0 and c == ":":
-                    if nest == 0:
-                        return _c_eval(rest[:j] if _c_eval(e[:i], env) else rest[j + 1:], env)
-                    nest -= 1
-    py = e.replace("&&", " and ").replace("||", " or ").replace("/", "//")
-    return int(eval(py, {"__builtins__": {}}, dict(env)))
-
-
-def _defined(text: str, name: str, **env) -> int:
-    """The value of ``name = <expr>;`` in ``text`` (its first definition)."""
-    return _c_eval(re.search(rf"\b{name}\s*=\s*([^;]+);", text).group(1), env)
-
-
-def _returned(text: str, fn: str, **env) -> int:
-    """The value of the one-line function ``fn``'s return expression."""
-    body = re.search(rf"\b{fn}\s*\([^)]*\)\s*\{{\s*return\s+([^;]+);", text)
-    return _c_eval(body.group(1), env)
 
 
 K_ROWS = _defined(SOURCE, "kRows")

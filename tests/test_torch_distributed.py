@@ -452,21 +452,35 @@ def test_streaming_repair_equals_a_full_distributed_run(name, params, weighted):
 SERVED = {"bfs": "BFS_ECP", "sssp": "SSSP", "pagerank": "PAGERANK"}
 
 
+#: a batch's fill wait long enough that each group's requests form one
+#: batch in both services, whatever the host's load
+FILL_WAIT_S = 60.0
+
+
 def test_distributed_service_answers_as_the_local_one():
+    """Each program's requests, served as one batch by a distributed and a
+    local service, give the same answers and stats. A result's stats are
+    those of the batch that answered it (a batch runs until its last lane
+    converges; BFS_ECP batches take MS-BFS), so both services get
+    ``max_batch`` equal to the group's size and a long fill wait: a batch
+    closes when the whole group has arrived, not at a timer that a loaded
+    host may pass between two submissions."""
     g = ref_generators.uniform_random(240, 1500, weighted=True, seed=11)
     g = repro_torch.graph_from_arrays(g.n_vertices, g.src, g.dst, g.weights)
     cases = {"bfs": [{"root": r} for r in (0, 5, 9)], "sssp": [{"root": 1}, {"root": 4}],
              "pagerank": [{"iters": 4}, {"iters": 7}]}
-    with repro_torch.serve(False, backend="distributed", device="cpu", workers=2,
-                           max_batch=4) as dist, \
-            repro_torch.serve(False, device="cpu", workers=2, max_batch=4) as local:
-        for name, sets in cases.items():
+    for name, sets in cases.items():
+        with repro_torch.serve(False, backend="distributed", device="cpu", workers=2,
+                               max_batch=len(sets), max_wait_s=FILL_WAIT_S) as dist, \
+                repro_torch.serve(False, device="cpu", workers=2, max_batch=len(sets),
+                                  max_wait_s=FILL_WAIT_S) as local:
             futs = [(dist.submit(name, g, **p), local.submit(name, g, **p)) for p in sets]
             for f_d, f_l in futs:
                 got, want = f_d.result(timeout=TIMEOUT), f_l.result(timeout=TIMEOUT)
                 _assert_parity(SERVED[name], want, got, name)
-        keys = list(dist.registry._residents)
-        assert keys and all(k[1].kind == "distributed" for k in keys)
+            keys = list(dist.registry._residents)
+            assert keys and all(k[1].kind == "distributed" for k in keys)
+            assert dist.stats()["batches"]["batches"] == local.stats()["batches"]["batches"] == 1
 
 
 def test_cli_backend_distributed(tmp_path, capsys):

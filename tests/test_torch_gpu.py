@@ -1669,15 +1669,16 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, dtype):
 
 
 #: sha256 of (dq, dk, dv) of the float32 backward at BWD_SHAPES[2] (seed
-#: 0), as csrc/flash_attention_bwd.cu gave them before its bfloat16
-#: instantiations went to the tensor-core source (H100 80GB HBM3)
-F32_BWD_DIGEST = "06858758441196697b6c09ccdf79ca94134c1b12baa7dfc5fa05cf7b1ca81c99"
+#: 0), as csrc/flash_attention_bwd.cu gives them since its redesign (the
+#: forward's lse, register-blocked tiles; H100 80GB HBM3): a change that
+#: moves its bits must say so here
+F32_BWD_DIGEST = "f90437b108bfbaa9ab2bd6ed0c6bdc23537bbfd404e61257a6ee1e5ea9dcfe7b"
 
 
 @pytest.mark.gpu
 def test_cuda_flash_attention_bwd_f32_keeps_its_bits(cuda):
-    """The float32 backward gives the bits it gave before the bf16 route
-    moved out of its source, twice."""
+    """The float32 backward gives the bits pinned for its summation order,
+    twice."""
     import hashlib
 
     q, k, v, out, dout, causal, window = _bwd_inputs(BWD_SHAPES[2], torch.float32, cuda)
@@ -1688,6 +1689,77 @@ def test_cuda_flash_attention_bwd_f32_keeps_its_bits(cuda):
             h.update(g.cpu().numpy().tobytes())
         digests.append(h.hexdigest())
     assert digests == [F32_BWD_DIGEST] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) +
+                         ("-causal" if s[7] else "-bidir") + (f"-w{s[8]}" if s[8] else ""))
+def test_cuda_flash_attention_bwd_f32_follows_its_schedule(cuda, shape):
+    """The float32 backward (csrc/flash_attention_bwd.cu) given the tile
+    route's lse, at every instantiation: within 1e-4 of the plain twin's
+    scale, the same bits twice and as a call that runs the forward for its
+    lse, and within 2e-5 of its schedule's model
+    (ref.flash_attention_bwd_simt_ref at the source's tiles: the same sums
+    in the same tile order, each tile's own sum in another order)."""
+    b, h, hkv, lq, lk, dqk, dv, causal, window = shape
+    q, k, v, out, dout, _, _ = _bwd_inputs(shape, torch.float32, cuda)
+    scale = 1.0 / math.sqrt(dqk)
+    out, lse = fa._launch("cuda_core", q, k, v, causal, window, scale, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, causal, window, lse=lse)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, causal, window)
+    keys, rows = fa.bwd_tiles(fa.bwd_widths(dqk, dv, torch.float32)[0])
+    model = ref.flash_attention_bwd_simt_ref(q, k, v, out, dout, lse, causal, window,
+                                             keys=keys, rows=rows)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window)
+    for name, a, b_, m, w in zip("qkv", got, again, model, want):
+        assert torch.equal(a, b_), name
+        g = max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= 1e-4 * g, name
+        assert float((a - m).abs().max()) <= 2e-5 * g, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) +
+                         ("-causal" if s[7] else "-bidir") + (f"-w{s[8]}" if s[8] else ""))
+def test_cuda_f32_tile_route_lse_keeps_output_bits(cuda, shape):
+    """The float32 tile route asked for its log-sum-exp writes the same
+    output bits as without it, in both of its tiles; the lse is the plain
+    one (log2 domain) within float32 rounding, +inf for a row with no key."""
+    b, h, hkv, lq, lk, dqk, dv, causal, window = shape
+    q, k, v, _, _, _, _ = _bwd_inputs(shape, torch.float32, cuda)
+    scale = 1.0 / math.sqrt(dqk)
+    plain_out = fa._launch("cuda_core", q, k, v, causal, window, scale)
+    out, lse = fa._launch("cuda_core", q, k, v, causal, window, scale, with_lse=True)
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (b, h, lq) and lse.dtype == torch.float32
+    want = ref.attention_lse_ref(q, k, causal, window)
+    live = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), live) and bool((lse[~live] == math.inf).all())
+    if bool(live.any()):
+        err = float((lse[live] - want[live]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want[live].abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq", [200, 1])
+def test_cuda_flash_attention_fn_f32_saves_lse(cuda, lq):
+    """FlashAttentionFn in float32: on the tile route the forward writes
+    its lse and the backward takes it (one forward launch, one backward);
+    a decode-route forward (one query row) saves none, so the backward
+    first runs the tile route for it. The gradients equal the plain
+    twin's within 1e-4 of their scale."""
+    gen = torch.Generator().manual_seed(5)
+    base = [torch.randn(2, n, lq if n == 8 else 300, 64, generator=gen) for n in (8, 2, 2)]
+    leaves = [t.to(cuda).requires_grad_(True) for t in base]
+    fa.LAUNCHES, fa.DECODE_LAUNCHES, fa.BWD_LAUNCHES = 0, 0, 0
+    out = fa.flash_attention(*leaves)
+    dout = torch.randn(out.shape, generator=gen).to(cuda)
+    out.backward(dout)
+    decode = 1 if lq == 1 else 0
+    assert (fa.LAUNCHES, fa.DECODE_LAUNCHES, fa.BWD_LAUNCHES) == (1 + decode, decode, 1)
+    want = ref.flash_attention_bwd_ref(*(t.detach() for t in leaves), out.detach(), dout)
+    for leaf, w in zip(leaves, want):
+        assert float((leaf.grad - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
 
 
 @pytest.mark.gpu

@@ -369,12 +369,14 @@ def test_flash_attention_bwd_sources_keep_their_contract():
 
 
 def test_flash_attention_lse_only_from_the_tensor_core_route():
-    """Only the bf16 forward writes the log-sum-exp the backward takes: a
-    float32 route asked for it raises before it reaches a kernel."""
+    """Only the routes whose kernel writes the log-sum-exp the backward
+    takes give it: the bf16 tensor-core route and the float32 tile route.
+    The float32 decode route asked for it raises before it reaches a
+    kernel."""
+    assert fa.LSE_ROUTES == ("sm90", "cuda_core")
     t = torch.zeros(1, 2, 4, 32)
-    for route in ("cuda_core", "decode"):
-        with pytest.raises(ValueError, match="log-sum-exp"):
-            fa._launch(route, t, t, t, True, 0, with_lse=True)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa._launch("decode", t, t, t, True, 0, with_lse=True)
 
 
 def test_flash_attention_alignment_is_counted_in_bytes():
