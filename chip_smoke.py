@@ -384,6 +384,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: the ptxas entries of csrc/flash_attention.cu, as the build phase read them
+FA_PTXAS: list = []
 PROFILE_TRIES = 3  # profiled windows a measurement may take before it times with events
 #: every profiled window of the run and those that missed kernels (window
 #: index, kernel events seen), printed in the ``done`` line; ``stale``: the
@@ -1393,8 +1395,7 @@ def _attention_row(fa, ref, q, k, v, causal: bool, pairs: int, plain_iters: int,
         r, tiles, n, chunk = fa.decode_plan(b, k.shape[1], h // k.shape[1] * lq, k.shape[2],
                                             fa.kernel_widths(route, dh, dv)[0], fa._sm_count(0))
         row["decode"] = {"row_tile": r, "row_tiles": tiles, "splits": n, "chunk": chunk,
-                         "blocks": b * k.shape[1] * tiles * n,
-                         "kernels_per_call": 1 if n == 1 else 2}
+                         "blocks": b * k.shape[1] * tiles * n}
     row["bound_share"] = b_ms / row["kernel_ms"]
     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
     if device_side:
@@ -1508,33 +1509,33 @@ def lm_main_shape_kernels(fa, md, ref, moe_mod, cfg, dev: str) -> dict:
 
 
 def decode_resources(ptxas: list, dh: int, rows: int) -> dict:
-    """``ptxas`` registers and spills of the float32 decode route's kernels
-    at widths ``dh`` (keys and values) and row tile ``rows`` (the decode
-    kernel's template arguments) and of its combine."""
+    """``ptxas`` registers and spills of the float32 decode route's kernel
+    at the instantiation of widths ``dh`` (keys and values) and row tile
+    ``rows`` (its template arguments); the last block of a row tile folds
+    the splits, so there is no second kernel."""
     if not ptxas:  # a cached build prints no ptxas log
         return {"registers": "not measured: the build was cached"}
-
-    def pick(match):
-        hits = [r for r in ptxas if match(r["entry"])]
-        assert len(hits) == 1, f"ptxas: {len(hits)} entries match"
-        r = hits[0]
-        return {"entry": r["entry"], "registers": r.get("registers"),
-                "spill_store_bytes": r.get("spill_store_bytes"),
-                "spill_load_bytes": r.get("spill_load_bytes"),
-                "theoretical_occupancy": register_occupancy(r["registers"])
-                if "registers" in r else None}
-
-    return {"decode_kernel": pick(lambda e: "flash_decode_kernel" in e
-                                  and f"ILi{dh}ELi{dh}ELi{rows}EE" in e),
-            "combine_kernel": pick(lambda e: "flash_decode_combine_kernel" in e)}
+    hits = [r for r in ptxas if "flash_decode_kernel" in r["entry"]
+            and f"ILi{dh}ELi{dh}ELi{rows}EE" in r["entry"]]
+    assert len(hits) == 1, f"ptxas: {len(hits)} entries match"
+    r = hits[0]
+    return {"decode_kernel": {
+        "entry": r["entry"], "registers": r.get("registers"),
+        "spill_store_bytes": r.get("spill_store_bytes"),
+        "spill_load_bytes": r.get("spill_load_bytes"),
+        "theoretical_occupancy": register_occupancy(r["registers"])
+        if "registers" in r else None}}
 
 
-def split_rescale_control(fa, ref, q, k, v) -> dict:
-    """A fault control for the float32 check at a decode shape cut into
-    splits: the decode route's schedule in plain PyTorch
-    (``ref.flash_attention_split_ref``, the splits and layout the wrapper
-    takes), once as the kernel folds the splits and once without their
-    exp(m_s - m) weights. The sound one must pass ``check_close``'s
+def decode_control(fa, ref, q, k, v, fault: str, scale: float = None) -> dict:
+    """A fault control for the float32 check at a decode-route shape: the
+    decode route's schedule in plain PyTorch (``ref.flash_attention_split_ref``,
+    with the splits and layout the wrapper takes), once as the kernel folds
+    and once with ``fault``: ``"no_split_rescale"`` folds the splits
+    without their exp(m_s - m) weights, ``"lost_split"`` leaves the last
+    split out of the fold (a last block that folds before every split has
+    written), ``"no_unit_rescale"`` leaves out a team's rescale where a
+    unit raises its max. The sound one must pass ``check_close``'s
     tolerance and the faulty one must fail it, so that the check is shown
     able to fail at this shape in this run."""
     b, h, lq, dh = q.shape
@@ -1542,57 +1543,81 @@ def split_rescale_control(fa, ref, q, k, v) -> dict:
     dk = fa.kernel_widths("decode", dh, v.shape[3])[0]
     _, _, n, chunk = fa.decode_plan(b, hkv, h // hkv * lq, lk, dk, fa._sm_count(0))
     _, teams, unit = fa.decode_layout(dk)
-    assert n > 1, "the control needs a shape the wrapper cuts into splits"
-    want = ref.flash_attention_ref(q, k, v, True)
+    assert n > 1 or fault == "no_unit_rescale", "the control needs a shape cut into splits"
+    want = ref.flash_attention_ref(q, k, v, True, scale=scale)
     tol = FA_TOL[torch.float32]
-    out = {"splits": n, "chunk": chunk, "tol": tol}
-    for name, rescale in (("model", True), ("no_split_rescale", False)):
+    out = {"splits": n, "chunk": chunk, "teams": teams, "unit": unit, "tol": tol}
+    bad = {"no_split_rescale": {"rescale": False}}.get(fault, {"broken": fault})
+    for name, kwargs in (("model", {}), (fault, bad)):
         got = ref.flash_attention_split_ref(q, k, v, True, n_splits=n, chunk=chunk, teams=teams,
-                                            unit=unit, rescale=rescale)
+                                            unit=unit, scale=scale, **kwargs)
         out[f"{name}_max_abs_err"] = float((got - want).abs().max())
         out[f"{name}_passes"] = bool(torch.allclose(got, want, rtol=tol, atol=tol))
     assert out["model_passes"], f"the decode schedule's model fails the check: {out}"
-    assert not out["no_split_rescale_passes"], f"the rescale control passes the check: {out}"
+    assert not out[f"{fault}_passes"], f"the {fault} control passes the check: {out}"
     return out
 
 
 def tile_resources(ptxas: list, fa) -> list:
     """``ptxas`` registers and spills of every instantiation of the float32
-    tile route (widths DK and DV, large or small tile), with the dynamic
-    shared memory its launch asks for (the wrapper's count, which a CPU
-    test holds to the source's ``Tile`` constants). A spill where both
-    widths are at most 128 fails the run."""
+    tile route (widths DK and DV, large, mid or small form), with its
+    threads, the dynamic shared memory its launch asks for (the wrapper's
+    count, which a CPU test holds to the source's ``Tile`` constants) and
+    the blocks an SM holds at once (the CUDA runtime's occupancy for its
+    registers, threads and shared memory). A spill where both widths are
+    at most 128 fails the run."""
     rows = [r for r in ptxas if "flash_attention_kernel" in r["entry"]]
     if not rows:  # a cached build prints no ptxas log
         return [{"registers": "not measured: the build was cached"}]
     out = []
     for r in rows:
-        dqk, dv, small = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", r["entry"]).groups()
-        dqk, dv, small = int(dqk), int(dv), small == "1"
-        bm, bn = fa.tile_shape(dqk, small)
-        smem = fa.tile_smem_bytes(dqk, small, dv)
+        dqk, dv, form = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)ELi([012])EE",
+                                                   r["entry"]).groups())
+        form = fa.TILE_FORMS[form]
+        bm, bn = fa.tile_shape(dqk, form)
         spills = r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
         assert max(dqk, dv) > 128 or spills == 0, f"tile route spills at {dqk, dv}: {r}"
-        out.append({"dh": dqk, "dv": dv, "row_tile": bm, "key_tile": bn,
-                    "registers": r.get("registers"),
+        out.append({"dh": dqk, "dv": dv, "form": form, "threads": fa.tile_threads(form),
+                    "row_tile": bm, "key_tile": bn, "registers": r.get("registers"),
                     "spill_store_bytes": r.get("spill_store_bytes"),
-                    "spill_load_bytes": r.get("spill_load_bytes"), "dynamic_smem_bytes": smem})
+                    "spill_load_bytes": r.get("spill_load_bytes"),
+                    "dynamic_smem_bytes": fa.tile_smem_bytes(dqk, form, dv),
+                    "blocks_per_sm": fa.tile_occupancy(dqk, dv, bm)})
     return sorted(out, key=lambda x: (x["dh"], x["dv"], -x["row_tile"]))
 
 
-def tile_facts(fa, q, k) -> dict:
-    """The tile route's plan for q over k (values as wide as the keys):
-    rows a block holds, keys a tile, tiles a kv head, blocks, and the
-    block's shared memory."""
+def decode_kernels(ptxas: list) -> list:
+    """``ptxas`` registers and spills of every instantiation of the float32
+    decode route (widths, row tile)."""
+    out = []
+    for r in ptxas:
+        if "flash_decode_kernel" not in r["entry"]:
+            continue
+        dqk, dv, rows = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)EE",
+                                                   r["entry"]).groups())
+        out.append({"dh": dqk, "dv": dv, "row_tile": rows, "registers": r.get("registers"),
+                    "spill_store_bytes": r.get("spill_store_bytes"),
+                    "spill_load_bytes": r.get("spill_load_bytes")})
+    return sorted(out, key=lambda x: (x["dh"], x["row_tile"]))
+
+
+def tile_facts(fa, q, k, v=None) -> dict:
+    """The tile route's plan for q over k and v (``None``: values as wide
+    as the keys): its form, threads, rows a block holds, keys a tile,
+    tiles a kv head, blocks, the block's shared memory and the blocks an
+    SM holds at once."""
     b, h, lq, dh = q.shape
     hkv = k.shape[1]
-    dk, dv = fa.kernel_widths("cuda_core", dh, dh)
+    dk, dv = fa.kernel_widths("cuda_core", dh, dh if v is None else v.shape[3])
     bm, bn, tiles = fa.tile_plan(b, hkv, h // hkv * lq, dk, fa._sm_count(0))
-    return {"row_tile": bm, "key_tile": bn, "tiles": tiles, "blocks": b * hkv * tiles,
-            "smem_bytes": fa.tile_smem_bytes(dk, (bm, bn) != fa.tile_shape(dk, False), dv)}
+    form = fa.plan_form(dk, bm)
+    return {"form": form, "threads": fa.tile_threads(form), "row_tile": bm, "key_tile": bn,
+            "tiles": tiles, "blocks": b * hkv * tiles,
+            "smem_bytes": fa.tile_smem_bytes(dk, form, dv),
+            "blocks_per_sm": fa.tile_occupancy(dk, dv, bm)}
 
 
-def tile_rescale_control(fa, ref, q, k, v) -> dict:
+def tile_rescale_control(fa, ref, q, k, v, window: int = 0, scale: float = None) -> dict:
     """A fault control for the float32 check at a tile-route shape: the
     tile route's schedule in plain PyTorch (``ref.flash_attention_tile_ref``,
     with the tiles the wrapper takes), once as the kernel folds its key
@@ -1600,18 +1625,32 @@ def tile_rescale_control(fa, ref, q, k, v) -> dict:
     sound one must pass ``check_close``'s tolerance and the faulty one must
     fail it, so that the check is shown able to fail at this shape in this
     run."""
-    plan = tile_facts(fa, q, k)
-    want = ref.flash_attention_ref(q, k, v, True)
+    plan = tile_facts(fa, q, k, v)
+    want = ref.flash_attention_ref(q, k, v, True, window, scale)
     tol = FA_TOL[torch.float32]
     out = {"row_tile": plan["row_tile"], "key_tile": plan["key_tile"], "tol": tol}
     for name, rescale in (("model", True), ("no_tile_rescale", False)):
-        got = ref.flash_attention_tile_ref(q, k, v, True, bm=plan["row_tile"],
-                                           bn=plan["key_tile"], rescale=rescale)
+        got = ref.flash_attention_tile_ref(q, k, v, True, window, bm=plan["row_tile"],
+                                           bn=plan["key_tile"], rescale=rescale, scale=scale)
         out[f"{name}_max_abs_err"] = float((got - want).abs().max())
         out[f"{name}_passes"] = bool(torch.allclose(got, want, rtol=tol, atol=tol))
         del got
     assert out["model_passes"], f"the tile schedule's model fails the check: {out}"
     assert not out["no_tile_rescale_passes"], f"the rescale control passes the check: {out}"
+    return out
+
+
+def same_bits(fa, q, k, v, window: int = 0, scale: float = None) -> dict:
+    """The same bits on two calls, and (on the tile route) the same output
+    bits with the log-sum-exp the backward takes as without it."""
+    first = fa.flash_attention(q, k, v, True, window, scale)
+    out = {"same_bits_twice": torch.equal(first, fa.flash_attention(q, k, v, True, window,
+                                                                    scale))}
+    assert out["same_bits_twice"], "two calls gave different bits"
+    if fa._route(q, q.shape[1] // k.shape[1]) == "cuda_core":
+        with_lse = fa._launch("cuda_core", q, k, v, True, window, scale, with_lse=True)[0]
+        out["same_bits_with_lse"] = torch.equal(first, with_lse)
+        assert out["same_bits_with_lse"], "the output changed with the log-sum-exp"
     return out
 
 
@@ -1641,7 +1680,7 @@ def f32_decode_rows(fa, ref, cfg, dev: str, ptxas: list) -> dict:
     same heads over a 4,096-key cache (134 MB of K/V, cut into splits).
     Each row: kernel vs plain, the splits, device times of the kernel and
     of SDPA, the bound, the same bits on two calls, and the ``ptxas``
-    resources of the decode and combine kernels; the long one also the
+    resources of the decode kernel; the long one also the
     split-rescale fault control."""
     gen = torch.Generator(device=dev).manual_seed(3)
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -1659,7 +1698,7 @@ def f32_decode_rows(fa, ref, cfg, dev: str, ptxas: list) -> dict:
                                              fa.flash_attention(q, k, v))
         assert row["same_bits_twice"], f"{name}: two calls gave different bits"
         if lk == LONG_CACHE:
-            row["split_rescale_control"] = split_rescale_control(fa, ref, q, k, v)
+            row["split_rescale_control"] = decode_control(fa, ref, q, k, v, "no_split_rescale")
         rows[name] = row
         del x, ck, cv, q, k, v
     return rows
@@ -1984,6 +2023,36 @@ def qwen_prefill_f32_phase(repro_torch_mods, ref, dev: str, seed: int) -> dict:
 # -- phase 4g: the attention families beyond the dense and GQA-MoE ones -----
 
 
+def tile_row(fa, ref, q, k, v, pairs: int, window: int = 0, scale: float = None) -> dict:
+    """A float32 tile-route row (:func:`_attention_row`, device times) with
+    its plan, the same bits twice and with the log-sum-exp, and the tile
+    rescale fault control."""
+    row = _attention_row(fa, ref, q, k, v, True, pairs, 20, device_side=True, window=window,
+                         scale=scale)
+    assert row["route"] == "cuda_core", row["route"]
+    row["tile"] = tile_facts(fa, q, k, v)
+    row.update(same_bits(fa, q, k, v, window, scale))
+    row["tile_rescale_control"] = tile_rescale_control(fa, ref, q, k, v, window, scale)
+    return row
+
+
+def decode_row(fa, ref, q, k, v, pairs: int, faults: tuple) -> dict:
+    """A float32 decode-route row (:func:`_attention_row`, device times)
+    over a cache read in place (no copy of k or v), with its plan, the
+    ``ptxas`` resources of its instantiation, the same bits twice and the
+    fault controls ``faults`` (:func:`decode_control`)."""
+    assert fa._aligned(k) is k and fa._aligned(v) is v, "the cache is not read in place"
+    row = _attention_row(fa, ref, q, k, v, True, pairs, 20, device_side=True)
+    assert row["route"] == "decode", row["route"]
+    row["cache_read_in_place"] = True
+    dk = fa.kernel_widths("decode", q.shape[3], v.shape[3])[0]
+    row["ptxas"] = decode_resources(FA_PTXAS, dk, row["decode"]["row_tile"])
+    row.update(same_bits(fa, q, k, v))
+    for fault in faults:
+        row[f"{fault}_control"] = decode_control(fa, ref, q, k, v, fault)
+    return row
+
+
 def family_kernel_rows(fa, ref, dev: str, seed: int) -> dict:
     """The tensor-core kernel at the new families' widths, bf16, each held
     to its plain version and timed beside it, its bound and SDPA (same
@@ -2037,16 +2106,14 @@ def family_kernel_rows(fa, ref, dev: str, seed: int) -> dict:
     rows["flash_attention_tile_h2o_ring_forward"] = row
     # the ring's K and V, [B, buf, Hkv, Dh] each, read in place
     ck, cv = (rnd32(1, 4096, 8, 120).transpose(1, 2) for _ in range(2))
-    row = _attention_row(fa, ref, rnd32(1, 1, 32, 120).transpose(1, 2), ck, cv, True, 4096, 20,
-                         device_side=True)
-    assert row["route"] == "decode", row["route"]
-    rows["flash_attention_decode_h2o_ring"] = row
+    q = rnd32(1, 1, 32, 120).transpose(1, 2)
+    rows["flash_attention_decode_h2o_ring"] = decode_row(fa, ref, q, ck, cv, 4096,
+                                                         ("no_split_rescale", "lost_split"))
+    del ck, cv
     n = MLA_CHECK_POSITIONS
-    row = _attention_row(fa, ref, rnd32(1, 128, n, 192), rnd32(1, 128, n, 192),
-                         rnd32(1, 128, n, 128), True, n * (n + 1) // 2, 20, device_side=True,
-                         scale=mla_scale)
-    assert row["route"] == "cuda_core", row["route"]
-    rows["flash_attention_tile_mla_forward"] = row
+    q, k, v = rnd32(1, 128, n, 192), rnd32(1, 128, n, 192), rnd32(1, 128, n, 128)
+    rows["flash_attention_tile_mla_forward"] = tile_row(fa, ref, q, k, v, n * (n + 1) // 2,
+                                                        scale=mla_scale)
     keys = rnd32(1, n, 576)[:, None]
     row = _attention_row(fa, ref, rnd32(1, 128, 1, 576), keys, keys[..., :512], True, n, 20,
                          device_side=True, scale=mla_scale)
@@ -2341,15 +2408,12 @@ def ssm_kernel_rows(fa, ref, dev: str, seed: int) -> dict:
         fa, ref, rnd(b, 32, s, 80, dtype=bf), rnd(b, 32, s, 80, dtype=bf),
         rnd(b, 32, s, 80, dtype=bf), True, s * (s + 1) // 2, 3, window=4096)
     n = SSM_CHECK_POSITIONS
-    row = _attention_row(fa, ref, rnd(2, 32, n, 80), rnd(2, 32, n, 80), rnd(2, 32, n, 80), True,
-                         n * (n + 1) // 2, 20, device_side=True, window=4096)
-    assert row["route"] == "cuda_core", row["route"]
-    rows["flash_attention_tile_zamba2_forward"] = row
+    rows["flash_attention_tile_zamba2_forward"] = tile_row(
+        fa, ref, rnd(2, 32, n, 80), rnd(2, 32, n, 80), rnd(2, 32, n, 80), n * (n + 1) // 2,
+        window=4096)
     ck, cv = (rnd(2, n, 32, 80).transpose(1, 2) for _ in range(2))
-    row = _attention_row(fa, ref, rnd(2, 1, 32, 80).transpose(1, 2), ck, cv, True, n, 20,
-                         device_side=True)
-    assert row["route"] == "decode", row["route"]
-    rows["flash_attention_decode_zamba2"] = row
+    rows["flash_attention_decode_zamba2"] = decode_row(
+        fa, ref, rnd(2, 1, 32, 80).transpose(1, 2), ck, cv, n, ("no_unit_rescale",))
     return rows
 
 
@@ -4516,8 +4580,9 @@ def main() -> int:
                    for row in ptxas_kernels(built[name]["log"])]
         log({"phase": "build", "source": f"src/repro_torch/csrc/{name}.cu", "kernels": entries})
     fa_ptxas = ptxas_kernels(built["flash_attention"]["log"])
+    FA_PTXAS.extend(fa_ptxas)
     log({"phase": "build", "source": "src/repro_torch/csrc/flash_attention.cu",
-         "tile_kernels": tile_resources(fa_ptxas, fa)})
+         "tile_kernels": tile_resources(fa_ptxas, fa), "decode_kernels": decode_kernels(fa_ptxas)})
     sm90_lib = _build.load("flash_attention_sm90")
     sm90_log = built["flash_attention_sm90"]["log"]
     sm90 = ptxas_kernels(sm90_log)

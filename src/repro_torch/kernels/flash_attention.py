@@ -18,18 +18,19 @@ from one kernel to another:
   before ``P.V``) at the call's exact widths;
 - float32 on the card with few query rows per kv head (``group * Lq <=
   DECODE_MAX_ROWS``, or ``Lq == 1``: a decode step): the decode route of
-  ``csrc/flash_attention.cu``. A block holds a tile of up to 8 of a kv
+  ``csrc/flash_attention.cu``. A block holds a tile of up to 4 of a kv
   head's rows and one split of the keys (:func:`decode_plan`); in it the
   keys are dealt to teams of lanes that each fold their own partial
-  softmax for all the tile's rows; a second kernel folds the splits'
-  partials in split order (none when there is one split);
+  softmax for all the tile's rows, a unit of keys at a time with the next
+  unit's loads in flight; the last block of a row tile to finish folds the
+  splits' partials in split order (none when there is one split);
 - float32 on the card otherwise: the tile route of
   ``csrc/flash_attention.cu``, a register-blocked FlashAttention on the
   CUDA cores (float32 FFMA, the arithmetic of the plain version): a block
   holds a tile of a kv head's query rows, numbered position-major, and
   streams the key tiles any of them sees through two cp.async stages
-  (:func:`tile_plan` picks the tile, :func:`key_tiles` models the key
-  tiles a block visits);
+  (:func:`tile_plan` picks the form of the block, large, mid or small,
+  :func:`key_tiles` models the key tiles a block visits);
 - a CPU tensor: the plain version in :mod:`.ref`.
 
 Strides are passed to the kernels, so a ``[B, L, H, Dh]`` activation or a
@@ -111,26 +112,47 @@ BWD_SOURCES = {torch.bfloat16: "flash_attention_bwd_sm90", torch.float32: "flash
 DECODE_MAX_ROWS = 16
 #: the decode route cuts the keys into splits while its blocks stay within
 #: this many per SM ...
-DECODE_WAVES = 4
+DECODE_WAVES = 1
 #: ... but a split reads at least this many bytes of K and V
-DECODE_SPLIT_BYTES = 1 << 17
+DECODE_SPLIT_BYTES = 1 << 18
 DECODE_THREADS = 256  # threads of a decode block (csrc/flash_attention.cu: kDecodeThreads)
-DECODE_ROWS = 8  # query rows a decode block holds at most (kDecodeRowsMax)
+DECODE_ROWS = 4  # query rows a decode block holds at most (kDecodeRowsMax)
 
-# threads of a tile-route block: 16 row groups x 16 key groups
-# (csrc/flash_attention.cu: kTileThreads, kGroups)
-TILE_THREADS = 256
+# key groups of a tile-route block (csrc/flash_attention.cu: kGroups), and
+# its forms: row groups (``RG``; threads: RG x 16) and (R, C), the rows a
+# thread holds and the keys it scores, by Q/K width (Tile<DK, DV, F>)
 TILE_GROUPS = 16
+TILE_FORMS = ("large", "mid", "small")
+
+
+def tile_form(dh: int, form: str) -> Optional[Tuple[int, int, int]]:
+    """``(RG, R, C)`` of a tile-route block of ``form`` at Q/K width ``dh``
+    (an instantiated width): large 16 row groups of 8 x 4 up to 128, 4 x 2
+    up to 256, 2 x 1 wider; mid 8 row groups of 4 x 2, up to 256 (``None``
+    wider: its shared memory would not fit); small 16 of 1 x 1."""
+    if form == "large":
+        return (16, 8, 4) if dh <= 128 else (16, 4, 2) if dh <= 256 else (16, 2, 1)
+    if form == "mid":
+        return (8, 4, 2) if dh <= 256 else None
+    if form == "small":
+        return 16, 1, 1
+    raise ValueError(f"tile_form: no form {form!r}; choose from {TILE_FORMS}")
+
+
+def tile_threads(form: str) -> int:
+    """Threads of a tile-route block of ``form``: its row groups x 16."""
+    return tile_form(32, form)[0] * TILE_GROUPS
+
 
 # batch, heads, kv_heads, lq, lk, dqk, dv, strides, causal, window, scale
 _SHAPE = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 2 + [
     ctypes.c_float]
 # q, k, v, out (and for sm90 and the tile route lse), the shape, then the
 # tile route's row tile, or the decode route's scratch (partial acc, partial
-# (m, l)), row tile, n_splits, chunk; the stream last
+# (m, l), counters), row tile, n_splits, chunk; the stream last
 _ARGTYPES = {"sm90": [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_void_p],
              "cuda_core": [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_int, ctypes.c_void_p],
-             "decode": [ctypes.c_void_p] * 4 + _SHAPE + [ctypes.c_void_p] * 2
+             "decode": [ctypes.c_void_p] * 4 + _SHAPE + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 #: the routes whose kernel writes each row's log-sum-exp when asked
 LSE_ROUTES = ("sm90", "cuda_core")
@@ -154,38 +176,58 @@ def _route(q, group: int = 1) -> str:
     raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
 
 
-def tile_shape(dh: int, small: bool) -> Tuple[int, int]:
-    """``(BM, BN)`` of a tile-route block at Q/K width ``dh``
-    (``csrc/flash_attention.cu``, ``Tile<DK, DV, kSmall>``): its query rows
-    and the keys of its key tiles. Each of its 16 x 16 threads holds ``R =
-    BM / 16`` rows and scores ``C = BN / 16`` keys of a key tile: in the
-    large tile 8 x 4 up to 128, 4 x 2 up to 256, 2 x 1 wider (MLA's latent,
-    576); 1 x 1 in the small one. The bounds are instantiated widths, so a
-    pair gets the tile of the instantiation it runs at."""
-    r, c = (1, 1) if small else (8, 4) if dh <= 128 else (4, 2) if dh <= 256 else (2, 1)
-    return TILE_GROUPS * r, TILE_GROUPS * c
+def tile_shape(dh: int, form: str) -> Optional[Tuple[int, int]]:
+    """``(BM, BN)`` of a tile-route block of ``form`` at Q/K width ``dh``
+    (``csrc/flash_attention.cu``, ``Tile<DK, DV, F>``): its query rows (row
+    groups x R) and the keys of its key tiles (16 x C); ``None`` where the
+    form is not instantiated (mid above 256). The bounds are instantiated
+    widths, so a pair gets the tile of the instantiation it runs at."""
+    f = tile_form(dh, form)
+    return None if f is None else (f[0] * f[1], TILE_GROUPS * f[2])
 
 
-def tile_smem_bytes(dh: int, small: bool, dv: Optional[int] = None) -> int:
-    """Dynamic shared memory of a tile-route block of widths ``dh`` (Q and
-    K) and ``dv`` (V; ``None``: ``dh``), an instantiation's: Q ``[BM,
-    dh]``, two stages each of K ``[BN, dh]`` and V ``[BN, dv]``, and P
-    ``[BN, BM + 4]``, float32."""
-    bm, bn = tile_shape(dh, small)
+def _qk_row_floats(dh: int) -> int:
+    """Floats a Q/K row of width ``dh`` takes in a tile block's shared
+    memory (``QkRow<DH>``): ``dh`` where its 16-byte chunks are a multiple
+    of 8 (swizzled), else padded to an odd number of chunks (80: 84)."""
+    chunks = dh // 4
+    return dh if chunks % 8 == 0 else 4 * (chunks | 1)
+
+
+def tile_smem_bytes(dh: int, form: str, dv: Optional[int] = None) -> int:
+    """Dynamic shared memory of a tile-route block of ``form`` at widths
+    ``dh`` (Q and K) and ``dv`` (V; ``None``: ``dh``), an instantiation's:
+    Q ``[BM, QS]``, two stages each of K ``[BN, QS]`` and V ``[BN, dv]``,
+    and P ``[BN, BM + 4]``, float32; ``QS`` the row of :func:`_qk_row_floats`."""
+    bm, bn = tile_shape(dh, form)
     dv = dh if dv is None else dv
-    return 4 * (bm * dh + 2 * bn * dh + 2 * bn * dv + bn * (bm + 4))
+    qs = _qk_row_floats(dh)
+    return 4 * (bm * qs + 2 * bn * qs + 2 * bn * dv + bn * (bm + 4))
 
 
 def tile_plan(batch: int, kv_heads: int, rows: int, dh: int, n_sm: int) -> Tuple[int, int, int]:
     """``(BM, BN, tiles)`` of a tile-route call, from the shape and the card
     alone: ``rows`` query rows of each of ``batch x kv_heads`` kv heads cut
-    into ``tiles`` tiles of ``BM``. The large tile, unless its blocks would
-    not give each of the ``n_sm`` SMs one (qwen3-0.6b's 16-token forward:
-    2 x 8 blocks); then the small one, whose blocks are more and shorter."""
-    bm, bn = tile_shape(dh, False)
-    if batch * kv_heads * -(-rows // bm) < n_sm:
-        bm, bn = tile_shape(dh, True)
+    into ``tiles`` tiles of ``BM``. The large tile while its blocks give
+    each of the ``n_sm`` SMs one; else the mid tile while its blocks (of
+    half the threads, two an SM) reach at least half the SMs (MLA's f32
+    layer forward: 128 kv heads of 64 rows, 256 blocks; zamba2's: 64 of 64,
+    128); else the small one, whose blocks are more and shorter
+    (qwen3-0.6b's 16-token forward: 2 x 8 kv heads of 32 rows, 32 blocks)."""
+    heads = batch * kv_heads
+    bm, bn = tile_shape(dh, "large")
+    if heads * -(-rows // bm) < n_sm:
+        mid = tile_shape(dh, "mid")
+        if mid is not None and 2 * heads * -(-rows // mid[0]) >= n_sm:
+            bm, bn = mid
+        else:
+            bm, bn = tile_shape(dh, "small")
     return bm, bn, -(-rows // bm)
+
+
+def plan_form(dh: int, bm: int) -> str:
+    """The form whose blocks hold ``bm`` rows at Q/K width ``dh``."""
+    return next(f for f in TILE_FORMS if (tile_shape(dh, f) or (0,))[0] == bm)
 
 
 def key_tiles(tile: int, bm: int, bn: int, rows: int, group: int, lq: int, lk: int,
@@ -221,14 +263,16 @@ def decode_layout(dh: int) -> Tuple[int, int, int]:
     wide, an instantiation's Q/K width; the values (Dv <= Dqk) take the
     same lanes (``csrc/flash_attention.cu``, ``Decode<DK, DV>``): a team of
     ``lanes`` lanes (8, 16 or 32: the least that holds a key row's 16-byte
-    chunks, 32 at most) holds one key row, ``vec`` chunks a lane (the last
+    chunks in at most 4 a lane, 32 at most) holds one key row, ``vec``
+    chunks a lane (the last
     lanes of a row that is no multiple of them hold zeros), the block's
     ``teams`` teams take the keys of their split in turn, and a team folds
-    ``unit = 8 // vec`` keys at a time (at least one)."""
+    ``unit = 4 // vec`` keys at a time (at least one), loading the next
+    unit into registers before it folds this one."""
     k4 = dh // 4
-    lanes = 8 if k4 <= 8 else 16 if k4 <= 16 else 32
+    lanes = 8 if k4 <= 32 else 16 if k4 <= 64 else 32
     vec = -(-k4 // lanes)
-    return lanes, DECODE_THREADS // lanes, max(1, 8 // vec)
+    return lanes, DECODE_THREADS // lanes, max(1, 4 // vec)
 
 
 def split_chunk(lk: int, splits: int) -> Tuple[int, int]:
@@ -256,25 +300,26 @@ def decode_splits(lk: int, blocks: int, dh: int, n_sm: int) -> Tuple[int, int]:
     the blocks within ``DECODE_WAVES`` per SM (rounded down, so that no
     last wave runs a few blocks alone), but no split under DECODE_SPLIT_BYTES
     of K and V nor under one round of the block's teams: at qwen3's decode
-    (32 blocks, Dh 128) one split below 256 keys, 16 at 4,096."""
+    (32 blocks, Dh 128) one split below 512 keys, 4 at 4,096; at h2o's ring
+    (8 blocks, Dh 120 at 128) 16 splits of 256 keys."""
     want = min(DECODE_WAVES * n_sm // max(blocks, 1), lk // _least_split(dh))
     return split_chunk(lk, max(1, want))
 
 
 def decode_row_tile(rows: int, kv_heads: int, lk: int, dh: int, n_sm: int) -> int:
-    """Query rows a decode block holds (its ``R``, one of 1, 2, 4 and 8,
-    which ``csrc/flash_attention.cu`` instantiates) for ``rows`` rows of
-    each of ``kv_heads`` (batch x kv heads) over ``lk`` keys: the least
-    that holds the rows (8 at most), halved while the blocks, even cut into
-    the most splits ``lk`` allows, would not give every one of the ``n_sm``
-    SMs a block. A block's warps take its rows one after another, so at a
-    short cache fewer rows a block (K and V then read once a tile, from
-    L2) finish sooner; at a long one the splits fill the card and R stays."""
+    """Query rows a decode block holds (its ``R``, one of 1, 2 and 4, which
+    ``csrc/flash_attention.cu`` instantiates) for ``rows`` rows of each of
+    ``kv_heads`` (batch x kv heads) over ``lk`` keys: the least that holds
+    the rows (4 at most), halved while the blocks, even cut into the most
+    splits ``lk`` allows, would reach fewer than half the ``n_sm`` SMs. At
+    a short cache fewer rows a block (K and V then read once a tile, from
+    L2) finish sooner; at a long one the splits fill the card and R stays
+    (h2o-danube's ring: 8 kv heads of 4 rows, 16 splits, 128 blocks)."""
     r = 1
     while r < min(rows, DECODE_ROWS):
         r *= 2
     most = max(1, lk // _least_split(dh))
-    while r > 1 and kv_heads * -(-rows // r) * most < n_sm:
+    while r > 1 and 2 * kv_heads * -(-rows // r) * most < n_sm:
         r //= 2
     return r
 
@@ -293,6 +338,38 @@ def decode_plan(batch: int, kv_heads: int, rows: int, lk: int, dh: int,
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device, stream) -> the decode route's int32 counters, one a row tile
+_COUNTERS: dict = {}
+
+
+def _decode_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters for the decode route's calls on
+    ``stream``, all 0: each call's last block of a row tile sets its
+    counter back to 0, so the buffer is zeroed once and kept (grown when a
+    call needs more); calls on one stream run in order, so they share it."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+def tile_occupancy(dqk: int, dv: int, bm: int) -> int:
+    """Blocks of the tile route's kernel for ``(dqk, dv)`` whose blocks hold
+    ``bm`` rows that one SM of the current device holds at once, as the CUDA
+    runtime computes them from the kernel's registers, threads and shared
+    memory (``repro_flash_attention_tile_occupancy``). Builds the source on
+    first use."""
+    fn = _build.load(KERNELS["cuda_core"][0]).repro_flash_attention_tile_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int()
+    rc = fn(dqk, dv, bm, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"tile_occupancy({dqk}, {dv}, {bm}): CUDA error {rc}")
+    return out.value
 
 
 def _lib(route: str):
@@ -593,13 +670,16 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     elif route == "decode":
         row_tile, _, n_splits, chunk = decode_plan(b, hkv, h // hkv * lq, lk, dk,
                                                    _sm_count(q.device.index))
-        scratch = [0, 0]
+        scratch = [0, 0, 0]
+        stream = torch.cuda.current_stream(q.device)
         if n_splits > 1:  # each row's partial (acc, then m and l) of every split
             part_acc = torch.empty(b * h * lq, n_splits, dv, dtype=torch.float32,
                                    device=q.device)
             part_ml = torch.empty(b * h * lq, n_splits, 2, dtype=torch.float32,
                                   device=q.device)
-            scratch = [part_acc.data_ptr(), part_ml.data_ptr()]
+            counters = _decode_counters(q.device, stream.cuda_stream,
+                                        b * hkv * -(-(h // hkv * lq) // row_tile))
+            scratch = [part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr()]
         args += [*scratch, row_tile, n_splits, chunk]
     rc = _lib(route)(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

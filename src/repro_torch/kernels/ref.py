@@ -530,56 +530,62 @@ def _fold_partials(parts, rescale: bool = True):
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = True, window: int = 0, *, n_splits: int,
                               chunk: int, teams: int, unit: int,
-                              rescale: bool = True,
+                              rescale: bool = True, broken: Optional[str] = None,
                               scale: Optional[float] = None) -> torch.Tensor:
     """The decode route's schedule (``csrc/flash_attention.cu``,
-    ``flash_decode_kernel`` and its combine) in plain PyTorch, for the
-    tests: what :func:`flash_attention_ref` computes, taken in the
-    kernel's order. Split ``s`` holds keys ``[s * chunk, (s + 1) * chunk)``
-    (cut at ``Lk``); in it, team ``t`` of ``teams`` folds keys ``s * chunk
-    + t``, ``+ teams``, ... in that order, ``unit`` at a time, into its own
-    running ``(m, l, acc)``; the teams' states are folded in team order,
-    then the splits' in split order, and ``acc`` is divided by ``l``
-    clamped at ``1e-30``. ``rescale=False`` folds the splits without their
-    ``exp(m_s - m)`` weights: the fault control of ``chip_smoke.py``."""
+    ``flash_decode_kernel``) in plain PyTorch, for the tests: what
+    :func:`flash_attention_ref` computes, taken in the kernel's order.
+    Split ``s`` holds keys ``[s * chunk, (s + 1) * chunk)`` (cut at
+    ``Lk``); in it, team ``t`` of ``teams`` folds keys ``s * chunk + t``,
+    ``+ teams``, ... in that order, ``unit`` at a time (round ``u``: keys
+    ``s * chunk + u * teams * unit + j * teams + t``, ``j < unit``), into
+    its own running ``(m, l, acc)``, rescaled by ``exp(m - m_new)`` where a
+    unit raises the max; the teams' states are folded in team order, then
+    the splits' in split order, and ``acc`` is divided by ``l`` clamped at
+    ``1e-30``. The teams run side by side here, a round a step. Faults, the
+    controls of ``chip_smoke.py``: ``rescale=False`` folds the splits
+    without their ``exp(m_s - m)`` weights; ``broken="lost_split"`` leaves
+    the last split out of the fold (a last block that folds before every
+    split has written its partial); ``broken="no_unit_rescale"`` leaves out
+    a team's rescale when a unit raises its max."""
     b, h, lq, dh = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
         v = v.repeat_interleave(h // hkv, dim=1)
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-    k_pos = torch.arange(lk, device=q.device)[None, :]
-    mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
-    logits = logits.masked_fill(~mask, float("-inf"))
+    logits = _masked_logits(q.float(), k.float(), causal, window) * scale
     vf = v.float()
-    neg = torch.full((b, h, lq), float("-inf"), device=q.device)
-    zero_acc = torch.zeros(b, h, lq, v.shape[-1], device=q.device)
+    dv = vf.shape[-1]
+    neg = float("-inf")
     splits = []
     for s in range(n_splits):
         s0, s1 = s * chunk, min(lk, (s + 1) * chunk)
-        parts = []
-        for t in range(teams):
-            keys = torch.arange(s0 + t, max(s0 + t, s1), teams, device=q.device)
-            m, l_sum, acc = neg, torch.zeros_like(neg), zero_acc
-            for u in range(0, keys.numel(), unit):
-                kk = keys[u:u + unit]
-                sc = logits[..., kk]
-                live = sc.amax(dim=-1) > float("-inf")  # the row sees a key of this unit
-                m_new = torch.where(live, torch.maximum(m, sc.amax(dim=-1)), m)
-                alpha = torch.where(live, torch.exp(m - m_new), torch.ones_like(m))
-                p = torch.where(sc > float("-inf"), torch.exp(sc - m_new[..., None]),
-                                torch.zeros_like(sc))
-                l_sum = l_sum * alpha + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[..., kk, :])
-                m = m_new
-            parts.append((m, l_sum, acc))
-        splits.append(_fold_partials(parts))
+        rounds = -(-max(s1 - s0, 0) // (teams * unit))
+        # key of (round, slot j, team), and whether it lies in the split
+        idx = (s0 + torch.arange(rounds * unit, device=q.device)[:, None] * teams
+               + torch.arange(teams, device=q.device)[None, :]).reshape(rounds, unit, teams)
+        live = idx < s1
+        idx = idx.clamp(max=max(lk - 1, 0))
+        m = torch.full((b, h, lq, teams), neg, device=q.device)
+        l_sum = torch.zeros_like(m)
+        acc = torch.zeros(b, h, lq, teams, dv, device=q.device)
+        for u in range(rounds):
+            sc = logits[..., idx[u]].masked_fill(~live[u], neg)  # [B, H, Lq, unit, teams]
+            m_new = torch.maximum(m, sc.amax(dim=-2))
+            raised = m_new != m
+            alpha = torch.where(raised, torch.exp(m - m_new), torch.ones_like(m))
+            if broken == "no_unit_rescale":
+                alpha = torch.where(m == neg, alpha, torch.ones_like(m))
+            p = torch.where(sc > neg, torch.exp(sc - m_new[..., None, :]), torch.zeros_like(sc))
+            l_sum = l_sum * alpha + p.sum(dim=-2)
+            vu = vf[:, :, idx[u]] * live[u][..., None]  # [B, H, unit, teams, Dv]
+            acc = acc * alpha[..., None] + torch.einsum("bhqjt,bhjtd->bhqtd", p, vu)
+            m = m_new
+        splits.append(_fold_partials([(m[..., t], l_sum[..., t], acc[..., t, :])
+                                      for t in range(teams)]))
+    if broken == "lost_split" and len(splits) > 1:
+        splits = splits[:-1]
     _, l_sum, acc = _fold_partials(splits, rescale)
     return (acc / l_sum.clamp_min(1e-30)[..., None]).to(q.dtype)
 

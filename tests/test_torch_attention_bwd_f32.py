@@ -66,7 +66,7 @@ def _inputs(case, seed=0):
 
 def _forward(q, k, v, causal, window):
     """The tile route's output and lse, as FlashAttentionFn saves them."""
-    bm, bn = fa.tile_shape(q.shape[-1], False)
+    bm, bn = fa.tile_shape(q.shape[-1], "large")
     return ref.flash_attention_tile_ref(q, k, v, causal, window, bm=bm, bn=bn, with_lse=True)
 
 
@@ -118,7 +118,7 @@ def test_tile_model_lse_matches_plain(case):
     causal, window = case[7], case[8]
     q, k, v, _ = map(torch.from_numpy, _inputs(case))
     out, lse = _forward(q, k, v, causal, window)
-    bm, bn = fa.tile_shape(q.shape[-1], False)
+    bm, bn = fa.tile_shape(q.shape[-1], "large")
     assert torch.equal(out, ref.flash_attention_tile_ref(q, k, v, causal, window, bm=bm, bn=bn))
     want = ref.attention_lse_ref(q, k, causal, window)
     assert lse.shape == want.shape and lse.dtype == torch.float32

@@ -48,11 +48,11 @@ def _case(b, group, lq, lk, dh, seed):
     return q, k, v
 
 
-def _model(q, k, v, causal, window, n_splits, chunk, rescale=True):
+def _model(q, k, v, causal, window, n_splits, chunk, rescale=True, broken=None):
     _, teams, unit = fa.decode_layout(q.shape[-1])
     return ref.flash_attention_split_ref(
         *(torch.from_numpy(a) for a in (q, k, v)), causal, window, n_splits=n_splits,
-        chunk=chunk, teams=teams, unit=unit, rescale=rescale).numpy()
+        chunk=chunk, teams=teams, unit=unit, rescale=rescale, broken=broken).numpy()
 
 
 def _plain(q, k, v, causal, window):
@@ -110,68 +110,78 @@ def test_decode_splits_keep_their_limits(dh):
 
 
 def test_decode_plan_at_the_paths_shapes():
-    """qwen3-0.6b's decode (4 x 8 kv heads, 2 rows each) and Kimi-K2's (8
-    rows each) over the CLI's 32-slot cache: one split, and one row a
-    block, so that 64 and 256 blocks reach more of the card's 132 SMs
-    than 32 would. Over a 4,096-key cache the splits fill the card, the
-    rows stay in one tile, and 16 splits keep 32 x 16 = 512 blocks within
-    four an SM."""
+    """qwen3-0.6b's decode (4 x 8 kv heads, 2 rows each) over the CLI's
+    32-slot cache: one split, one row a block (64 blocks); Kimi-K2's (8 rows
+    each): two rows a block, 128 blocks. Over a 4,096-key cache the splits
+    fill the card in one wave: 4 of 1,024 keys, 128 blocks. h2o-danube's
+    ring step (32 heads over 8 kv heads, 4 rows each, over the 4,096-slot
+    ring; Dh 120 runs at the 128 instantiation, whose width the wrapper
+    passes): all 4 rows a block, 16 splits of 256 keys, 128 blocks."""
     for lk in range(1, 256):
         assert fa.decode_splits(lk, 32, 128, H100_SMS) == (1, lk)
     assert fa.decode_plan(4, 8, 2, 32, 128, H100_SMS) == (1, 2, 1, 32)
-    assert fa.decode_plan(4, 8, 8, 32, 128, H100_SMS) == (1, 8, 1, 32)
-    assert fa.decode_plan(4, 8, 2, 4096, 128, H100_SMS) == (2, 1, 16, 256)
-    assert fa.decode_plan(4, 8, 8, 4096, 128, H100_SMS) == (8, 1, 16, 256)
+    assert fa.decode_plan(4, 8, 8, 32, 128, H100_SMS) == (2, 4, 1, 32)
+    assert fa.decode_plan(4, 8, 2, 4096, 128, H100_SMS) == (2, 1, 4, 1024)
+    assert fa.decode_plan(4, 8, 8, 4096, 128, H100_SMS) == (4, 2, 2, 2048)
     assert fa.decode_plan(2, 1, 48, 32, 128, H100_SMS) == (1, 48, 1, 32)
+    assert fa.decode_plan(1, 8, 4, 4096, 128, H100_SMS) == (4, 1, 16, 256)
+    # zamba2's step over its 64-slot ring (2 x 32 kv heads of one row) at
+    # its own (80, 80): one split, 64 blocks
+    assert fa.decode_plan(2, 32, 1, 64, 80, H100_SMS) == (1, 1, 1, 64)
     # deepseek-v2's absorbed MLA decode: 128 heads over one latent kv head
-    # (Dqk 576, Dv 512), batch 4: over 32 slots 2 rows a block (256 blocks
-    # reach every SM); over 4,096 8 rows a block, 16 row tiles, the cache cut
-    # into 8 splits of 512 keys (2.2 MB of K and V each)
-    assert fa.decode_plan(4, 1, 128, 32, 576, H100_SMS) == (2, 64, 1, 32)
-    assert fa.decode_plan(4, 1, 128, 4096, 576, H100_SMS) == (8, 16, 8, 512)
+    # (Dqk 576, Dv 512): over its f32 check's 64 slots one row a block (128
+    # blocks, one split); at batch 4 over 32 and 4,096 slots 4 rows a block
+    # (128 blocks, one split)
+    assert fa.decode_plan(1, 1, 128, 64, 576, H100_SMS) == (1, 128, 1, 64)
+    assert fa.decode_plan(4, 1, 128, 32, 576, H100_SMS) == (4, 32, 1, 32)
+    assert fa.decode_plan(4, 1, 128, 4096, 576, H100_SMS) == (4, 32, 1, 4096)
 
 
 @pytest.mark.parametrize("dh", DIMS)
 def test_decode_row_tile_keeps_its_limits(dh):
-    """R is 1, 2, 4 or 8, holds all the rows when they fit one tile and
-    the blocks fill the card, and is only made smaller while the blocks
-    at the most splits the length allows would leave SMs without one."""
+    """R is 1, 2 or 4, holds all the rows when they fit one tile and the
+    blocks reach half the card, and is only made smaller while the blocks
+    at the most splits the length allows would reach fewer than half the
+    SMs."""
     dqk = _dims(dh)[0]
     least = max(fa.decode_layout(dqk)[1] * fa.decode_layout(dqk)[2],
                 fa.DECODE_SPLIT_BYTES // (8 * dqk))
     for rows, kv_heads, lk, n_sm in itertools.product([1, 2, 3, 8, 9, 16, 48], [1, 4, 32, 200],
                                                       [0, 32, 4096], [16, 132]):
         r = fa.decode_row_tile(rows, kv_heads, lk, dqk, n_sm)
-        assert r in (1, 2, 4, 8)
-        full = min(8, 1 << (rows - 1).bit_length())
+        assert r in (1, 2, 4)
+        full = min(fa.DECODE_ROWS, 1 << (rows - 1).bit_length())
         most = max(1, lk // least)
-        assert r == full or kv_heads * -(-rows // (2 * r)) * most < n_sm
-        if kv_heads * -(-rows // full) * most >= n_sm:
+        assert r == full or 2 * kv_heads * -(-rows // (2 * r)) * most < n_sm
+        if 2 * kv_heads * -(-rows // full) * most >= n_sm:
             assert r == full
 
 
 def test_decode_layout_matches_the_source():
     """The layout the model takes is the kernel's: 256 threads a block, a
-    team of 8, 16 or 32 lanes (the least that holds Dqk/4 16-byte chunks,
-    32 at most), 8/vec keys a unit (1 at MLA's 576), 8 rows a block; the
-    configs' other widths lay out as the instantiation they run at (80 and
-    120 as 128, 48 as 64)."""
+    team of 8, 16 or 32 lanes (the least that holds Dqk/4 16-byte chunks
+    in at most 4 a lane, 32 at most), 4/vec keys a unit (1 from Dqk 80 up),
+    4 rows a block; the configs' other widths lay out as the instantiation
+    they run at."""
     text = (_build.CSRC / "flash_attention.cu").read_text()
     assert re.search(r"constexpr int kDecodeThreads = (\d+);", text).group(1) == \
         str(fa.DECODE_THREADS)
     assert re.search(r"constexpr int kDecodeRowsMax = (\d+);", text).group(1) == \
         str(fa.DECODE_ROWS)
-    assert "kLanes = kK4 <= 8 ? 8 : kK4 <= 16 ? 16 : 32;" in text
+    assert "kLanes = kK4 <= 32 ? 8 : kK4 <= 64 ? 16 : 32;" in text
     assert "kVec = (kK4 + kLanes - 1) / kLanes;" in text
     assert "kTeams = kDecodeThreads / kLanes;" in text
-    assert "kUnit = 8 / kVec > 0 ? 8 / kVec : 1;" in text
-    assert [fa.decode_layout(d) for d in fa.HEAD_DIMS] == [(8, 32, 8), (16, 16, 8), (32, 8, 8),
-                                                           (32, 8, 4)]
+    assert "kUnit = 4 / kVec > 0 ? 4 / kVec : 1;" in text
+    assert [fa.decode_layout(d) for d in fa.HEAD_DIMS] == [(8, 32, 4), (8, 32, 2), (8, 32, 1),
+                                                           (16, 16, 1)]
     assert {p: fa.decode_layout(p[0]) for p in CONFIG_PAIRS} == {
-        (80, 80): (32, 8, 8), (120, 120): (32, 8, 8), (192, 128): (32, 8, 4),
-        (576, 512): (32, 8, 1), (48, 32): (16, 16, 8), (80, 64): (32, 8, 8)}
+        (80, 80): (8, 32, 1), (120, 120): (8, 32, 1), (192, 128): (16, 16, 1),
+        (576, 512): (32, 8, 1), (48, 32): (8, 32, 2), (80, 64): (8, 32, 1)}
+    # 80 runs at its own (80, 80), 120 at 128, 48 at 64: each lays out as
+    # the instantiation it runs at
     assert [fa.decode_layout(d) for d in (80, 120, 48)] == \
-        [fa.decode_layout(128), fa.decode_layout(128), fa.decode_layout(64)]
+        [fa.decode_layout(80), fa.decode_layout(128), fa.decode_layout(64)]
+    assert "X(80, 80)" in text
 
 
 # --------------------------------------------------------------------------
@@ -267,3 +277,63 @@ def test_split_rescale_fault_fails_the_check():
     bad = _model(q, k, v, True, 0, n, chunk, rescale=False)
     assert not np.allclose(bad, plain, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(_model(q, k, v, True, 0, n, chunk), plain, rtol=1e-5, atol=1e-5)
+
+
+def _ring_case(lk, seed):
+    """h2o-danube's ring step: q [1, 32, 1, 120] over 8 kv heads of ``lk``
+    slots, read from the [B, buf, Hkv, Dh] ring as the model reads it."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(1, 32, 1, 120)).astype(np.float32)
+    k, v = (np.ascontiguousarray(rng.normal(size=(1, lk, 8, 120)).astype(np.float32)
+                                 .transpose(0, 2, 1, 3)) for _ in range(2))
+    return q, k, v
+
+
+def test_split_model_at_the_ring_plan():
+    """The ring step at its full 4,096 slots under the plan the wrapper
+    takes there (4 rows a block, 16 splits of 256 keys; Dh 120 laid out as
+    its 128 instantiation): the model within 2e-3 of the Pallas kernel and
+    1e-5 of the plain version; the last split left out of the fold (a last
+    block that folds before every split has written) and the splits folded
+    without their weights both miss by far more than 2e-3."""
+    q, k, v = _ring_case(4096, seed=12)
+    r, _, n, chunk = fa.decode_plan(1, 8, 4, 4096, 128, H100_SMS)
+    assert (r, n, chunk) == (4, 16, 256)
+    plain = _plain(q, k, v, True, 0)
+    pallas = _pallas(q, k, v, True, 0)
+    np.testing.assert_allclose(plain, pallas, rtol=2e-3, atol=2e-3)
+    _, teams, unit = fa.decode_layout(128)
+    model = ref.flash_attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)), True, 0,
+                                          n_splits=n, chunk=chunk, teams=teams,
+                                          unit=unit).numpy()
+    np.testing.assert_allclose(model, plain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(model, pallas, rtol=2e-3, atol=2e-3)
+    for fault in ({"broken": "lost_split"}, {"rescale": False}):
+        bad = ref.flash_attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)), True, 0,
+                                            n_splits=n, chunk=chunk, teams=teams, unit=unit,
+                                            **fault).numpy()
+        assert not np.allclose(bad, pallas, rtol=2e-3, atol=2e-3), fault
+
+
+@pytest.mark.parametrize("dh", [80, 128])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_split_model_unit_rescale_fault_fails(dh, causal, window):
+    """zamba2's step over its 64-slot ring (one split; two units a team):
+    a team's state left unscaled where a unit raises its max misses Pallas
+    by far more than 2e-3 (but for the windowed mask), where the model
+    meets it; and keyless rows (more queries than keys under causal) come
+    out 0."""
+    q, k, v = _case(2, 4, 2, 64, dh, seed=dh + int(causal) + window)
+    n, chunk = fa.decode_splits(64, 2 * HKV, dh, H100_SMS)
+    assert n == 1
+    pallas = _pallas(q, k, v, causal, window)
+    np.testing.assert_allclose(_model(q, k, v, causal, window, n, chunk), pallas, rtol=2e-3,
+                               atol=2e-3)
+    bad = _model(q, k, v, causal, window, n, chunk, broken="no_unit_rescale")
+    # under a window of 8 a team holds at most one key a row sees: no
+    # unit raises a max it already had, so the fault changes nothing there
+    assert np.allclose(bad, pallas, rtol=2e-3, atol=2e-3) == (window > 0)
+    q, k, v = _case(1, 2, 3, 2, dh, seed=dh)
+    out = _model(q, k, v, True, 0, 1, 2)
+    assert np.array_equal(out[:, :, 0], np.zeros_like(out[:, :, 0]))
+    np.testing.assert_allclose(out, _plain(q, k, v, True, 0), rtol=1e-5, atol=1e-5)

@@ -924,13 +924,14 @@ def test_cuda_tile_route_matches_plain_at_both_tiles(cuda, dh, small, causal, wi
     [B, L, H, Dh] layouts: one tile-route launch a call, within 2e-3 of the
     plain version, and the same bits on two calls."""
     gen = torch.Generator(device=cuda).manual_seed(dh + 2 * small)
-    bm = fa.tile_shape(dh, small)[0]
+    form = "small" if small else "large"
+    bm = fa.tile_shape(dh, form)[0]
     b, hkv = (1, 2) if small else (33, 4)
     cases = [(b, hkv, 1, 2 * bm - 1, 2 * bm + 20), (b, hkv, 1, 2 * bm + 1, 2 * bm + 1),
              (b if small else 17, hkv if small else 8, 4, 9 if small else 33, 40)]
     for b, hkv, group, lq, lk in cases:
         plan = fa.tile_plan(b, hkv, group * lq, dh, fa._sm_count(0))
-        assert plan[:2] == fa.tile_shape(dh, small), plan
+        assert plan[:2] == fa.tile_shape(dh, form), plan
         x = torch.randn(b, lq, hkv * group, dh, generator=gen, device=cuda)
         ck, cv = (torch.randn(b, lk + 3, hkv, dh, generator=gen, device=cuda) for _ in range(2))
         q, k, v = x.transpose(1, 2), ck[:, :lk].transpose(1, 2), cv[:, :lk].transpose(1, 2)
@@ -1044,6 +1045,129 @@ def test_cuda_decode_route_zeroes_rows_without_keys(cuda, dh):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# the float32 paths' new forms: MLA's layer forward and zamba2's on the mid
+# tile (the latter at its own (80, 80)), at the path shapes and ragged ones
+MID_CASES = [(1, 128, 128, 64, 64, 192, 128, 0), (2, 32, 32, 64, 64, 80, 80, 4096),
+             (1, 128, 128, 61, 75, 192, 128, 0), (2, 32, 32, 70, 70, 80, 80, 5),
+             (3, 48, 24, 33, 40, 80, 80, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MID_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_cuda_tile_mid_form_matches_plain_and_model(cuda, case):
+    """The tile route's mid form (32 rows over 32-key tiles, 128 threads)
+    where the plan picks it: within 2e-3 of the plain version and 1e-5 of
+    its CPU model (``ref.flash_attention_tile_ref`` at the plan's tiles),
+    the same bits twice and with the log-sum-exp, and the rows with no key
+    (Lq > Lk under causal) exactly 0."""
+    b, h, hkv, lq, lk, dqk, dv, window = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    q = torch.randn(b, h, lq, dqk, generator=gen, device=cuda)
+    k = torch.randn(b, hkv, lk, dqk, generator=gen, device=cuda)
+    v = torch.randn(b, hkv, lk, dv, generator=gen, device=cuda)
+    assert fa.kernel_widths("cuda_core", dqk, dv) == (dqk, dv)
+    bm, bn, _ = fa.tile_plan(b, hkv, h // hkv * lq, dqk, fa._sm_count(0))
+    assert fa.plan_form(dqk, bm) == "mid"
+    before = fa_launches()
+    got = fa.flash_attention(q, k, v, True, window)
+    assert fa_launches() == (before[0] + 1, before[1], before[2])
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, True, window), rtol=2e-3,
+                               atol=2e-3)
+    model = ref.flash_attention_tile_ref(q, k, v, True, window, bm=bm, bn=bn)
+    torch.testing.assert_close(got, model, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, True, window))
+    assert torch.equal(got, fa._launch("cuda_core", q, k, v, True, window, with_lse=True)[0])
+    if lq > lk:
+        assert torch.equal(got[:, :, :lq - lk], torch.zeros_like(got[:, :, :lq - lk]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("small", [False, True])
+@pytest.mark.parametrize("causal,window", TILE_MASKS)
+def test_cuda_tile_route_at_80_matches_plain(cuda, small, causal, window):
+    """hubert's and zamba2's width 80 at its own instantiation (rows padded
+    to 21 chunks in shared memory, 5 output dims a thread), under the large
+    and the small tile, rows ragged around both, q, k and v read in place
+    from [B, L, H, Dh]: within 2e-3 of the plain version, the same bits
+    twice and with the log-sum-exp."""
+    gen = torch.Generator(device=cuda).manual_seed(80 + 2 * small)
+    form = "small" if small else "large"
+    bm = fa.tile_shape(80, form)[0]
+    b, hkv = (1, 2) if small else (33, 4)
+    assert fa.kernel_widths("cuda_core", 80, 80) == (80, 80)
+    for lq, lk in [(2 * bm - 1, 2 * bm + 20), (2 * bm + 1, 2 * bm + 1)]:
+        assert fa.tile_plan(b, hkv, lq, 80, fa._sm_count(0))[0] == bm
+        x = torch.randn(b, lq, hkv, 80, generator=gen, device=cuda)
+        ck, cv = (torch.randn(b, lk + 3, hkv, 80, generator=gen, device=cuda) for _ in range(2))
+        q, k, v = x.transpose(1, 2), ck[:, :lk].transpose(1, 2), cv[:, :lk].transpose(1, 2)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal, window),
+                                   rtol=2e-3, atol=2e-3)
+        assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal, window=window))
+        assert torch.equal(got, fa._launch("cuda_core", q, k, v, causal, window,
+                                           with_lse=True)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [4096, 3001, 300])
+def test_cuda_decode_ring_step_matches_plain_and_model(cuda, lk):
+    """h2o-danube's ring step (q [1, 32, 1, 120] over 8 kv heads) over the
+    [B, buf, Hkv, Dh] ring read in place, at its 4,096 slots (16 splits of
+    256 keys, 4 rows a block) and ragged lengths: within 2e-3 of the plain
+    version and 1e-5 of its CPU model (``ref.flash_attention_split_ref`` at
+    the wrapper's plan), the same bits twice, one launch; a window of one
+    key (every split but one holds none of a row's keys) matches the plain
+    version; the counters are all 0 after the call."""
+    gen = torch.Generator(device=cuda).manual_seed(lk)
+    ring_k, ring_v = (torch.randn(1, lk, 8, 120, generator=gen, device=cuda) for _ in range(2))
+    k, v = ring_k.transpose(1, 2), ring_v.transpose(1, 2)
+    q = torch.randn(1, 1, 32, 120, generator=gen, device=cuda).transpose(1, 2)
+    assert fa._aligned(k) is k and fa._aligned(v) is v
+    r, _, n, chunk = fa.decode_plan(1, 8, 4, lk, 128, fa._sm_count(0))
+    if lk == 4096:
+        assert (r, n, chunk) == (4, 16, 256)
+    before = fa.DECODE_LAUNCHES
+    got = fa.flash_attention(q, k, v)
+    assert fa.DECODE_LAUNCHES == before + 1
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v), rtol=2e-3, atol=2e-3)
+    _, teams, unit = fa.decode_layout(128)
+    model = ref.flash_attention_split_ref(q, k, v, n_splits=n, chunk=chunk, teams=teams,
+                                          unit=unit)
+    torch.testing.assert_close(got, model, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+    one = fa.flash_attention(q, k, v, window=1)
+    torch.testing.assert_close(one, ref.flash_attention_ref(q, k, v, window=1), rtol=2e-3,
+                               atol=2e-3)
+    torch.cuda.synchronize()
+    assert all(int(c.count_nonzero()) == 0 for c in fa._COUNTERS.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [64, 37, 1])
+def test_cuda_decode_zamba2_step_at_80(cuda, lk):
+    """zamba2's step (q [2, 32, 1, 80] over its ring, one split) at its own
+    (80, 80) instantiation: within 2e-3 of the plain version and 1e-5 of
+    the CPU model, the same bits twice; a query before every key (Lq 2 over
+    one key, causal) comes out 0 in its first row."""
+    gen = torch.Generator(device=cuda).manual_seed(lk + 80)
+    ck, cv = (torch.randn(2, lk, 32, 80, generator=gen, device=cuda) for _ in range(2))
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    q = torch.randn(2, 1, 32, 80, generator=gen, device=cuda).transpose(1, 2)
+    assert fa.kernel_widths("decode", 80, 80) == (80, 80)
+    got = fa.flash_attention(q, k, v, window=4096)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=4096), rtol=2e-3,
+                               atol=2e-3)
+    _, _, n, chunk = fa.decode_plan(2, 32, 1, lk, 80, fa._sm_count(0))
+    _, teams, unit = fa.decode_layout(80)
+    model = ref.flash_attention_split_ref(q, k, v, True, 4096, n_splits=n, chunk=chunk,
+                                          teams=teams, unit=unit)
+    torch.testing.assert_close(got, model, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, window=4096))
+    q2 = torch.randn(2, 32, 2, 80, generator=gen, device=cuda)
+    out = fa.flash_attention(q2, k[:, :, :1], v[:, :, :1])
+    assert torch.equal(out[:, :, 0], torch.zeros_like(out[:, :, 0]))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("lk", [32, 4096])
 def test_cuda_decode_route_gives_the_same_bits_twice(cuda, lk):
@@ -1059,8 +1183,8 @@ def test_cuda_decode_route_gives_the_same_bits_twice(cuda, lk):
 @pytest.mark.gpu
 def test_cuda_decode_launches_count_once_a_call(cuda):
     """DECODE_LAUNCHES goes up by exactly one a call, whether the call ran
-    one kernel (one split) or two (the splits' combine); the tile route
-    and bfloat16 leave it alone."""
+    one split or several (whose last block folds them); the tile route and
+    bfloat16 leave it alone."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     q = torch.randn(1, 4, 1, 64, generator=gen, device=cuda)
     for lk in (5, 300, 5000):

@@ -323,14 +323,19 @@ def test_flash_attention_launch_refuses_a_route_of_another_dtype():
 
 def test_flash_attention_decode_route_has_its_entry_point():
     """The decode route is a second entry point of the float32 source,
-    which _build compiles; its kernels use no atomics."""
+    which _build compiles; no sum of its kernel uses atomics: its one
+    atomic is the count by which a row tile's last block learns that every
+    split has written its partial, and that block folds them in split
+    order."""
     source, entry = fa.KERNELS["decode"]
     assert source == fa.KERNELS["cuda_core"][0] and source in _build.SOURCES
     text = (_build.CSRC / f"{source}.cu").read_text()
     assert f'extern "C" int {entry}(' in text
-    assert "flash_decode_kernel" in text and "flash_decode_combine_kernel" in text
+    assert "flash_decode_kernel" in text and "flash_decode_combine_kernel" not in text
     decode = text[text.index("// decode route"):]
-    assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", decode)
+    atomics = re.findall(r"atomic[A-Z]\w*|\batom\.[\w.]+|\bred\.[\w.]+", decode)
+    assert atomics == ["atom.acq_rel.gpu.global.add.s32"], atomics
+    assert '"l"(counters + tile_id)' in decode
 
 
 def test_flash_attention_sm90_source_keeps_its_contract():
